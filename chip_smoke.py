@@ -9,16 +9,27 @@ nonzero exit. Phases:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit; no CUDA
    means exit 1 (there is no CPU path);
-2. build: nvcc of ``csrc/*.cu``, with its time;
-3. kernels against their plain PyTorch versions on the card, at the main
+2. build: nvcc of each ``csrc/*.cu``, all at once, with the time;
+3. K1's kernels against their plain PyTorch versions on the card, at the LJ
    path's shapes (LJ fluid, N = 2048): forces and energy, one substep run,
    and 40-step chunks of four splittings without and with noise;
 4. noise statistics: BAOAB at 120 K through the bound integrator, mean
    kinetic temperature within 5 %;
-5. the main path as bench.py drives it (LennardJonesFluid(2048) ->
+5. the LJ main path as bench.py drives it (LennardJonesFluid(2048) ->
    BAOABIntegrator(120 K, 1/ps, 2 fs) -> bind -> initial_state -> run in
    50,000-step chunks), with a host fetch of positions each chunk, the
-   kernels' launch counts, steps/s, and kernel and plain times.
+   kernels' launch counts, steps/s, and kernel and plain times;
+6. K2's kernels (the bounded sweep) against their plain versions at the
+   explicit-solvent shapes (24,000 atoms, 24,064 slots): PME with the LJ
+   switch, reaction field, and the Coulomb switch, each with the bound
+   re-measured and passed through;
+7. the explicit-solvent main path: PMEWaterBox(box_edge=6.223) (8,000
+   rigid TIP3P waters, PME) -> BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind
+   (sweep mode, SETTLE) -> initial_state -> run, warmed up for 5,000 steps
+   and timed in 1,000-step chunks that each end in a host fetch of the
+   positions; launch counts, steps/s and ns/day, the kinetic temperature, the
+   rigid geometry, the final energy and forces against the plain versions,
+   K2 and PME times, and a profile of the step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +49,22 @@ CHUNK = 50_000
 TEMPERATURE = 120.0
 SOURCE = "openmmtools_tpu_torch/csrc/fused_langevin.cu"
 REPLACES = "openmmtools_tpu/ops/pallas_baoab.py:761"
+SWEEP_SOURCE = "openmmtools_tpu_torch/csrc/sweep_nb.cu"
+SWEEP_REPLACES = "openmmtools_tpu/ops/sweep_nb.py:471"
+WATER_EDGE = 6.223       # the JAC DHFR box: 20^3 TIP3P waters, 24,000 atoms
+WATER_T = 300.0
+WARMUP = 5_000
+WATER_CHUNK = 1_000
+# the H100 SXM's published peaks (NVIDIA's data sheet): 3.35 TB/s of HBM,
+# 67 TFLOP/s of FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# FP32 operations counted per pair for the bounds below: a distance test
+# (3 differences, 2 wrap compares per axis, 3 squares, 2 sums, a compare)
+# and the LJ + erfc/RF + switch + force accumulation of a pair inside the
+# cutoff
+OPS_DIST = 15
+OPS_PAIR = 60
 SPLITTINGS = ("V R O R V", "O V R V O", "V R R O R R V", "V R V")
 # float32 kernel against float32 plain PyTorch: the sums over ~N partners run
 # in another order, and rsqrtf differs from torch.rsqrt in the last bits, so
@@ -76,9 +103,10 @@ def phase_build():
     from openmmtools_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build()
+    paths = _build.build()
     _build.load_library()
-    say(f"phase 2 build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    say(f"phase 2 build: {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def cuda_ms(fn, reps=200):
@@ -278,14 +306,385 @@ def phase_main_path(dev, smi, k):
     say(f"phase 5 one force evaluation N={N}: kernel {f_ms:.4f} ms, plain "
         f"{f_plain:.4f} ms; one substep run '{' '.join(seg)}': kernel "
         f"{s_ms:.4f} ms, plain {s_plain:.4f} ms ({smi})")
+    # bounds from this run's inputs: the forces need each of the N(N-1)/2
+    # pairs tested once and each pair inside the cutoff evaluated once
+    # (Newton's third law; the kernel meets each pair from both ends); the
+    # substep reads x, v, F and writes x, v
+    d2 = sum((xT[c][:, None] - xT[c][None, :]
+              - L[c] * torch.round((xT[c][:, None] - xT[c][None, :]) / L[c])
+              ) ** 2 for c in range(3))
+    n_in = int(((d2 < prog.rc ** 2) & (d2 > 1e-12)).sum()) // 2
+    n_tests = N * (N - 1) // 2
+    f_bound = bound_ms(4 * (3 * N + 3 + 3 * N + 1),
+                       n_tests * OPS_DIST + n_in * OPS_PAIR)
+    s_bound = bound_ms(4 * (5 * 3 * N + 4), 0)
+    say(f"phase 5 bounds: lj_forces {f_bound[0]:.5f} ms by {f_bound[1]} "
+        f"({n_tests} pair tests, {n_in} pairs inside the cutoff), "
+        f"langevin_substep {s_bound[0]:.5f} ms by {s_bound[1]}")
     return [
         dict(name="lj_forces", route="cuda", source=SOURCE, replaces=REPLACES,
              launches=launches["lj_forces"], max_abs_err=k["f_err"],
-             ms=f_ms, plain_ms=f_plain),
+             ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
+             bound_by=f_bound[1], library_ms=None),
         dict(name="langevin_substep", route="cuda", source=SOURCE,
              replaces=REPLACES, launches=launches["langevin_substep"],
-             max_abs_err=k["s_err"], ms=s_ms, plain_ms=s_plain),
+             max_abs_err=k["s_err"], ms=s_ms, plain_ms=s_plain,
+             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None),
     ], dict(steps_per_s_max=best, steps_per_s_median=median)
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time of a kernel on the card (ms): the larger of its bytes
+    over the memory rate and its FP32 operations over the FP32 peak, and
+    which of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# the explicit-solvent path: K2 (the bounded sweep) and sweep mode
+# ---------------------------------------------------------------------------
+
+
+def sweep_pairs(xT, L, k, S):
+    """The slot pairs (i, i + s), s = 1..S, of real slots, and those inside
+    the cutoff: each pair of the window once (the shell s = n_pad/2 meets
+    its pairs from both ends and counts half), counted in chunks."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    o = torch.arange(1, S + 1, device=xT.device)
+    weight = torch.where(o == k.n_pad // 2, 0.5, 1.0)
+    tested = inside = 0.0
+    rows = max(1, (1 << 22) // o.shape[0])
+    for i0 in range(0, k.n, rows):
+        i = torch.arange(i0, min(i0 + rows, k.n), device=xT.device)[:, None]
+        j = (i + o[None, :]) % k.n_pad
+        _, r2 = tsw._pair_r2(xT, L, i, j)
+        real = j < k.n
+        tested += float((real * weight).sum())
+        inside += float(((real & (r2 < k.rc * k.rc) & (r2 > 1e-12))
+                         * weight).sum())
+    return tested, inside
+
+
+def phase_sweep_kernels(dev):
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    term = w.system.terms[0]
+    n = w.system.n_particles
+    mask_shells = min(2048, max(32, (-(-n // 128) * 128 // 2 // 32) * 32))
+    worst = dict(f=0.0, nb=0)
+    for label, method, swc in (("pme, LJ switch", "pme", False),
+                               ("reaction field", "cutoff_periodic", False),
+                               ("pme, Coulomb switch", "pme", True)):
+        k = tsw.SweepNonbonded(
+            n, method, term.cutoff, switch_width=term.switch_width,
+            ewald_alpha=term.ewald_alpha if method == "pme" else None,
+            switch_coulomb=swc, mask_shells=mask_shells)
+        xT, par, excl, L, max_sep = tsw.sorted_inputs(term, w.positions,
+                                                      w.system.default_box, k)
+        assert int(max_sep) <= k.mask_shells
+        nb_in = torch.zeros((), dtype=torch.int32, device=dev)
+        for rebuild in (True, False):
+            flag = torch.tensor(rebuild, device=dev)
+            nb = k.measure_bound(xT, L, flag, nb_in)
+            nb_ref = tsw.measure_bound_reference(
+                xT, L, flag, nb_in, n=k.n, cutoff=k.rc, skin=k.skin,
+                shell_block=k.bs)
+            F, U = k.sweep(xT, par, excl, L, nb)
+            F_ref, U_ref = tsw.sweep_forces_reference(xT, par, excl, L,
+                                                      nb_ref, **k.physics())
+            torch.cuda.synchronize()
+            f_err = float((F - F_ref).abs().max())
+            f_rel, u_rel = max_rel(F, F_ref), abs(float(U - U_ref)) / abs(
+                float(U_ref))
+            say(f"phase 6 sweep {label}, rebuild {rebuild}: bound "
+                f"{int(nb)} vs plain {int(nb_ref)}, max|dF| {f_err:.3e} "
+                f"(rel {f_rel:.2e}), U {float(U):.4f} vs plain "
+                f"{float(U_ref):.4f} (rel {u_rel:.2e})")
+            assert int(nb) == int(nb_ref), (label, rebuild)
+            assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
+            worst["f"] = max(worst["f"], f_err)
+            worst["nb"] = max(worst["nb"], abs(int(nb) - int(nb_ref)))
+            nb_in = nb.reshape(()).clone()   # pass the bound through next
+    assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+    return worst
+
+
+def kinetic_temperature(masses, v, dof):
+    from openmmtools_tpu_torch.constants import kB
+
+    return float(torch.sum(masses[:, None] * v * v)) / (dof * kB)
+
+
+def profile_steps(bound, state, n_steps):
+    """torch.profiler over ``n_steps`` steps with the step's parts marked:
+    K2 (the sweep wrapper and its kernels), SETTLE on positions and on
+    velocities, the PME structure-factor einsums forward and backward, and
+    the rest of the remainder (bonded terms, exception add-back, PME's other
+    terms, forward and autograd backward). Returns the state, the profiled
+    wall ms per step, the device's busy ms per step, per part (device ms,
+    host ms) per step, and the busiest kernels.
+
+    Each device activity goes to the innermost marked range that was open on
+    the host when it was launched: the launch's runtime call, found by its
+    correlation id, or else the operator it is linked to. "other" holds what
+    falls in no range (the integrator's updates, the sort and its gathers)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import openmmtools_tpu_torch.integrators.langevin as lg
+    from openmmtools_tpu_torch.ops import pme as tpme
+
+    marks = {"K2 sweep": (bound._sweep_kernel, "evaluate"),
+             "SETTLE positions": (bound, "_constrain_positions"),
+             "SETTLE velocities": (bound, "_constrain_velocities"),
+             "PME einsums, forward": (tpme, "_sf_forward_real"),
+             "PME einsums, backward": (tpme, "_sf_real_backward"),
+             "remainder, rest (fwd + bwd)": (lg, "value_and_grad")}
+    originals = {}
+    for label, (obj, name) in marks.items():
+        fn = getattr(obj, name)
+        # (the function, whether obj itself held it or its class did)
+        originals[label] = (fn, name in vars(obj))
+
+        def marked(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+        setattr(obj, name, marked)
+    try:
+        state = bound.run(state, 10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = bound.run(state, n_steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for label, (obj, name) in marks.items():
+            fn, own = originals[label]
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+    events = prof.profiler.kineto_results.events()
+    # device work: kernels, copies and fills (the marked ranges also show on
+    # the device as spans, which are not work)
+    work = [e for e in events
+            if e.device_type() == DeviceType.CUDA and e.name() not in marks]
+    busy_ns = sum(e.duration_ns() for e in work)
+    host_events = [e for e in events if e.device_type() == DeviceType.CPU]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in host_events if e.name() in marks]
+    # the runtime's launch calls (cudaLaunchKernel, cuLaunchKernelEx,
+    # cudaMemcpyAsync, ...) carry the correlation id of the device activity
+    # they start; operators and ranges carry ids of their own
+    host_ops = {}
+    launches = {}
+    for e in host_events:
+        table = launches if e.name().startswith("cu") else host_ops
+        table[e.correlation_id()] = e.start_ns()
+
+    def part_at(t):
+        inner = None
+        for lo, hi, name in ranges:
+            if lo <= t <= hi and (inner is None or hi - lo < inner[0]):
+                inner = (hi - lo, name)
+        return "other" if inner is None else inner[1]
+
+    device = defaultdict(float)
+    by_name = defaultdict(float)
+    linked = 0
+    for e in work:
+        t = launches.get(e.correlation_id(),
+                         host_ops.get(e.linked_correlation_id()))
+        linked += t is not None
+        device["other" if t is None else part_at(t)] += e.duration_ns()
+        by_name[e.name()[:60]] += e.duration_ns()
+    host = defaultdict(float)
+    for lo, hi, name in ranges:
+        host[name] += hi - lo
+    per_step = 1e6 * n_steps
+    parts = {label: (device[label] / per_step, host[label] / per_step)
+             for label in list(marks) + ["other"]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    say(f"phase 7 profile: {len(work)} device activities, {linked} traced to "
+        f"their launch")
+    return (state, 1e3 * wall / n_steps, busy_ns / per_step, parts,
+            [(name, ns / per_step) for name, ns in top])
+
+
+def phase_water(dev, smi, k6):
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+    from openmmtools_tpu_torch.system import value_and_grad
+
+    t0 = time.perf_counter()
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    system = w.system
+    n = system.n_particles
+    bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                            timestep=0.002).bind(system)
+    t_setup = time.perf_counter() - t0
+    assert bound.sweep_mode, "sweep mode did not engage on CUDA"
+    assert bound._fused is None, "the fused LJ kernel took the water box"
+    assert bound._rest_constraints is None
+    assert 3 * bound._settle.a.shape[0] == system.constraints.n_constraints \
+        == n == 24000
+    k = bound._sweep_kernel
+    dof = 3 * n - system.constraints.n_constraints
+    say(f"phase 7 setup: {n} atoms, {bound._settle.a.shape[0]} SETTLE "
+        f"waters, n_pad {k.n_pad}, mask_rows {k.mask_rows}, PME kmax "
+        f"{system.terms[1].kmax}, alpha {system.terms[1].alpha:.4f}; built "
+        f"and bound in {t_setup:.2f} s")
+
+    for key in k.launches:
+        k.launches[key] = 0
+    state = bound.initial_state(w.sampler_state(),
+                                torch.Generator(device=dev).manual_seed(0))
+    tw = time.perf_counter()
+    state = bound.run(state, WARMUP)
+    torch.cuda.synchronize()
+    say(f"phase 7 warm-up: {WARMUP} steps in {time.perf_counter() - tw:.2f} s")
+    temps = []
+    for _ in range(20):
+        state = bound.run(state, 50)
+        temps.append(kinetic_temperature(system.masses, state.velocities, dof))
+    mean_t = statistics.fmean(temps)
+    say(f"phase 7 kinetic temperature: {mean_t:.3f} K over 20 samples 50 "
+        f"steps apart ({dof} degrees of freedom; sd "
+        f"{statistics.stdev(temps):.3f} K)")
+    assert abs(mean_t - WATER_T) < 0.05 * WATER_T
+    rates = []
+    tc0 = time.perf_counter()
+    while len(rates) < 3 or (time.perf_counter() - tc0 < 20.0
+                             and len(rates) < 10):
+        tc = time.perf_counter()
+        state = bound.run(state, WATER_CHUNK)
+        positions = state.positions.cpu().numpy()
+        rates.append(WATER_CHUNK / (time.perf_counter() - tc))
+        assert positions.shape == (n, 3)
+    launches = dict(k.launches)
+    steps = WARMUP + 20 * 50 + WATER_CHUNK * len(rates)
+    say(f"phase 7 main path: {steps} steps; launches {launches}")
+    for kernel, count in launches.items():
+        assert count > 0, f"{kernel} never launched on the main path"
+    best, median = max(rates), statistics.median(rates)
+    ns_day = median * 0.002 * 86400 / 1e3
+    say(f"phase 7 throughput: {best:.1f} steps/s max, {median:.1f} median "
+        f"({len(rates)} timed chunks of {WATER_CHUNK}), {ns_day:.2f} ns/day "
+        f"at 2 fs, on {smi}")
+
+    # the output is right: finite, rigid, and the run's own final energy and
+    # forces agree with the plain sweep plus the remainder at the same
+    # positions (a fresh sort and a full rebuild)
+    x = state.positions
+    assert torch.isfinite(x).all() and torch.isfinite(state.velocities).all()
+    c = system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    L = torch.diagonal(system.default_box)
+    d = x[i] - x[j]
+    d = d - L * torch.round(d / L)
+    geom = float(((torch.linalg.norm(d, dim=1) - c.distance)
+                  / c.distance).abs().max())
+    say(f"phase 7 SETTLE: max relative bond-length error {geom:.2e}")
+    assert geom <= 1e-5
+    sw = bound._sweep_dict(bound._resort_sweep(state))
+    plain = tsw.PlainSweepNonbonded.like(k)
+    bound._sweep_kernel = plain
+    try:
+        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+    finally:
+        bound._sweep_kernel = k
+    u_run, f_run = state.potentials[0], state.forces[0]
+    u_rel = abs(float(u_run - u_p)) / abs(float(u_p))
+    f_rel = max_rel(f_run, f_p)
+    say(f"phase 7 final state: U {float(u_run):.3f} vs plain {float(u_p):.3f} "
+        f"(rel {u_rel:.2e}), forces rel {f_rel:.2e}")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+
+    # K2 and PME at the main path's final state, in turns with the plain
+    # versions; the bound kernel timed on a rebuild (its real work)
+    xT, par, excl, L, _ = tsw.sorted_inputs(system.terms[0], x,
+                                            system.default_box, k)
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flag, zero)
+    S = min(int(nb) * k.bs, k.n_pad // 2)
+    f_kernel = lambda: k.sweep(xT, par, excl, L, nb)  # noqa: E731
+    f_plain = lambda: plain.sweep(xT, par, excl, L, nb)  # noqa: E731
+    b_kernel = lambda: k.measure_bound(xT, L, flag, zero)  # noqa: E731
+    b_plain = lambda: plain.measure_bound(xT, L, flag, zero)  # noqa: E731
+    recip = system.terms[1]
+    box = system.default_box
+    pme = lambda: value_and_grad(  # noqa: E731
+        lambda xx: recip.energy_without_exclusions(xx, box), x)
+    before = dict(k.launches)
+    t = {}
+    for label, fn, reps in (("plain_f", f_plain, 5), ("kernel_f", f_kernel, 50),
+                            ("kernel_f2", f_kernel, 50), ("plain_f2", f_plain, 5),
+                            ("plain_b", b_plain, 3), ("kernel_b", b_kernel, 20),
+                            ("kernel_b2", b_kernel, 20), ("plain_b2", b_plain, 3),
+                            ("pme", pme, 20), ("pme2", pme, 20)):
+        t[label] = cuda_ms(fn, reps=reps)
+    for key in k.launches:   # the comparisons' launches are not the path's
+        k.launches[key] = before[key]
+    f_ms, f_plain_ms = min(t["kernel_f"], t["kernel_f2"]), min(
+        t["plain_f"], t["plain_f2"])
+    b_ms, b_plain_ms = min(t["kernel_b"], t["kernel_b2"]), min(
+        t["plain_b"], t["plain_b2"])
+    pme_ms = min(t["pme"], t["pme2"])
+    # bounds from this run's inputs, each pair of the window once (the
+    # kernel meets each pair of the force sweep from both ends): the force
+    # sweep tests the pairs within S shells and evaluates those inside the
+    # cutoff; the bound pass tests the pairs of the whole ring
+    tested, inside = sweep_pairs(xT, L, k, S)
+    half_tested, _ = sweep_pairs(xT, L, k, k.n_pad // 2)
+    in_bytes = 4 * (3 * k.n_pad + 3 * k.n_pad + k.mask_rows * k.n_pad + 3 + 1)
+    f_bound = bound_ms(in_bytes + 4 * (3 * k.n_pad + 1),
+                       tested * OPS_DIST + inside * OPS_PAIR)
+    b_bound = bound_ms(4 * (3 * k.n_pad + 3 + 2 + 1), half_tested * OPS_DIST)
+    say(f"phase 7 K2 at the final state (bound {int(nb)} blocks, S = {S} "
+        f"shells): sweep_forces kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} "
+        f"ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} ({tested:.0f} pair "
+        f"tests, {inside:.0f} pairs inside the cutoff); sweep_bound on a "
+        f"rebuild kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, bound "
+        f"{b_bound[0]:.4f} ms by {b_bound[1]} ({half_tested:.0f} pair tests); "
+        f"PME reciprocal energy + forces {pme_ms:.4f} ms a call back to back "
+        f"(host-bound; its device time is in the profile below) ({smi})")
+
+    state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50)
+    step_ms = 1e3 / median
+    say(f"phase 7 profile, 50 steps: {wall_ms:.3f} ms/step wall under the "
+        f"profiler ({step_ms:.3f} without it), device busy {busy_ms:.3f} "
+        f"ms/step: busy share {busy_ms / step_ms:.3f} of the unprofiled step "
+        f"({busy_ms / wall_ms:.3f} of the profiled one)")
+    say("phase 7 profile, device ms/step (host ms/step in the range) by "
+        "part: " + "; ".join(f"{label} {dev_ms:.4f} ({host_ms:.3f})"
+                             for label, (dev_ms, host_ms) in parts.items()))
+    say("phase 7 profile, busiest device activities (ms/step): " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in top))
+    return [
+        dict(name="sweep_forces", route="cuda", source=SWEEP_SOURCE,
+             replaces=SWEEP_REPLACES, launches=launches["sweep_forces"],
+             max_abs_err=k6["f"], ms=f_ms, plain_ms=f_plain_ms,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
+        dict(name="sweep_bound", route="cuda", source=SWEEP_SOURCE,
+             replaces=SWEEP_REPLACES, launches=launches["sweep_bound"],
+             max_abs_err=float(k6["nb"]), ms=b_ms, plain_ms=b_plain_ms,
+             bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None),
+    ], dict(steps_per_s_max=best, steps_per_s_median=median,
+            ns_per_day=ns_day, step_ms_profiled=wall_ms,
+            device_busy_ms=busy_ms, pme_ms=pme_ms,
+            device_ms_by_part={k_: v[0] for k_, v in parts.items()})
 
 
 def main():
@@ -295,8 +694,11 @@ def main():
     k = phase_kernels(dev)
     phase_noise(dev)
     kernels, rate = phase_main_path(dev, smi, k)
-    say(json.dumps({"main_path": rate, "card": smi}))
-    print(json.dumps({"kernels": kernels}))
+    k6 = phase_sweep_kernels(dev)
+    water_kernels, water_rate = phase_water(dev, smi, k6)
+    say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
+                    "card": smi}))
+    print(json.dumps({"kernels": kernels + water_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

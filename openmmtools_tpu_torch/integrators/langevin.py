@@ -9,17 +9,28 @@ The operator-splitting language of openmmtools' ``LangevinIntegrator``:
 * ``{ ... }`` Metropolization of the enclosed deterministic substeps (GHMC)
 
 ``BoundIntegrator`` turns a splitting into a step program over tensors, run
-eagerly by ``run(state, n_steps)``. On a CUDA system that qualifies (plain
-R/V/O splitting of a monodisperse, uncharged, periodic LJ fluid) ``run`` goes
-through the fused kernel of :mod:`openmmtools_tpu_torch.ops.fused_langevin`
-instead, with the same eligibility rules as the JAX package's TPU path.
+eagerly by ``run(state, n_steps)``. Two production paths take over where they
+qualify, with the JAX package's eligibility rules and "the system lives on a
+CUDA device" in place of "the backend is a TPU":
+
+* sweep mode (large periodic systems with a real force field, N >= 1024): the
+  NonbondedTerm's direct space goes through the bounded-sweep kernel of
+  :mod:`openmmtools_tpu_torch.ops.sweep_nb`, and the bonded terms, exception
+  add-back, reciprocal space and constraints run as tensor code around it;
+* the fused kernel of :mod:`openmmtools_tpu_torch.ops.fused_langevin` for a
+  plain R/V/O splitting of a monodisperse, uncharged, periodic LJ fluid; it
+  supersedes sweep mode.
+
+Constraints follow OpenMM's SETTLE + CCMA architecture: SETTLE for rigid
+waters, cluster M-SHAKE/M-RATTLE for the remaining small clusters, Jacobi
+SHAKE/RATTLE where clustering fails (:mod:`openmmtools_tpu_torch.ops.constraints`).
 
 Noise comes from the ``torch.Generator`` the caller hands to
 ``initial_state``; the state carries it and each run advances it.
 
-Not ported yet, each with its own slice: constraints (SHAKE/RATTLE/SETTLE),
-the neighbour-list and sweep force paths, and the H (alchemical
-perturbation) token of the nonequilibrium integrators.
+Not ported yet, each with its own slice: the neighbour-list force path, the
+alchemical sweep variant, and the H (alchemical perturbation) token of the
+nonequilibrium integrators.
 """
 from __future__ import annotations
 
@@ -29,11 +40,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from openmmtools_tpu_torch.constants import kB
+from openmmtools_tpu_torch.ops import bonded, constraints, nonbonded, sweep_nb
+from openmmtools_tpu_torch.ops.geometry import minimum_image
+from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
 from openmmtools_tpu_torch.system import (
+    HarmonicAngleTerm,
+    HarmonicBondTerm,
     NonbondedTerm,
+    PeriodicTorsionTerm,
     System,
     make_energy_force_fn,
+    value_and_grad,
 )
 from openmmtools_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
@@ -99,7 +117,8 @@ def parse_splitting(splitting: str) -> List[str]:
 class IntegratorState:
     """Carried state of an integrator: positions, velocities, kT, box, the
     per-force-group force/energy caches, work/heat bookkeeping and GHMC
-    counters. ``generator`` is the noise source (advanced in place)."""
+    counters, and in sweep mode the sweep state (None otherwise).
+    ``generator`` is the noise source (advanced in place)."""
 
     positions: torch.Tensor
     velocities: torch.Tensor
@@ -114,6 +133,14 @@ class IntegratorState:
     n_accepted: Any = 0
     n_proposed: Any = 0
     step_count: int = 0
+    # bounded-sweep state (ops/sweep_nb.py; None when sweep mode is off)
+    sweep_perm: Optional[torch.Tensor] = None   # (N,) sorted slot -> atom
+    sweep_inv: Optional[torch.Tensor] = None    # (N,) atom -> sorted slot
+    sweep_snap: Optional[torch.Tensor] = None   # (N, 3) sorted coords at rebuild
+    sweep_nblk: Optional[torch.Tensor] = None   # () int32; -1 forces a rebuild
+    sweep_excl: Optional[torch.Tensor] = None   # (mask_rows, n_pad) int32
+    sweep_par: Optional[torch.Tensor] = None    # (3, n_pad) sorted parameters
+    sweep_overflow: Optional[torch.Tensor] = None  # () bool, sticky
     generator: Optional[torch.Generator] = static_field(default=None)
 
     @property
@@ -148,6 +175,7 @@ class _Env:
         self.n_accepted = None
         self.n_proposed = None
         self.box = None
+        self.sweep = None
         self.stash = None
 
 
@@ -158,10 +186,6 @@ class BoundIntegrator:
     def __init__(self, integrator: "LangevinIntegrator", system: System):
         self.integrator = integrator
         self.system = system
-        if system.constraints.n_constraints > 0:
-            raise NotImplementedError(
-                "constrained systems need ops/constraints.py, which the port "
-                "does not have yet")
         self.masses = system.masses
         self.inv_mass = torch.where(
             system.masses > 0, 1.0 / torch.clamp(system.masses, min=1e-30), 0.0)
@@ -186,8 +210,274 @@ class BoundIntegrator:
         self.ou_a = math.exp(-gamma * self.h_O)
         self.ou_b = math.sqrt(1.0 - math.exp(-2.0 * gamma * self.h_O))
 
+        # constraint solver dispatch (OpenMM's SETTLE + CCMA architecture):
+        # analytic SETTLE for rigid isosceles triangles and cluster M-SHAKE
+        # for the remaining small clusters, on their disjoint atom sets;
+        # Jacobi SHAKE/RATTLE where clustering fails
+        self._settle = None
+        self._clusters = None
+        self._rest_constraints = None
+        if system.constraints.n_constraints > 0:
+            self._settle, rest = constraints.partition_constraints(
+                system.constraints, system.masses)
+            if rest is not None:
+                self._rest_constraints = rest
+                self._clusters = constraints.analyze_clusters(
+                    rest, system.masses)
+
+        self._sweep_setup()
         self._fused = None
-        self._fused_setup()
+        self._fused_setup()   # after the sweep: the fused kernel supersedes it
+        # inside a run the trailing velocity projection of each step is
+        # dropped when the next step's leading V/O re-projects at the same
+        # positions (see _vproj_skip_eligible); run_program restores the
+        # final state's projection once per run
+        self._vproj_skip = self._vproj_skip_eligible()
+
+    # -- bounded-sweep production path (large heterogeneous systems) -------
+    def _sweep_setup(self):
+        """Enable the bounded-sweep direct-space kernel (ops/sweep_nb.py) for
+        large periodic systems with real force fields. The kernel replaces
+        the NonbondedTerm's standard pair sum (exception pairs masked, added
+        back as tensor code); bonded terms, reciprocal space, constraints
+        and the splitting run around it. ``sweep="auto"`` engages on a CUDA
+        system with N >= 1024; "force" (or "interpret", the JAX package's
+        name for its CPU mode) engages on any device, where a CPU system runs
+        the kernels' plain versions; None disables."""
+        self.sweep_mode = False
+        self._sweep_group = None
+        integ = self.integrator
+        policy = integ.sweep
+        system = self.system
+        if policy is None or system.default_box is None:
+            return
+        nb_terms = [t for t in system.terms if type(t) is NonbondedTerm]
+        if len(nb_terms) != 1:
+            return
+        term = nb_terms[0]
+        # the sweep serves the force group holding the NonbondedTerm; with
+        # numbered Vn splittings (MTS) the other groups evaluate normally
+        if self.groups == [None]:
+            sweep_group = None
+        elif term.force_group in self.groups:
+            sweep_group = term.force_group
+        else:
+            return
+        if (term.method not in ("pme", "ewald", "cutoff_periodic")
+                or term.cutoff is None):
+            return
+        if policy == "auto" and (system.device.type != "cuda"
+                                 or system.n_particles < 1024):
+            return
+        diag = torch.diagonal(system.default_box).cpu()
+        if float(term.cutoff) > 0.5 * float(diag.min()):
+            return
+        n = system.n_particles
+        n_pad = -(-n // 128) * 128
+        mask_shells = min(2048, max(32, (n_pad // 2 // 32) * 32))
+        self._sweep_kernel = sweep_nb.SweepNonbonded(
+            n, term.method, float(term.cutoff),
+            switch_width=term.switch_width, dielectric=term.dielectric,
+            ewald_alpha=term.ewald_alpha, shift_rf=term.shift_rf,
+            switch_coulomb=term.switch_coulomb,
+            shell_block=integ.sweep_shell_block or 8,
+            skin=integ.neighbor_skin or 0.1, mask_shells=mask_shells)
+        self.sweep_mode = True
+        self._sweep_group = sweep_group
+        self._sweep_term = term
+        self._sweep_pairs = sweep_nb.unique_pairs(term.exception_index)
+        self._sweep_sqrt_eps = torch.sqrt(term.epsilon)
+        self.sweep_sort_interval = integ.sweep_sort_interval or 100
+        self._sweep_remainder_setup()
+        # dispersion tail: the pair-averaged integral does not depend on the
+        # configuration; summed once here in float64 chunks of rows (the
+        # dense form holds (N, N) matrices)
+        self._sweep_disp_avg = None
+        if term.use_dispersion_correction:
+            sig = term.sigma.to(torch.float64)
+            eps = term.epsilon.to(torch.float64)
+            rc3 = float(term.cutoff) ** 3
+            rc9 = rc3 ** 3
+            chunk = max(1, (1 << 22) // n)
+            total = torch.zeros((), dtype=torch.float64, device=sig.device)
+            for lo in range(0, n, chunk):
+                s_ij = 0.5 * (sig[lo:lo + chunk, None] + sig[None, :])
+                e_ij = torch.sqrt(eps[lo:lo + chunk, None] * eps[None, :])
+                s6 = s_ij ** 6
+                total = total + torch.sum(
+                    4.0 * e_ij * (s6 * s6 / (9.0 * rc9) - s6 / (3.0 * rc3)))
+            self._sweep_disp_avg = float(total) / (n * n)
+
+    def _sweep_remainder_setup(self):
+        """Sort the terms sharing the sweep's force group into what one
+        gather of positions serves (the plain valence terms, the exception
+        add-back and, when its exclusion list is the exception list, the
+        reciprocal term's exclusion correction from the same r) and the
+        leftovers, each evaluated by its own energy()."""
+        term = self._sweep_term
+        g = self._sweep_group
+        other = [t for t in self.system.terms
+                 if t is not term and (g is None or t.force_group == g)]
+        exc = term.exception_index
+        self._sweep_recip = None
+        if exc.shape[0] > 0:
+            for t in other:
+                if (isinstance(t, EwaldReciprocalTerm) and t.kmax is not None
+                        and t.exclusion_index.shape == exc.shape
+                        and torch.equal(t.exclusion_index.cpu().long(),
+                                        exc.cpu().long())):
+                    self._sweep_recip = t
+                    break
+        self._sweep_valence = []
+        self._sweep_leftover = []
+        cols = []
+        for t in other:
+            if t is self._sweep_recip:
+                continue
+            if type(t) in (HarmonicBondTerm, HarmonicAngleTerm,
+                           PeriodicTorsionTerm):
+                if t.index.shape[0] == 0:
+                    continue   # an empty term contributes exactly 0
+                self._sweep_valence.append(t)
+                cols += [t.index[:, c] for c in range(t.index.shape[1])]
+            else:
+                self._sweep_leftover.append(t)
+        if exc.shape[0] > 0:
+            cols += [exc[:, 0], exc[:, 1]]
+        self._sweep_rows = (torch.cat(cols).long() if cols else None)
+
+    def _resort_sweep(self, state: IntegratorState) -> IntegratorState:
+        """Re-sort the sweep ring by current x; invalidates the block bound
+        (the next force evaluation rebuilds) and re-scatters the exception
+        bitfield for the new order."""
+        k = self._sweep_kernel
+        term = self._sweep_term
+        box = state.box if state.box is not None else self.system.default_box
+        perm, inv = sweep_nb.sort_for_sweep(state.positions, box, k.n_pad)
+        excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
+            self._sweep_pairs, inv, k.n_pad, k.mask_rows)
+        # the unscaled [sigma, sqrt(eps), charge] rows in the new order, in
+        # the kernels' layout; _sweep_eval folds in any scale parameters
+        par = sweep_nb.sorted_params(
+            term.sigma, self._sweep_sqrt_eps, term.charge, perm.long(),
+            k.n_pad, k.input_dtype(state.positions))
+        overflow = max_sep > k.mask_shells
+        if state.sweep_overflow is not None:
+            overflow = overflow | state.sweep_overflow
+        return state.replace(
+            sweep_perm=perm, sweep_inv=inv,
+            sweep_snap=torch.zeros_like(state.positions),
+            sweep_nblk=torch.full((), -1, dtype=torch.int32,
+                                  device=state.positions.device),
+            sweep_excl=excl, sweep_par=par, sweep_overflow=overflow)
+
+    @staticmethod
+    def _sweep_dict(state: IntegratorState):
+        """The sweep state that _sweep_eval reads and updates."""
+        return {"perm": state.sweep_perm, "inv": state.sweep_inv,
+                "snap": state.sweep_snap, "nblk": state.sweep_nblk,
+                "excl": state.sweep_excl, "par": state.sweep_par}
+
+    def _sweep_rest_energy(self, xx, box, params):
+        """Energy of the terms around the sweep kernel: valence terms,
+        exception add-back, reciprocal space and leftovers."""
+        term = self._sweep_term
+        tot = torch.zeros((), dtype=xx.dtype, device=xx.device)
+        X = xx[self._sweep_rows] if self._sweep_rows is not None else None
+        off = 0
+
+        def seg(count):
+            nonlocal off
+            rows = X[off:off + count]
+            off += count
+            return rows
+
+        for t in self._sweep_valence:
+            m = t.index.shape[0]
+            if type(t) is HarmonicBondTerm:
+                tot = tot + bonded.harmonic_bond_energy_rows(
+                    seg(m), seg(m), t.length, t.k)
+            elif type(t) is HarmonicAngleTerm:
+                tot = tot + bonded.harmonic_angle_energy_rows(
+                    seg(m), seg(m), seg(m), t.angle, t.k)
+            else:
+                tot = tot + bonded.periodic_torsion_energy_rows(
+                    seg(m), seg(m), seg(m), seg(m), t.periodicity, t.phase,
+                    t.k)
+        recip = self._sweep_recip
+        m = term.exception_index.shape[0]
+        if m > 0:
+            # exception pairs REPLACE the combined-rule pair: plain no-cutoff
+            # LJ + Coulomb ...
+            d = seg(m) - seg(m)
+            if term.periodic:
+                d = minimum_image(d, box)
+            r2 = torch.clamp(torch.sum(d * d, dim=-1), min=1e-12)
+            r = torch.sqrt(r2)
+            e = (nonbonded.lj_pair(r2, term.exception_sigma,
+                                   term.exception_epsilon)
+                 + nonbonded.coulomb_pair(r, term.exception_chargeprod,
+                                          "no_cutoff"))
+            tot = tot + torch.sum(e)
+            if recip is not None:
+                # ... and the same r serves the reciprocal term's
+                # -erf(alpha r)/r exclusion correction
+                tot = tot + recip.exclusion_correction_of_r(
+                    recip.effective_charge(params), r)
+        if recip is not None:
+            tot = tot + recip.energy_without_exclusions(xx, box, params)
+        for t in self._sweep_leftover:
+            tot = tot + t.energy(xx, box, params)
+        return tot
+
+    def _sweep_eval(self, x, box, params, sw):
+        """Energy and forces of the sweep's force group: the sweep kernel
+        for the NonbondedTerm's standard pairs plus the remainder with
+        autograd forces. ``sw`` is a dict of the sweep state; returns
+        (u, F, new_sw). The rebuild flag stays on the device."""
+        k = self._sweep_kernel
+        term = self._sweep_term
+        n = self.system.n_particles
+        dtype = k.input_dtype(x)
+        perm = sw["perm"].long()
+        y, xT = sweep_nb.sorted_positions(x, box, perm, k.n_pad, dtype)
+        disp = minimum_image(y - sw["snap"], box)
+        moved = torch.max(torch.sum(disp * disp, dim=-1)) > (0.5 * k.skin) ** 2
+        rebuild = (sw["nblk"] < 0) | moved
+
+        # global charge/lj scale parameters fold into the per-atom rows:
+        # q -> q scale and sqrt_eps -> sqrt_eps sqrt(lj_scale)
+        par = sw["par"]
+        lj_scale = None
+        if term.lj_scale_param is not None or term.charge_scale_param is not None:
+            one = torch.ones((), dtype=dtype, device=x.device)
+            scale = [one, one, one]
+            if term.lj_scale_param is not None:
+                lj_scale = (params or {}).get(term.lj_scale_param, 1.0)
+                scale[1] = torch.sqrt(torch.as_tensor(
+                    lj_scale, dtype=dtype, device=x.device))
+            if term.charge_scale_param is not None:
+                scale[2] = torch.as_tensor(
+                    (params or {}).get(term.charge_scale_param, 1.0),
+                    dtype=dtype, device=x.device)
+            par = par * torch.stack(scale)[:, None]
+        L = torch.diagonal(box)
+        F_s, u_s, nblk = k.evaluate(xT, par, sw["excl"],
+                                    L.to(dtype).contiguous(), rebuild,
+                                    sw["nblk"])
+        F_direct = F_s.t()[sw["inv"].long()].to(x.dtype)
+        u_r, g_r = value_and_grad(
+            lambda xx: self._sweep_rest_energy(xx, box, params), x)
+        u = u_s[0].to(x.dtype) + u_r
+        if self._sweep_disp_avg is not None:
+            tail = (2.0 * math.pi * n * n / torch.prod(L)) * self._sweep_disp_avg
+            if lj_scale is not None:
+                tail = tail * lj_scale   # eps_ij scales linearly in lj_scale
+            u = u + tail
+        new_sw = dict(sw)
+        new_sw["snap"] = torch.where(rebuild, y, sw["snap"])
+        new_sw["nblk"] = nblk.reshape(())
+        return u, F_direct - g_r, new_sw
 
     def _fused_setup(self):
         """Enable the fused Langevin kernel for the production case: a plain
@@ -229,6 +519,7 @@ class BoundIntegrator:
             return  # minimum image invalid
         from openmmtools_tpu_torch.ops.fused_langevin import FusedSortedBAOAB
 
+        self.sweep_mode = False   # the fused kernel supersedes the sweep
         self._fused_term = term
         self._fused = FusedSortedBAOAB(
             system.n_particles, float(term.cutoff), term.switch_width,
@@ -239,7 +530,13 @@ class BoundIntegrator:
     def _ensure_forces(self, env: _Env, groups=None):
         for g in (self.groups if groups is None else groups):
             if env.F[g] is None:
-                env.U[g], env.F[g] = self._ef_fns[g](env.x, env.box, env.params)
+                if (self.sweep_mode and g == self._sweep_group
+                        and env.sweep is not None):
+                    env.U[g], env.F[g], env.sweep = self._sweep_eval(
+                        env.x, env.box, env.params, env.sweep)
+                else:
+                    env.U[g], env.F[g] = self._ef_fns[g](env.x, env.box,
+                                                         env.params)
 
     def _total_potential(self, env: _Env):
         self._ensure_forces(env)
@@ -251,12 +548,47 @@ class BoundIntegrator:
     def _kinetic(self, env: _Env):
         return 0.5 * torch.sum(self.masses[:, None] * env.v * env.v)
 
+    # -- constraint dispatch: SETTLE + M-SHAKE on disjoint partitions -----
+    def _constrain_positions(self, x_new, x_old):
+        if self._settle is not None:
+            x_new = constraints.settle_positions(x_new, x_old, self._settle,
+                                                 self.masses)
+        if self._rest_constraints is not None:
+            tol = self.integrator.constraint_tolerance
+            if self._clusters is not None:
+                x_new = constraints.mshake_positions(
+                    x_new, x_old, self._rest_constraints, self._clusters,
+                    self.masses, tol=tol)
+            else:
+                x_new = constraints.shake_positions(
+                    x_new, x_old, self._rest_constraints, self.masses, tol=tol)
+        return x_new
+
+    def _constrain_velocities(self, x, v):
+        if self._settle is not None:
+            v = constraints.settle_velocities(x, v, self._settle, self.masses)
+        if self._rest_constraints is not None:
+            if self._clusters is not None:
+                v = constraints.mrattle_velocities(
+                    x, v, self._rest_constraints, self._clusters, self.masses)
+            else:
+                v = constraints.rattle_velocities(
+                    x, v, self._rest_constraints, self.masses,
+                    tol=self.integrator.constraint_tolerance)
+        return v
+
     # -- substep emitters ----------------------------------------------------
     def _emit_R(self, env: _Env):
         integ = self.integrator
         if integ.measure_shadow_work:
             u_old = self._total_potential(env)
-        env.x = env.x + self.h_R * env.v
+        x_new = env.x + self.h_R * env.v
+        if self.system.constraints.n_constraints > 0:
+            x_proj = self._constrain_positions(x_new, env.x)
+            # velocity correction v += (x_proj - x_unconstrained) / h
+            env.v = env.v + (x_proj - x_new) / self.h_R
+            x_new = x_proj
+        env.x = x_new
         for g in self.groups:
             env.U[g] = None
             env.F[g] = None
@@ -264,17 +596,19 @@ class BoundIntegrator:
             env.shadow_work = env.shadow_work + (
                 self._total_potential(env) - u_old)
 
-    def _emit_V(self, env: _Env, g):
+    def _emit_V(self, env: _Env, g, skip_constrain=False):
         integ = self.integrator
         self._ensure_forces(env, [g])
         if integ.measure_shadow_work:
             ke_old = self._kinetic(env)
         h = integ.timestep / self.n_V[g]
         env.v = env.v + h * env.F[g] * self.inv_mass[:, None]
+        if self.system.constraints.n_constraints > 0 and not skip_constrain:
+            env.v = self._constrain_velocities(env.x, env.v)
         if integ.measure_shadow_work:
             env.shadow_work = env.shadow_work + (self._kinetic(env) - ke_old)
 
-    def _emit_O(self, env: _Env):
+    def _emit_O(self, env: _Env, skip_constrain=False):
         integ = self.integrator
         if integ.measure_heat:
             ke_old = self._kinetic(env)
@@ -283,6 +617,8 @@ class BoundIntegrator:
         noise = torch.randn(env.v.shape, generator=gen, dtype=env.v.dtype,
                             device=gen.device).to(env.v.device)
         env.v = self.ou_a * env.v + self.ou_b * sigma * noise
+        if self.system.constraints.n_constraints > 0 and not skip_constrain:
+            env.v = self._constrain_velocities(env.x, env.v)
         if integ.measure_heat:
             env.heat = env.heat + (self._kinetic(env) - ke_old)
 
@@ -315,8 +651,34 @@ class BoundIntegrator:
             "H token requires a nonequilibrium integrator subclass")
 
     # -- program assembly ---------------------------------------------------
-    def step(self, state: IntegratorState) -> IntegratorState:
-        """One step of the splitting program."""
+    def _vproj_skip_eligible(self) -> bool:
+        """True when the LAST substep's velocity projection is redundant
+        inside a run: the RATTLE projection P is linear and idempotent in v
+        (it depends on x only), so for adjacent velocity substeps at
+        unchanged x, P(P(v + d1) + d2) == P(v + d1 + d2) -- the next step's
+        leading V/O projection subsumes the trailing one. Requires
+        constraints; a splitting that starts and ends with a projecting
+        velocity substep (V/Vn/O); no Metropolis block (it stashes projected
+        velocities); no kinetic-energy measurement (shadow work and heat read
+        the kinetic energy around every V and O)."""
+        toks = self.tokens
+        if not toks or self.system.constraints.n_constraints == 0:
+            return False
+        if "{" in toks:
+            return False
+        if self.integrator.measure_shadow_work or self.integrator.measure_heat:
+            return False
+
+        def is_vel(t):
+            return t == "O" or t.startswith("V")
+
+        return is_vel(toks[0]) and is_vel(toks[-1])
+
+    def step(self, state: IntegratorState,
+             skip_trailing_vproj=False) -> IntegratorState:
+        """One step of the splitting program; ``skip_trailing_vproj`` drops
+        the last substep's velocity projection (see _vproj_skip_eligible)."""
+        skip_idx = len(self.tokens) - 1 if skip_trailing_vproj else -1
         env = _Env()
         env.x = state.positions
         env.v = state.velocities
@@ -333,14 +695,16 @@ class BoundIntegrator:
         env.protocol_work = state.protocol_work
         env.n_accepted = state.n_accepted
         env.n_proposed = state.n_proposed
+        if self.sweep_mode and state.sweep_perm is not None:
+            env.sweep = self._sweep_dict(state)
 
-        for tok in self.tokens:
+        for ti, tok in enumerate(self.tokens):
             if tok == "R":
                 self._emit_R(env)
             elif tok == "O":
-                self._emit_O(env)
+                self._emit_O(env, skip_constrain=(ti == skip_idx))
             elif tok == "V":
-                self._emit_V(env, None)
+                self._emit_V(env, None, skip_constrain=(ti == skip_idx))
             elif tok == "{":
                 self._emit_block_start(env)
             elif tok == "}":
@@ -348,9 +712,13 @@ class BoundIntegrator:
             elif tok == "H":
                 self._emit_H(env)
             else:
-                self._emit_V(env, int(tok[1:]))
+                self._emit_V(env, int(tok[1:]),
+                             skip_constrain=(ti == skip_idx))
         # leave caches valid for the next step
         self._ensure_forces(env)
+        if env.sweep is not None:
+            state = state.replace(sweep_snap=env.sweep["snap"],
+                                  sweep_nblk=env.sweep["nblk"])
         return state.replace(
             positions=env.x, velocities=env.v, kT=env.kT,
             global_params=env.params,
@@ -385,33 +753,73 @@ class BoundIntegrator:
         v = sampler_state.velocities
         if v is None:
             v = thermalize_velocities(self.masses, kT, generator, dtype=x.dtype)
-        forces, potentials = [], []
-        for g in self.groups:
-            u, f = self._ef_fns[g](x, box, params)
-            potentials.append(u)
-            forces.append(f)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         izero = torch.zeros((), dtype=torch.int64, device=x.device)
-        return IntegratorState(
+        state = IntegratorState(
             positions=x, velocities=v, kT=kT, box=box, global_params=params,
-            forces=tuple(forces), potentials=tuple(potentials),
             heat=zero, shadow_work=zero, protocol_work=zero,
             n_accepted=izero, n_proposed=izero, step_count=0,
             generator=generator)
+        sw = None
+        if self.sweep_mode:
+            state = self._resort_sweep(state)
+            sw = self._sweep_dict(state)
+        forces, potentials = [], []
+        for g in self.groups:
+            if sw is not None and g == self._sweep_group:
+                u, f, sw = self._sweep_eval(x, box, params, sw)
+                state = state.replace(sweep_snap=sw["snap"],
+                                      sweep_nblk=sw["nblk"])
+            else:
+                u, f = self._ef_fns[g](x, box, params)
+            potentials.append(u)
+            forces.append(f)
+        return state.replace(forces=tuple(forces),
+                             potentials=tuple(potentials))
 
     def run_program(self, n_steps: int):
-        """The function state -> state advancing ``n_steps`` generic steps."""
+        """The function state -> state advancing ``n_steps`` steps. In sweep
+        mode the sweep ring is re-sorted every ``sweep_sort_interval`` steps
+        (and at the start of the run); with the trailing-projection skip the
+        final state's velocities are projected once at the end."""
+        def steps(state, count):
+            for _ in range(count):
+                state = self.step(state, skip_trailing_vproj=self._vproj_skip)
+            return state
+
         def run_fn(state):
-            for _ in range(n_steps):
-                state = self.step(state)
+            if self.sweep_mode:
+                interval = self.sweep_sort_interval
+                n_chunks, remainder = divmod(n_steps, interval)
+                for _ in range(n_chunks):
+                    state = steps(self._resort_sweep(state), interval)
+                if remainder:
+                    state = steps(self._resort_sweep(state), remainder)
+            else:
+                state = steps(state, n_steps)
+            if self._vproj_skip and n_steps > 0:
+                state = state.replace(velocities=self._constrain_velocities(
+                    state.positions, state.velocities))
             return state
         return run_fn
 
     def run(self, state: IntegratorState, n_steps: int) -> IntegratorState:
         """Advance ``n_steps``: through the fused kernel when eligible
-        (``_fused_setup``), else through the generic step program."""
+        (``_fused_setup``), else through the step program (sweep mode or
+        generic). In sweep mode one host read per call checks the sticky
+        exclusion-bitfield overflow flag and raises while it is set: an
+        exception pair outside the bitfield's coverage would have had its
+        full interaction evaluated at bonded distance."""
         if self._fused is None:
-            return self.run_program(n_steps)(state)
+            state = self.run_program(n_steps)(state)
+            if (self.sweep_mode and state.sweep_overflow is not None
+                    and bool(state.sweep_overflow)):
+                raise IntegratorError(
+                    "sweep kernel exclusion-bitfield overflow: an exception "
+                    "pair's sorted separation exceeded mask_shells="
+                    f"{self._sweep_kernel.mask_shells}; forces are wrong. "
+                    "Disable sweep mode (integrator.sweep=None).")
+            return state
         box = state.box if state.box is not None else self.system.default_box
         x, v, f, u = self._fused.run(state.positions, state.velocities, box,
                                      state.kT, state.generator, n_steps)
@@ -436,23 +844,35 @@ class LangevinIntegrator:
     """System-independent integrator spec; binds to a System on demand.
 
     Parameters mirror openmmtools' LangevinIntegrator: temperature (K),
-    collision_rate (1/ps), timestep (ps), splitting, measure_shadow_work,
-    measure_heat. ``neighborlist=None`` keeps a system on the generic dense
-    program (no fused kernel), as in the JAX package.
+    collision_rate (1/ps), timestep (ps), splitting, constraint_tolerance,
+    measure_shadow_work, measure_heat. ``neighborlist=None`` keeps a system
+    on the generic dense program (no fused kernel), as in the JAX package.
+    ``sweep`` is the sweep-mode policy ("auto": CUDA systems with N >= 1024;
+    "force" or "interpret": any system, plain versions on the CPU; None:
+    off), re-sorting every ``sweep_sort_interval`` steps (default 100) with
+    ``sweep_shell_block`` shells a block (default 8) and a Verlet skin of
+    ``neighbor_skin`` nm (default 0.1).
     """
 
     _default_splitting = "V R O R V"
 
     def __init__(self, temperature=298.0, collision_rate=1.0, timestep=0.001,
-                 splitting: Optional[str] = None, measure_shadow_work=False,
-                 measure_heat=False, neighborlist="auto"):
+                 splitting: Optional[str] = None, constraint_tolerance=1e-8,
+                 measure_shadow_work=False, measure_heat=False,
+                 neighborlist="auto", neighbor_skin=None, sweep="auto",
+                 sweep_sort_interval=None, sweep_shell_block=None):
         self.temperature = temperature
         self.collision_rate = collision_rate
         self.timestep = timestep
         self.splitting = splitting or self._default_splitting
+        self.constraint_tolerance = constraint_tolerance
         self.measure_shadow_work = measure_shadow_work
         self.measure_heat = measure_heat
         self.neighborlist = neighborlist
+        self.neighbor_skin = neighbor_skin
+        self.sweep = sweep
+        self.sweep_sort_interval = sweep_sort_interval
+        self.sweep_shell_block = sweep_shell_block
         parse_splitting(self.splitting)  # fail fast
         self._bound: Dict[str, BoundIntegrator] = {}
 
@@ -488,12 +908,13 @@ class GeodesicBAOABIntegrator(LangevinIntegrator):
     """g-BAOAB with K_r position substeps: 'V R..R O R..R V'."""
 
     def __init__(self, K_r=2, temperature=298.0, collision_rate=1.0,
-                 timestep=0.001, measure_shadow_work=False,
-                 measure_heat=False):
+                 timestep=0.001, constraint_tolerance=1e-8,
+                 measure_shadow_work=False, measure_heat=False):
         r = " ".join(["R"] * K_r)
         super().__init__(temperature=temperature,
                          collision_rate=collision_rate, timestep=timestep,
                          splitting=f"V {r} O {r} V",
+                         constraint_tolerance=constraint_tolerance,
                          measure_shadow_work=measure_shadow_work,
                          measure_heat=measure_heat)
         self.K_r = K_r

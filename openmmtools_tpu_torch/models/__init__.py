@@ -1,4 +1,4 @@
-"""Model catalog: the analytic and LJ test systems ported so far."""
+"""Model catalog: the analytic, LJ and water test systems ported so far."""
 
 from openmmtools_tpu_torch.models.testsystems import (  # noqa: F401
     HarmonicOscillator,
@@ -7,4 +7,19 @@ from openmmtools_tpu_torch.models.testsystems import (  # noqa: F401
     LennardJonesFluidTruncated,
     LennardJonesPair,
     TestSystem,
+)
+from openmmtools_tpu_torch.models.water import (  # noqa: F401
+    DischargedWaterBox,
+    DischargedWaterBoxHsites,
+    FiveSiteWaterBox,
+    FlexibleDischargedWaterBox,
+    FlexiblePMEWaterBox,
+    FlexibleReactionFieldWaterBox,
+    FlexibleWaterBox,
+    FourSiteWaterBox,
+    GiantFlexibleDischargedWaterBox,
+    GiantFlexibleWaterBox,
+    PMEWaterBox,
+    WaterBox,
+    WaterCluster,
 )

@@ -4,7 +4,8 @@ This slice ports the systems the main path and its oracles use:
 ``HarmonicOscillator``, ``LennardJonesFluid`` (with ``Truncated`` and
 ``Switched``) and ``LennardJonesPair``. Construction is host-side numpy, as
 in the JAX package (the same scipy Sobol draw, so positions match bit for
-bit), and ends in tensors on the ``device`` the caller names, in float32.
+bit), and ends in float32 tensors on the ``device`` the caller names: the
+card unless the caller asks for the CPU.
 
 Units: all constructor arguments are in internal MD units (nm, ps, amu,
 kJ/mol, K, bar).
@@ -55,7 +56,7 @@ class TestSystem:
 
     __test__ = False  # not a pytest class
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.system: Optional[System] = None
         self.positions: Optional[torch.Tensor] = None
@@ -85,7 +86,7 @@ class HarmonicOscillator(TestSystem):
     Analytic: <U> = (3/2) kT.
     """
 
-    def __init__(self, K=41840.0, mass=39.948, U0=0.0, device="cpu"):
+    def __init__(self, K=41840.0, mass=39.948, U0=0.0, device="cuda"):
         super().__init__(device)
         self.K, self.mass, self.U0 = K, mass, U0
         term = CustomExternalTerm(
@@ -134,19 +135,18 @@ class LennardJonesFluid(TestSystem):
     Defaults: 1000 particles, reduced density 0.05, sigma = 0.34 nm,
     epsilon = 0.238 kcal/mol, cutoff = 3 sigma, quintic switch over the last
     ``switch_width`` (= sigma) before the cutoff; the analytic dispersion
-    correction is on only when there is no switch. The charged fluid needs
-    the Ewald reciprocal term (``ops/pme.py``), which is not ported yet.
+    correction is on only when there is no switch. The charged fluid (its
+    Ewald reciprocal term) is not ported yet.
     """
 
     def __init__(self, nparticles=1000, reduced_density=0.05, mass=39.9,
                  sigma=3.4 * A, epsilon=0.238 * KCAL, cutoff=None,
                  switch_width=3.4 * A, shift=False, dispersion_correction=True,
-                 lattice=False, charge=None, seed=0, device="cpu"):
+                 lattice=False, charge=None, seed=0, device="cuda"):
         super().__init__(device)
         if charge is not None and charge != 0.0:
             raise NotImplementedError(
-                "the charged LJ fluid needs the Ewald reciprocal term, which "
-                "the port does not have yet")
+                "the charged LJ fluid is not ported yet")
         self.nparticles = nparticles
         self.sigma, self.epsilon, self.mass = sigma, epsilon, mass
         self.reduced_density = reduced_density
@@ -202,7 +202,7 @@ class LennardJonesPair(TestSystem):
     virial coefficient and binding free energy by quadrature."""
 
     def __init__(self, mass=39.9, sigma=3.4 * A, epsilon=1.0 * KCAL,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(device)
         self.mass, self.sigma, self.epsilon = mass, sigma, epsilon
         nb = _lj_nonbonded(2, sigma, epsilon, "no_cutoff", None, None, False,

@@ -1,16 +1,17 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (H100)
-into one shared library with a plain C interface:
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (H100) into
+a shared library of its own with a plain C interface, all sources at once in
+parallel processes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libkernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o build/kernels/lib<source>_<hash>.so csrc/<source>.cu
 
-The library lands in ``build/kernels/`` at the root of the checkout, under a
-name keyed by a hash of the sources and flags, so a changed source rebuilds.
-Nothing here runs at import: the package imports on a machine without
-``nvcc``, and only the first CUDA launch needs the library. A failed build
-raises with nvcc's stderr.
+The libraries land in ``build/kernels/`` at the root of the checkout, under
+names keyed by a hash of the source, the headers and the flags, so a changed
+source rebuilds. Nothing here runs at import: the package imports on a
+machine without ``nvcc``, and only the first CUDA launch needs a library. A
+failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -44,6 +46,13 @@ SIGNATURES = {
     #  seed, step, o_base, wrap, stream)
     "langevin_substep_f32": (_P, _P, _P, _I, _P, _P, _I, _U32, _F, _F, _F,
                              _F, _F, _U64, _U32, _U32, _I, _P),
+    # (x, n, n_pad, L, w2, bs, rebuild, bound, partial, nblk, stream)
+    "sweep_bound_f32": (_P, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P),
+    # (x, par, excl, n, n_pad, mask_rows, bs, L, nblk, rc2, coulomb_rf,
+    #  alpha, k_rf, c_rf, use_switch, switch_coulomb, r_switch, inv_span, ke,
+    #  f_part, e_part, F, U, stream)
+    "sweep_forces_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F, _F,
+                         _F, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
 }
 
 
@@ -70,46 +79,83 @@ def _sources():
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(source: Path) -> Path:
+    """Where the library of one source lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    for path in [source] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for them exists; return it."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+def build() -> list:
+    """Compile every source whose library does not exist yet, all in
+    parallel; return the libraries' paths."""
+    outs = [library_path(src) for src in _sources()]
+    jobs = []
+    for src, out in zip(_sources(), outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for cmd, tmp, out, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's types."""
-    lib = ctypes.CDLL(str(build()))
+def load_library() -> types.SimpleNamespace:
+    """Build if needed, load every library, and declare every entry point's
+    types; the entry points are attributes of the returned namespace."""
+    libs = [ctypes.CDLL(str(path)) for path in build()]
+    fns = {}
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        owners = [lib for lib in libs if hasattr(lib, name)]
+        if len(owners) != 1:
+            raise KernelBuildError(
+                f"entry point {name} is in {len(owners)} libraries, not 1")
+        fn = getattr(owners[0], name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(libraries=libs, **fns)
 
 
 def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
+
+
+def kernels_for(t, kernel: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run its plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no {kernel} for device {t.device}")
+
+
+def check_input(t, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what a kernel's C entry point takes."""
+    if (t.device.type != "cuda" or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        name = str(dtype).replace("torch.", "")
+        raise ValueError(
+            f"kernel input must be a contiguous CUDA {name} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}")

@@ -40,6 +40,13 @@ import math
 
 import torch
 
+from openmmtools_tpu_torch.ops._build import (
+    check,
+    check_input,
+    kernels_for,
+    load_library,
+)
+
 __all__ = ["FusedSortedLangevin", "FusedSortedBAOAB",
            "fused_langevin_reference", "lj_forces_reference",
            "langevin_substep_reference", "philox_normals"]
@@ -235,24 +242,14 @@ class FusedSortedLangevin:
                     ou_b=self.ou_b, inv_m=self.inv_m, seed=seed, step=step,
                     o_base=o_base, wrap=wrap)
 
-    @staticmethod
-    def _kernels_for(t: torch.Tensor) -> bool:
-        if t.device.type == "cuda":
-            return True
-        if t.device.type == "cpu":
-            return False
-        raise ValueError(f"no fused Langevin kernel for device {t.device}")
-
     def forces(self, xT, L, out=None):
         """Forces (3, n) and energy (1,) of positions ``xT`` (3, n) float32;
         ``out`` = (F, U, scratch) buffers for the kernel, else allocated."""
-        if not self._kernels_for(xT):
+        if not kernels_for(xT, "fused Langevin kernel"):
             F, U = lj_forces_reference(xT, L, **self._physics())
             return F, U.reshape(1)
-        from openmmtools_tpu_torch.ops._build import check, load_library
-
-        _check_kernel_input(xT, 3, self.n)
-        _check_kernel_input(L, 3)
+        check_input(xT, torch.float32, (3, self.n))
+        check_input(L, torch.float32, (3,))
         if out is None:
             out = (torch.empty_like(xT), xT.new_empty(1), xT.new_empty(self.n))
         F, U, scratch = out
@@ -273,14 +270,12 @@ class FusedSortedLangevin:
         float32 positions and velocities; the kernel updates them in place.
         Returns (x, v)."""
         args = self._substep_args(seed, step, o_base, wrap)
-        if not self._kernels_for(xT):
+        if not kernels_for(xT, "fused Langevin kernel"):
             return langevin_substep_reference(xT, vT, F, L, kT, tokens, **args)
-        from openmmtools_tpu_torch.ops._build import check, load_library
-
         for t in (xT, vT, F):
-            _check_kernel_input(t, 3, self.n)
-        _check_kernel_input(L, 3)
-        _check_kernel_input(kT, 1)
+            check_input(t, torch.float32, (3, self.n))
+        check_input(L, torch.float32, (3,))
+        check_input(kT, torch.float32, (1,))
         code = 0
         for k, tok in enumerate(tokens):
             code |= _TOKEN_CODE[tok] << (2 * k)
@@ -324,7 +319,7 @@ class FusedSortedLangevin:
     def run(self, x, v, box, kT, generator, n_steps):
         """Advance (x, v) (N, 3) by ``n_steps``; returns float32
         (x, v, F, U), x wrapped into the box."""
-        self._kernels_for(x)
+        kernels_for(x, "fused Langevin kernel")
         seed = draw_seed(generator)
         return self._chunk(x, v, box, kT, seed, int(n_steps), self.forces,
                            self.substep)
@@ -347,15 +342,6 @@ def fused_langevin_reference(program: FusedSortedLangevin, x, v, box, kT,
             **program._substep_args(seed, step, o_base, wrap))
 
     return program._chunk(x, v, box, kT, seed, int(n_steps), forces, substep)
-
-
-def _check_kernel_input(t, rows, cols=None):
-    shape = (rows,) if cols is None else (rows, cols)
-    if (t.device.type != "cuda" or t.dtype != torch.float32
-            or tuple(t.shape) != shape or not t.is_contiguous()):
-        raise ValueError(
-            f"kernel input must be a contiguous CUDA float32 tensor of shape "
-            f"{shape}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 # backward-compatible name (tokens default to BAOAB)

@@ -29,3 +29,24 @@ def distance(xi, xj, box=None):
     if box is not None:
         d = minimum_image(d, box)
     return safe_norm(d)
+
+
+def angle(xi, xj, xk):
+    """Angle at xj between (xi - xj) and (xk - xj), radians."""
+    a = xi - xj
+    b = xk - xj
+    cross = torch.linalg.cross(a, b)
+    return torch.atan2(safe_norm(cross), torch.sum(a * b, dim=-1))
+
+
+def dihedral(xi, xj, xk, xl):
+    """Signed dihedral angle of the i-j-k-l chain, radians, via atan2."""
+    b1 = xj - xi
+    b2 = xk - xj
+    b3 = xl - xk
+    n1 = torch.linalg.cross(b1, b2)
+    n2 = torch.linalg.cross(b2, b3)
+    m1 = torch.linalg.cross(n1, b2 / safe_norm(b2, keepdim=True))
+    x = torch.sum(n1 * n2, dim=-1)
+    y = torch.sum(m1 * n2, dim=-1)
+    return torch.atan2(y, x)

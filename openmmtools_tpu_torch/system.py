@@ -9,9 +9,7 @@ where ``params`` is a dict of global (context) parameters. Forces are the
 analytic ``energy_forces`` where a term has one and ``-grad`` by autograd
 otherwise. Force groups (MTS splittings) are static integer tags on terms.
 
-The bonded terms (``HarmonicBondTerm`` and friends) arrive with
-``ops/bonded.py``; ``NonbondedTerm.energy_neighbors`` arrives with the
-neighbour-list port.
+``NonbondedTerm.energy_neighbors`` arrives with the neighbour-list port.
 """
 from __future__ import annotations
 
@@ -23,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from openmmtools_tpu_torch.constants import kB
-from openmmtools_tpu_torch.ops import nonbonded, pair_forces
+from openmmtools_tpu_torch.ops import bonded, nonbonded, pair_forces
 from openmmtools_tpu_torch.utils.math_eval import math_eval
 from openmmtools_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
@@ -49,6 +47,48 @@ def value_and_grad(fn, x):
 # ---------------------------------------------------------------------------
 # energy terms
 # ---------------------------------------------------------------------------
+
+
+@tensor_dataclass
+class HarmonicBondTerm:
+    """U = sum (k/2)(r - r0)^2. OpenMM HarmonicBondForce analog."""
+
+    index: torch.Tensor       # (B, 2) int
+    length: torch.Tensor      # (B,)
+    k: torch.Tensor           # (B,)
+    force_group: int = static_field(default=0)
+
+    def energy(self, x, box, params=None):
+        return bonded.harmonic_bond_energy(x, self.index, self.length, self.k)
+
+
+@tensor_dataclass
+class HarmonicAngleTerm:
+    """U = sum (k/2)(theta - theta0)^2. OpenMM HarmonicAngleForce analog."""
+
+    index: torch.Tensor       # (A, 3) int
+    angle: torch.Tensor       # (A,)
+    k: torch.Tensor           # (A,)
+    force_group: int = static_field(default=0)
+
+    def energy(self, x, box, params=None):
+        return bonded.harmonic_angle_energy(x, self.index, self.angle, self.k)
+
+
+@tensor_dataclass
+class PeriodicTorsionTerm:
+    """U = sum k(1 + cos(n phi - phase)). OpenMM PeriodicTorsionForce
+    analog."""
+
+    index: torch.Tensor       # (T, 4) int
+    periodicity: torch.Tensor  # (T,)
+    phase: torch.Tensor       # (T,)
+    k: torch.Tensor           # (T,)
+    force_group: int = static_field(default=0)
+
+    def energy(self, x, box, params=None):
+        return bonded.periodic_torsion_energy(
+            x, self.index, self.periodicity, self.phase, self.k)
 
 
 @tensor_dataclass
@@ -212,7 +252,7 @@ class VirtualSites:
         return x.index_put((self.site.long(),), site_pos.to(x.dtype))
 
 
-def no_virtual_sites(device="cpu") -> VirtualSites:
+def no_virtual_sites(device="cuda") -> VirtualSites:
     return VirtualSites(
         site=torch.zeros((0,), dtype=torch.int32, device=device),
         parents=torch.zeros((0, 3), dtype=torch.int32, device=device),
@@ -232,7 +272,7 @@ class Constraints:
         return self.index.shape[0]
 
 
-def no_constraints(device="cpu") -> Constraints:
+def no_constraints(device="cuda") -> Constraints:
     return Constraints(
         index=torch.zeros((0, 2), dtype=torch.int32, device=device),
         distance=torch.zeros((0,), dtype=torch.float32, device=device))

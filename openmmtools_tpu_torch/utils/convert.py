@@ -11,24 +11,32 @@ arrays. Its numpy form, which this module reads, is plain Python:
 by class name, among the terms this port has), and
 :func:`sampler_state_from_numpy` / :func:`integrator_state_from_numpy` carry
 (positions, velocities, box, kT) across. The port never sees a JAX object:
-whoever holds one makes the numpy form first.
+whoever holds one makes the numpy form first. Like every entry point of the
+port, they put their tensors on the card unless the caller names another
+device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState
 from openmmtools_tpu_torch.system import (
     Constraints,
     CustomExternalTerm,
+    HarmonicAngleTerm,
+    HarmonicBondTerm,
     NonbondedTerm,
+    PeriodicTorsionTerm,
     System,
     VirtualSites,
 )
 
 _CLASSES = {cls.__name__: cls for cls in (
-    System, NonbondedTerm, CustomExternalTerm, Constraints, VirtualSites)}
+    System, NonbondedTerm, CustomExternalTerm, Constraints, VirtualSites,
+    HarmonicBondTerm, HarmonicAngleTerm, PeriodicTorsionTerm,
+    EwaldReciprocalTerm)}
 
 
 def _tensor(value, device, dtype):
@@ -38,7 +46,7 @@ def _tensor(value, device, dtype):
     return t
 
 
-def from_numpy(value, device="cpu", dtype=None):
+def from_numpy(value, device="cuda", dtype=None):
     """Rebuild a numpy form (see module docstring) as port objects; floating
     arrays are cast to ``dtype`` when it is given."""
     if isinstance(value, np.ndarray):
@@ -58,7 +66,7 @@ def from_numpy(value, device="cpu", dtype=None):
     return value
 
 
-def system_from_numpy(tree: dict, device="cpu", dtype=None) -> System:
+def system_from_numpy(tree: dict, device="cuda", dtype=None) -> System:
     """A port ``System`` from the numpy form of a JAX ``System``."""
     if tree.get("type") != "System":
         raise ValueError("expected the numpy form of a System")
@@ -69,7 +77,7 @@ def system_from_numpy(tree: dict, device="cpu", dtype=None) -> System:
 
 
 def sampler_state_from_numpy(positions, velocities=None, box=None,
-                             device="cpu", dtype=None) -> SamplerState:
+                             device="cuda", dtype=None) -> SamplerState:
     """A port ``SamplerState`` from numpy positions (N, 3), velocities and
     box (3, 3)."""
     def opt(a):
@@ -80,7 +88,7 @@ def sampler_state_from_numpy(positions, velocities=None, box=None,
 
 
 def integrator_state_from_numpy(positions, velocities, box, kT,
-                                generator=None, device="cpu", dtype=None):
+                                generator=None, device="cuda", dtype=None):
     """A port ``IntegratorState`` from numpy (positions, velocities, box,
     kT); its force cache is empty, so the first step computes forces."""
     from openmmtools_tpu_torch.integrators.langevin import IntegratorState

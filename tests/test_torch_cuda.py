@@ -7,10 +7,12 @@ PyTorch; there, skip the suite's conftest (which configures JAX):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: float32 kernel against float32 plain version, both on the card.
-Sums run in another order and rsqrtf differs from torch.rsqrt in the last
+Sums run in another order and rsqrtf/erfcf differ from torch's in the last
 bits, so both agree to float32 rounding; the bounds are the ones the JAX
-package holds its TPU kernel to (2e-4 of scale; for 40-step trajectories
-dx < 5e-4 modulo L and dv < 5e-3 of the velocity scale).
+package holds its TPU kernels to (2e-4 of scale; for 40-step trajectories
+dx < 5e-4 modulo L and dv < 5e-3 of the velocity scale). The sweep kernels'
+block bound must equal the plain version's exactly: both round r^2 the same
+way.
 """
 import pytest
 import torch
@@ -189,3 +191,120 @@ def test_cuda_wrapper_refuses_bad_kernel_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous CUDA float32"):
         prog.forces(fluid.positions.t(), L)  # (3, N) view, not contiguous
     assert prog.launches["lj_forces"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the bounded-sweep kernels (csrc/sweep_nb.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_case(box_edge, method, switch_coulomb, device):
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w = PMEWaterBox(box_edge=box_edge, cutoff=0.9, device=device)
+    term = w.system.terms[0]
+    n = w.system.n_particles
+    n_pad = -(-n // 128) * 128
+    k = tsw.SweepNonbonded(
+        n, method, term.cutoff, switch_width=term.switch_width,
+        ewald_alpha=term.ewald_alpha if method != "cutoff_periodic" else None,
+        switch_coulomb=switch_coulomb,
+        mask_shells=min(2048, max(32, (n_pad // 2 // 32) * 32)))
+    xT, par, excl, L, _ = tsw.sorted_inputs(term, w.positions,
+                                            w.system.default_box, k)
+    return k, xT, par, excl, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box_edge", [1.9, 3.1])
+@pytest.mark.parametrize("method,switch_coulomb", [
+    ("pme", False), ("ewald", False), ("cutoff_periodic", False),
+    ("pme", True)])
+def test_cuda_sweep_matches_plain(cuda, box_edge, method, switch_coulomb):
+    """At 1.9 nm (648 atoms) the rebuilt bound spans the whole ring, so the
+    n_pad/2 shell and its half weight take part; 3.1 nm holds 3,000 atoms
+    and a ragged last block of slots."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k, xT, par, excl, L = _sweep_case(box_edge, method, switch_coulomb, cuda)
+    bound = torch.zeros((), dtype=torch.int32, device=cuda)
+    for rebuild in (True, False):
+        flag = torch.tensor(rebuild, device=cuda)
+        nb = k.measure_bound(xT, L, flag, bound)
+        nb_ref = tsw.measure_bound_reference(
+            xT, L, flag, bound, n=k.n, cutoff=k.rc, skin=k.skin,
+            shell_block=k.bs)
+        F, U = k.sweep(xT, par, excl, L, nb)
+        F_ref, U_ref = tsw.sweep_forces_reference(xT, par, excl, L, nb_ref,
+                                                  **k.physics())
+        torch.cuda.synchronize()
+        assert int(nb) == int(nb_ref) > 0
+        assert _rel(F, F_ref) <= REL
+        assert abs(float(U - U_ref)) <= REL * abs(float(U_ref))
+        assert not torch.any(F[:, k.n:])
+        bound = nb.reshape(()).clone()
+    assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_kernels_skip_work_without_a_rebuild(cuda):
+    """Without a rebuild the bound kernel passes the given bound on, and a
+    zero bound gives zero forces and energy."""
+    k, xT, par, excl, L = _sweep_case(1.9, "pme", False, cuda)
+    keep = torch.tensor(0, dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, torch.tensor(False, device=cuda), keep)
+    F, U = k.sweep(xT, par, excl, L, nb)
+    torch.cuda.synchronize()
+    assert int(nb) == 0 and float(U) == 0.0 and not torch.any(F)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_mode_engages_and_matches_plain(cuda):
+    """The explicit-solvent path on the card: bind engages sweep mode with
+    SETTLE on a rigid PME water box, the run goes through the kernels, and
+    its final energy and forces match the plain sweep plus remainder at the
+    same positions. LJ-2048 keeps the fused kernel."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w = PMEWaterBox(box_edge=3.1, device=cuda)
+    bound = BAOABIntegrator(temperature=300.0, collision_rate=1.0,
+                            timestep=0.002).bind(w.system)
+    assert bound.sweep_mode and bound._fused is None
+    assert bound._settle is not None and bound._rest_constraints is None
+    state = bound.initial_state(w.sampler_state(),
+                                torch.Generator(device=cuda).manual_seed(0))
+    state = bound.run(state, 150)        # through one re-sort
+    k = bound._sweep_kernel
+    assert k.launches["sweep_forces"] == 151
+    assert k.launches["sweep_bound"] == 151
+    x = state.positions
+    assert torch.isfinite(x).all()
+
+    sw = bound._sweep_dict(bound._resort_sweep(state))
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+    finally:
+        bound._sweep_kernel = k
+    assert abs(float(state.potentials[0] - u_p)) <= REL * abs(float(u_p))
+    assert _rel(state.forces[0], f_p) <= REL
+
+    lj = LennardJonesFluid(nparticles=2048, device=cuda)
+    lj_bound = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
+                               timestep=0.002).bind(lj.system)
+    assert lj_bound._fused is not None and not lj_bound.sweep_mode
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_wrapper_refuses_bad_inputs(cuda):
+    k, xT, par, excl, L = _sweep_case(1.9, "pme", False, cuda)
+    nb = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.sweep(xT.double(), par, excl, L, nb)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.sweep(xT, par, excl.long(), L, nb)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.measure_bound(xT[:, :-128], L, torch.tensor(True, device=cuda), nb)
+    assert k.launches == {"sweep_bound": 0, "sweep_forces": 0}

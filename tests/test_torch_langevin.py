@@ -107,7 +107,7 @@ def test_fire_minimize_matches_jax(fluid64):
 
 def _mean_potential(integrator, n_burn=500, n_samples=60, stride=50,
                     seed=0, temperature=300.0):
-    ho = HarmonicOscillator()
+    ho = HarmonicOscillator(device="cpu")
     bound = integrator.bind(ho.system.to(dtype=torch.float64))
     state = bound.initial_state(
         SamplerState(positions=ho.positions.double()),
@@ -183,7 +183,7 @@ def test_mts_groups_and_shadow_work_match_jax(fluid64):
 def test_heat_and_shadow_work_balance_the_energy():
     """Total energy change = heat + shadow work under BAOAB with noise on
     the harmonic oscillator (openmmtools' bookkeeping identity)."""
-    ho = HarmonicOscillator()
+    ho = HarmonicOscillator(device="cpu")
     integ = BAOABIntegrator(temperature=300.0, collision_rate=5.0,
                             timestep=0.002, measure_heat=True,
                             measure_shadow_work=True)

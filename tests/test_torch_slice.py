@@ -1,10 +1,16 @@
-"""The port's main path end to end, against the JAX package's.
+"""The port's main paths end to end, against the JAX package's.
 
 LennardJonesFluid -> BAOABIntegrator -> bind -> initial_state -> run, called
 the way bench.py calls it, at N = 256 and collision_rate 0 (deterministic),
 from the same numpy velocities. Both sides run float32 on their own default
 CPU paths (the JAX package's neighbour list, the port's generic program),
 so the tolerances are those of tests/test_pallas_baoab.py:195-202.
+
+The explicit-solvent path, PMEWaterBox -> BAOABIntegrator -> bind ->
+initial_state -> run, in the port's sweep mode (the kernels' plain versions
+on the CPU, re-sorting every 5 steps) against the JAX package's dense path:
+rigid water under SETTLE, 10 steps at collision_rate 0, dx < 1e-3 nm as in
+tests/test_sweep_nb.py:58.
 """
 import ast
 import pathlib
@@ -15,11 +21,12 @@ import torch
 
 from openmmtools_tpu.integrators import BAOABIntegrator as JaxBAOAB
 from openmmtools_tpu.models import LennardJonesFluid as JaxLJ
+from openmmtools_tpu.models import PMEWaterBox as JaxPMEWaterBox
 from openmmtools_tpu.states import SamplerState as JaxSamplerState
 import openmmtools_tpu_torch
 from openmmtools_tpu_torch.constants import kB
 from openmmtools_tpu_torch.integrators import BAOABIntegrator
-from openmmtools_tpu_torch.models import LennardJonesFluid
+from openmmtools_tpu_torch.models import LennardJonesFluid, PMEWaterBox
 from openmmtools_tpu_torch.states import SamplerState
 
 from test_torch_support import np64, wrapped_distance
@@ -39,7 +46,7 @@ def test_main_path_matches_jax():
                           jax.random.PRNGKey(0))
     js = jb.run(js, 40)
 
-    tf = LennardJonesFluid(nparticles=N)
+    tf = LennardJonesFluid(nparticles=N, device="cpu")
     tb = BAOABIntegrator(temperature=120.0, collision_rate=0.0,
                          timestep=0.002).bind(tf.system)
     ts = tb.initial_state(SamplerState(positions=tf.positions,
@@ -59,10 +66,51 @@ def test_main_path_matches_jax():
     assert wrapped_distance(ts.positions, tf.positions, L) > 1e-3
 
 
+def test_explicit_solvent_path_matches_jax_dense():
+    kw = dict(box_edge=1.9, cutoff=0.9)
+    rng = np.random.default_rng(8)
+    jw = JaxPMEWaterBox(**kw)
+    n = jw.system.n_particles
+    masses = np.asarray(jw.system.masses, np.float64)
+    v0 = (rng.normal(size=(n, 3)) * np.sqrt(kB * 300.0 / masses)[:, None]
+          ).astype(np.float32)
+
+    jb = JaxBAOAB(temperature=300.0, collision_rate=0.0, timestep=0.001,
+                  sweep=None, neighborlist=None).bind(jw.system)
+    js = jb.initial_state(JaxSamplerState(positions=jw.positions,
+                                          velocities=v0,
+                                          box_vectors=jw.system.default_box),
+                          jax.random.PRNGKey(0))
+    js = jb.run(js, 10)
+
+    tw = PMEWaterBox(device="cpu", **kw)
+    tb = BAOABIntegrator(temperature=300.0, collision_rate=0.0,
+                         timestep=0.001, sweep="force",
+                         sweep_sort_interval=5).bind(tw.system)
+    assert tb.sweep_mode and tb._settle is not None and tb._vproj_skip
+    ts = tb.initial_state(SamplerState(positions=tw.positions,
+                                       velocities=torch.as_tensor(v0),
+                                       box_vectors=tw.system.default_box),
+                          torch.Generator().manual_seed(0))
+    ts = tb.run(ts, 10)
+
+    assert ts.positions.dtype == torch.float32 and ts.step_count == 10
+    assert torch.isfinite(ts.positions).all()
+    dx = np.abs(np64(ts.positions) - np64(js.positions)).max()
+    assert dx < 1e-3, dx
+    assert np.abs(np64(ts.positions) - np64(tw.positions)).max() > 1e-3
+    # the rigid geometry holds, and the kernels never launched on the CPU
+    c = tw.system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    r = torch.linalg.norm(ts.positions[i] - ts.positions[j], dim=1)
+    assert float(((r - c.distance) / c.distance).abs().max()) < 1e-5
+    assert tb._sweep_kernel.launches == {"sweep_bound": 0, "sweep_forces": 0}
+
+
 def test_bound_integrator_does_not_fuse_on_cpu():
     """The fused kernel is CUDA-only; on the CPU the generic program serves
     (as the JAX package's TPU-only fused path does off the TPU)."""
-    f = LennardJonesFluid(nparticles=N)
+    f = LennardJonesFluid(nparticles=N, device="cpu")
     bound = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
                             timestep=0.002).bind(f.system)
     assert bound._fused is None

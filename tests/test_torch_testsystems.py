@@ -37,7 +37,7 @@ def _same_leaves(jax_system, port):
 @pytest.mark.parametrize("variant", LJ_VARIANTS)
 def test_lj_fluid_matches_jax(variant, n):
     jf = getattr(jts, variant)(nparticles=n)
-    tf = getattr(tts, variant)(nparticles=n)
+    tf = getattr(tts, variant)(nparticles=n, device="cpu")
     converted = port_system(jf.system, dtype=None)
     _same_leaves(jf.system, tf.system)
     _same_leaves(jf.system, converted)
@@ -54,7 +54,7 @@ def test_lj_fluid_matches_jax(variant, n):
 def test_default_lj_fluid_is_the_bench_configuration():
     """LennardJonesFluid() defaults: density 0.05, cutoff 3 sigma, switch over
     the last sigma, no dispersion correction with the switch."""
-    tf = tts.LennardJonesFluid(nparticles=2048)
+    tf = tts.LennardJonesFluid(nparticles=2048, device="cpu")
     t = tf.system.terms[0]
     assert t.cutoff == pytest.approx(3 * 0.34)
     assert t.switch_width == pytest.approx(0.34)
@@ -63,7 +63,7 @@ def test_default_lj_fluid_is_the_bench_configuration():
 
 
 def test_harmonic_oscillator_matches_jax():
-    jo, to = jts.HarmonicOscillator(), tts.HarmonicOscillator()
+    jo, to = jts.HarmonicOscillator(), tts.HarmonicOscillator(device="cpu")
     converted = port_system(jo.system, dtype=None)
     assert converted.fingerprint == to.system.fingerprint
     np.testing.assert_array_equal(to.system.masses.numpy(),
@@ -82,7 +82,7 @@ def test_harmonic_oscillator_matches_jax():
 
 
 def test_lennard_jones_pair_matches_jax():
-    jp, tp = jts.LennardJonesPair(), tts.LennardJonesPair()
+    jp, tp = jts.LennardJonesPair(), tts.LennardJonesPair(device="cpu")
     np.testing.assert_array_equal(tp.positions.numpy(), np.asarray(jp.positions))
     x = np64(tp.positions)
     u_jax = float(jax_energy_fn(jax_f64(jp.system))(x))
@@ -102,7 +102,7 @@ def test_lj_fluid_options_match_jax(kwargs):
     """Lattice placement, the shifted (unswitched) form with its dispersion
     correction, and a non-default density and cutoff."""
     jf = jts.LennardJonesFluid(nparticles=125, **kwargs)
-    tf = tts.LennardJonesFluid(nparticles=125, **kwargs)
+    tf = tts.LennardJonesFluid(nparticles=125, device="cpu", **kwargs)
     _same_leaves(jf.system, tf.system)
     np.testing.assert_array_equal(tf.positions.numpy(), np.asarray(jf.positions))
     x = np.asarray(jf.positions, np.float64)
@@ -114,3 +114,20 @@ def test_lj_fluid_options_match_jax(kwargs):
         tts.SamplerState(positions=torch.as_tensor(x),
                          box_vectors=tf64.default_box)))
     assert abs(u_port - u_jax) <= 1e-10 * abs(u_jax)
+
+
+def test_models_default_to_the_card():
+    """Every model is built on the card unless the caller names another
+    device; without a card, building one with no device raises, and nothing
+    falls back to the CPU. Whether there is a card is decided here, in the
+    test."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+
+    for build in (lambda: tts.LennardJonesFluid(nparticles=64),
+                  tts.HarmonicOscillator,
+                  lambda: PMEWaterBox(box_edge=1.9, cutoff=0.9)):
+        if torch.cuda.is_available():
+            assert build().system.device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
