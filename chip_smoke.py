@@ -29,12 +29,33 @@ nonzero exit. Phases:
    and timed in 1,000-step chunks that each end in a host fetch of the
    positions; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
-   K2 and PME times, and a profile of the step.
+   K2 and PME times, and a profile of the step;
+8. K2's alchemical variant against its plain version on the alchemical
+   water box (AlchemicalWaterBox(box_edge=6.223), 24,064 slots) at a fresh
+   sort: one region with the direct-space treatment at lambda 1, 0.5 and 0,
+   the 'exact' and 'coulomb' treatments at 0.55, and two regions, with and
+   without their interaction; the bound, forces, energy and times of each;
+9. the alchemical main path (Path A): AlchemicalWaterBox(box_edge=6.223) ->
+   a CompoundThermodynamicState of AlchemicalState(lambda_electrostatics=0,
+   lambda_sterics=0.5) at 300 K -> BAOABIntegrator(300 K, 1/ps, 2 fs) ->
+   bind (sweep mode with the alchemical kernel, SETTLE) -> initial_state ->
+   run: 2,000 warm-up steps, then 1,000-step chunks that each end in a host
+   fetch; launch counts, steps/s and ns/day, the kinetic temperature, the
+   rigid geometry, the final energy and forces against the plain versions,
+   K2-alchemical's times, a profile of the step, and on a 3,000-atom box the
+   sweep path against the dense alchemical term;
+10. the NCMC path (Path B) on the same box:
+   AlchemicalNonequilibriumLangevinIntegrator(lambda_electrostatics = 1 -
+   lambda, 500 steps, 'O { V R H R V } O') for one whole protocol, and a
+   10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
+   0.1) whose protocol work is held against the same energy differences
+   summed outside the integrator.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -65,6 +86,16 @@ PEAK_FP32 = 67e12
 # cutoff
 OPS_DIST = 15
 OPS_PAIR = 60
+# the alchemical variant's pair inside the cutoff adds the class index (two
+# compares, a multiply-add chain), three shared-memory reads, the softcore
+# (a clamp, a multiply-add, a reciprocal, six products) and the lam_e
+# scaling: 20 more
+OPS_PAIR_ALCH = OPS_PAIR + 20
+ALCH_LAMBDAS = dict(lambda_electrostatics=0.0, lambda_sterics=0.5)
+ALCH_WARMUP = 2_000
+NCMC_STEPS = 500
+PERTURB_STEPS = 10
+SMALL_EDGE = 3.0         # the box of the sweep-against-dense check: 3,000 atoms
 SPLITTINGS = ("V R O R V", "O V R V O", "V R R O R R V", "V R V")
 # float32 kernel against float32 plain PyTorch: the sums over ~N partners run
 # in another order, and rsqrtf differs from torch.rsqrt in the last bits, so
@@ -420,7 +451,7 @@ def kinetic_temperature(masses, v, dof):
     return float(torch.sum(masses[:, None] * v * v)) / (dof * kB)
 
 
-def profile_steps(bound, state, n_steps):
+def profile_steps(bound, state, n_steps, phase="phase 7"):
     """torch.profiler over ``n_steps`` steps with the step's parts marked:
     K2 (the sweep wrapper and its kernels), SETTLE on positions and on
     velocities, the PME structure-factor einsums forward and backward, and
@@ -515,10 +546,88 @@ def profile_steps(bound, state, n_steps):
     parts = {label: (device[label] / per_step, host[label] / per_step)
              for label in list(marks) + ["other"]}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    say(f"phase 7 profile: {len(work)} device activities, {linked} traced to "
+    say(f"{phase} profile: {len(work)} device activities, {linked} traced to "
         f"their launch")
     return (state, 1e3 * wall / n_steps, busy_ns / per_step, parts,
             [(name, ns / per_step) for name, ns in top])
+
+
+def run_timed(bound, state, warmup, system, dof, label,
+              temperature_last=False):
+    """Warm-up, 20 kinetic-temperature samples 50 steps apart (the mean
+    within 5 % of the target), and 1,000-step chunks (at least 3, up to 20
+    s), each ending in a host fetch of the positions; the samples before the
+    chunks, or after them with ``temperature_last``. Returns the state, the
+    chunks' steps/s and the steps run."""
+    n = system.n_particles
+    tw = time.perf_counter()
+    state = bound.run(state, warmup)
+    torch.cuda.synchronize()
+    say(f"{label} warm-up: {warmup} steps in {time.perf_counter() - tw:.2f} s")
+
+    def temperature(state):
+        temps = []
+        for _ in range(20):
+            state = bound.run(state, 50)
+            temps.append(kinetic_temperature(system.masses, state.velocities,
+                                             dof))
+        mean_t = statistics.fmean(temps)
+        say(f"{label} kinetic temperature: {mean_t:.3f} K over 20 samples 50 "
+            f"steps apart ({dof} degrees of freedom; sd "
+            f"{statistics.stdev(temps):.3f} K)")
+        assert abs(mean_t - WATER_T) < 0.05 * WATER_T
+        return state
+
+    if not temperature_last:
+        state = temperature(state)
+    rates = []
+    tc0 = time.perf_counter()
+    while len(rates) < 3 or (time.perf_counter() - tc0 < 20.0
+                             and len(rates) < 10):
+        tc = time.perf_counter()
+        state = bound.run(state, WATER_CHUNK)
+        positions = state.positions.cpu().numpy()
+        rates.append(WATER_CHUNK / (time.perf_counter() - tc))
+        assert positions.shape == (n, 3)
+    if temperature_last:
+        state = temperature(state)
+    return state, rates, warmup + 20 * 50 + WATER_CHUNK * len(rates)
+
+
+def check_final_state(bound, state, label):
+    """The output is right: finite, rigid, and the run's own final energy
+    and forces agree with the plain sweep plus the remainder at the same
+    positions (a fresh sort and a full rebuild). Returns the plain
+    oracle."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    system = bound.system
+    k = bound._sweep_kernel
+    x = state.positions
+    assert torch.isfinite(x).all() and torch.isfinite(state.velocities).all()
+    c = system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    L = torch.diagonal(system.default_box)
+    d = x[i] - x[j]
+    d = d - L * torch.round(d / L)
+    geom = float(((torch.linalg.norm(d, dim=1) - c.distance)
+                  / c.distance).abs().max())
+    say(f"{label} SETTLE: max relative bond-length error {geom:.2e}")
+    assert geom <= 1e-5
+    sw = bound._sweep_dict(bound._resort_sweep(state))
+    plain = tsw.PlainSweepNonbonded.like(k)
+    bound._sweep_kernel = plain
+    try:
+        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+    finally:
+        bound._sweep_kernel = k
+    u_run, f_run = state.potentials[0], state.forces[0]
+    u_rel = abs(float(u_run - u_p)) / abs(float(u_p))
+    f_rel = max_rel(f_run, f_p)
+    say(f"{label} final state: U {float(u_run):.3f} vs plain {float(u_p):.3f} "
+        f"(rel {u_rel:.2e}), forces rel {f_rel:.2e}")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+    return plain
 
 
 def phase_water(dev, smi, k6):
@@ -550,30 +659,9 @@ def phase_water(dev, smi, k6):
         k.launches[key] = 0
     state = bound.initial_state(w.sampler_state(),
                                 torch.Generator(device=dev).manual_seed(0))
-    tw = time.perf_counter()
-    state = bound.run(state, WARMUP)
-    torch.cuda.synchronize()
-    say(f"phase 7 warm-up: {WARMUP} steps in {time.perf_counter() - tw:.2f} s")
-    temps = []
-    for _ in range(20):
-        state = bound.run(state, 50)
-        temps.append(kinetic_temperature(system.masses, state.velocities, dof))
-    mean_t = statistics.fmean(temps)
-    say(f"phase 7 kinetic temperature: {mean_t:.3f} K over 20 samples 50 "
-        f"steps apart ({dof} degrees of freedom; sd "
-        f"{statistics.stdev(temps):.3f} K)")
-    assert abs(mean_t - WATER_T) < 0.05 * WATER_T
-    rates = []
-    tc0 = time.perf_counter()
-    while len(rates) < 3 or (time.perf_counter() - tc0 < 20.0
-                             and len(rates) < 10):
-        tc = time.perf_counter()
-        state = bound.run(state, WATER_CHUNK)
-        positions = state.positions.cpu().numpy()
-        rates.append(WATER_CHUNK / (time.perf_counter() - tc))
-        assert positions.shape == (n, 3)
+    state, rates, steps = run_timed(bound, state, WARMUP, system, dof,
+                                    "phase 7")
     launches = dict(k.launches)
-    steps = WARMUP + 20 * 50 + WATER_CHUNK * len(rates)
     say(f"phase 7 main path: {steps} steps; launches {launches}")
     for kernel, count in launches.items():
         assert count > 0, f"{kernel} never launched on the main path"
@@ -582,34 +670,8 @@ def phase_water(dev, smi, k6):
     say(f"phase 7 throughput: {best:.1f} steps/s max, {median:.1f} median "
         f"({len(rates)} timed chunks of {WATER_CHUNK}), {ns_day:.2f} ns/day "
         f"at 2 fs, on {smi}")
-
-    # the output is right: finite, rigid, and the run's own final energy and
-    # forces agree with the plain sweep plus the remainder at the same
-    # positions (a fresh sort and a full rebuild)
     x = state.positions
-    assert torch.isfinite(x).all() and torch.isfinite(state.velocities).all()
-    c = system.constraints
-    i, j = c.index[:, 0].long(), c.index[:, 1].long()
-    L = torch.diagonal(system.default_box)
-    d = x[i] - x[j]
-    d = d - L * torch.round(d / L)
-    geom = float(((torch.linalg.norm(d, dim=1) - c.distance)
-                  / c.distance).abs().max())
-    say(f"phase 7 SETTLE: max relative bond-length error {geom:.2e}")
-    assert geom <= 1e-5
-    sw = bound._sweep_dict(bound._resort_sweep(state))
-    plain = tsw.PlainSweepNonbonded.like(k)
-    bound._sweep_kernel = plain
-    try:
-        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
-    finally:
-        bound._sweep_kernel = k
-    u_run, f_run = state.potentials[0], state.forces[0]
-    u_rel = abs(float(u_run - u_p)) / abs(float(u_p))
-    f_rel = max_rel(f_run, f_p)
-    say(f"phase 7 final state: U {float(u_run):.3f} vs plain {float(u_p):.3f} "
-        f"(rel {u_rel:.2e}), forces rel {f_rel:.2e}")
-    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+    plain = check_final_state(bound, state, "phase 7")
 
     # K2 and PME at the main path's final state, in turns with the plain
     # versions; the bound kernel timed on a rebuild (its real work)
@@ -687,6 +749,375 @@ def phase_water(dev, smi, k6):
             device_ms_by_part={k_: v[0] for k_, v in parts.items()})
 
 
+# ---------------------------------------------------------------------------
+# the alchemical path: K2's alchemical variant, Path A (equilibrium lambda
+# window) and Path B (NCMC switching)
+# ---------------------------------------------------------------------------
+
+
+def alchemical_term(system):
+    from openmmtools_tpu_torch.alchemy import AlchemicalNonbondedTerm
+
+    (term,) = [t for t in system.terms if type(t) is AlchemicalNonbondedTerm]
+    return term
+
+
+def device_params(values, dev):
+    return {name: torch.tensor(float(v), device=dev)
+            for name, v in values.items()}
+
+
+def alchemical_inputs(term, x, box, k, params):
+    """The kernel's inputs for ``term`` at ``x`` in a fresh sort, with the
+    class scalars of ``params`` and, for the 'exact' treatment, the scaled
+    charges: (xT, par, excl, L, lam)."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    xT, par, excl, L, max_sep = tsw.sorted_inputs(term, x, box, k)
+    assert int(max_sep) <= k.mask_shells
+    lam, _, charge_scale = term.sweep_lambdas(params, xT)
+    if charge_scale is not None:
+        par = tsw.scale_charges_by_code(par, charge_scale)
+    return xT, par, excl, L, lam.contiguous()
+
+
+def alchemical_bound(xT, L, k, S):
+    """The least time (ms, by) of one alchemical sweep at S shells: each
+    pair of the window once, its inputs read and F, U written once."""
+    tested, inside = sweep_pairs(xT, L, k, S)
+    n_bytes = 4 * (3 * k.n_pad + 4 * k.n_pad + k.mask_rows * k.n_pad + 3 + 1
+                   + k.n_lam + 3 * k.n_pad + 1)
+    return bound_ms(n_bytes, tested * OPS_DIST + inside * OPS_PAIR_ALCH), \
+        tested, inside
+
+
+def phase_alchemical_kernels(dev, smi):
+    from openmmtools_tpu_torch.alchemy import (
+        AbsoluteAlchemicalFactory,
+        AlchemicalRegion,
+    )
+    from openmmtools_tpu_torch.models import AlchemicalWaterBox, PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    # the direct-space cases on the model itself, the other treatments and
+    # the two regions by the factory on the plain box it starts from
+    w = AlchemicalWaterBox(box_edge=WATER_EDGE, device=dev)
+    ref = w.system
+    n = ref.n_particles
+    box = ref.default_box
+    base = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    assert torch.equal(base.positions, w.positions)
+    one = AlchemicalRegion(alchemical_atoms=[0, 1, 2])
+    two = [AlchemicalRegion(alchemical_atoms=[0, 1, 2], name="a",
+                            annihilate_sterics=True),
+           AlchemicalRegion(alchemical_atoms=[3, 4, 5], name="b",
+                            annihilate_electrostatics=False)]
+    exact = AbsoluteAlchemicalFactory(alchemical_pme_treatment="exact")
+    coulomb = AbsoluteAlchemicalFactory(alchemical_pme_treatment="coulomb")
+    plain_factory = AbsoluteAlchemicalFactory()
+
+    def lams(v):
+        return {"lambda_sterics": v, "lambda_electrostatics": v}
+
+    pair = {"lambda_sterics_a": 0.55, "lambda_electrostatics_a": 0.55,
+            "lambda_sterics_b": 0.3, "lambda_electrostatics_b": 0.3}
+    cases = [
+        ("direct-space, lambda 1", ref, lams(1.0)),
+        ("direct-space, lambda 0.5", ref, lams(0.5)),
+        ("direct-space, lambda 0", ref, lams(0.0)),
+        ("exact, lambda 0.55",
+         exact.create_alchemical_system(base.system, one), lams(0.55)),
+        ("coulomb, lambda 0.55",
+         coulomb.create_alchemical_system(base.system, one), lams(0.55)),
+        ("two regions, interacting", plain_factory.create_alchemical_system(
+            base.system, two, {("a", "b")}), pair),
+        ("two regions, not interacting",
+         plain_factory.create_alchemical_system(base.system, two), pair),
+    ]
+    mask_shells = min(2048, max(32, (-(-n // 128) * 128 // 2 // 32) * 32))
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    worst = dict(f=0.0, f_rel=0.0, u_rel=0.0)
+    for label, system, values in cases:
+        term = alchemical_term(system)
+        k = tsw.SweepNonbonded(
+            n, term.method, term.cutoff, switch_width=term.switch_width,
+            ewald_alpha=term.ewald_alpha, mask_shells=mask_shells,
+            n_regions=term.n_regions,
+            coulomb_pme_treatment=term.coulomb_pme_treatment)
+        plain = tsw.PlainSweepNonbonded.like(k)
+        xT, par, excl, L, lam = alchemical_inputs(
+            term, w.positions, box, k, device_params(values, dev))
+        nb = k.measure_bound(xT, L, flag, zero)
+        nb_ref = plain.measure_bound(xT, L, flag, zero)
+        F, U = k.sweep(xT, par, excl, L, nb, lam)
+        F_ref, U_ref = plain.sweep(xT, par, excl, L, nb_ref, lam)
+        torch.cuda.synchronize()
+        f_err = float((F - F_ref).abs().max())
+        f_rel = max_rel(F, F_ref)
+        u_rel = abs(float(U - U_ref)) / abs(float(U_ref))
+        assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 1}
+        k_ms = cuda_ms(lambda: k.sweep(xT, par, excl, L, nb, lam), reps=20)
+        p_ms = cuda_ms(lambda: plain.sweep(xT, par, excl, L, nb, lam),
+                       reps=2)
+        S = min(int(nb) * k.bs, k.n_pad // 2)
+        (b_ms, b_by), tested, inside = alchemical_bound(xT, L, k, S)
+        say(f"phase 8 alchemical sweep, {label} ({term.n_regions} "
+            f"region(s), {k.n_lam} class scalars): bound {int(nb)} vs plain "
+            f"{int(nb_ref)}, max|dF| {f_err:.3e} (rel {f_rel:.2e}), U "
+            f"{float(U):.4f} vs plain {float(U_ref):.4f} (rel {u_rel:.2e}); "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by} ({tested:.0f} pair tests, {inside:.0f} inside) "
+            f"({smi})")
+        assert int(nb) == int(nb_ref), label
+        assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
+        worst = dict(f=max(worst["f"], f_err), f_rel=max(worst["f_rel"], f_rel),
+                     u_rel=max(worst["u_rel"], u_rel))
+    return worst
+
+
+def compound_state(system):
+    from openmmtools_tpu_torch.alchemy import AlchemicalState
+    from openmmtools_tpu_torch.states import (
+        CompoundThermodynamicState,
+        ThermodynamicState,
+    )
+
+    return CompoundThermodynamicState(
+        base_state=ThermodynamicState(system=system, temperature=WATER_T),
+        composable_states=(AlchemicalState(**ALCH_LAMBDAS),))
+
+
+def phase_alchemical_path(dev, smi, k8):
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import AlchemicalWaterBox
+
+    t0 = time.perf_counter()
+    w = AlchemicalWaterBox(box_edge=WATER_EDGE, device=dev)
+    system = w.system
+    compound = compound_state(system)
+    bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                            timestep=0.002).bind(system)
+    t_setup = time.perf_counter() - t0
+    n = system.n_particles
+    term = alchemical_term(system)
+    assert term.force_group == 1 and not term.exact_electrostatics
+    assert bound.sweep_mode and bound._sweep_alch is term, \
+        "sweep mode did not take the alchemical term"
+    assert bound._fused is None, "the fused LJ kernel took the water box"
+    k = bound._sweep_kernel
+    assert k.alchemical and k.n_regions == 1 and k.n_lam == 6
+    assert set(k.launches) == {"sweep_bound", "sweep_forces_alch"}
+    dof = 3 * n - system.constraints.n_constraints
+    assert dof == 2 * n   # three constraints a water
+    say(f"phase 9 setup: {n} atoms, alchemical atoms {term.region_id.ge(0).sum().item()}, "
+        f"global parameters {dict(compound.global_params)}, n_pad {k.n_pad}; "
+        f"built and bound in {t_setup:.2f} s")
+
+    for key in k.launches:
+        k.launches[key] = 0
+    t1 = time.perf_counter()
+    state = bound.initial_state(w.sampler_state(),
+                                torch.Generator(device=dev).manual_seed(7),
+                                thermodynamic_state=compound)
+    torch.cuda.synchronize()
+    say(f"phase 9 initial_state in {time.perf_counter() - t1:.2f} s")
+    # the lattice start is still relaxing after the short warm-up: the
+    # temperature is read after the timed chunks
+    state, rates, steps = run_timed(bound, state, ALCH_WARMUP, system, dof,
+                                    "phase 9", temperature_last=True)
+    launches = dict(k.launches)
+    say(f"phase 9 main path: {steps} steps; launches {launches}")
+    for kernel, count in launches.items():
+        assert count > 0, f"{kernel} never launched on the main path"
+    # one evaluation a step, and one for initial_state
+    assert launches["sweep_forces_alch"] == launches["sweep_bound"] == steps + 1
+    best, median = max(rates), statistics.median(rates)
+    ns_day = median * 0.002 * 86400 / 1e3
+    say(f"phase 9 throughput: {best:.1f} steps/s max, {median:.1f} median "
+        f"({len(rates)} timed chunks of {WATER_CHUNK}), {ns_day:.2f} ns/day "
+        f"at 2 fs, on {smi}")
+    plain = check_final_state(bound, state, "phase 9")
+
+    # K2-alchemical at the final state, in turns with the plain version
+    xT, par, excl, L, lam = alchemical_inputs(
+        term, state.positions, system.default_box, k, state.global_params)
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flag, zero)
+    before = dict(k.launches)
+    t = {}
+    for label, fn, reps in (
+            ("plain", lambda: plain.sweep(xT, par, excl, L, nb, lam), 3),
+            ("kernel", lambda: k.sweep(xT, par, excl, L, nb, lam), 50),
+            ("kernel2", lambda: k.sweep(xT, par, excl, L, nb, lam), 50),
+            ("plain2", lambda: plain.sweep(xT, par, excl, L, nb, lam), 3)):
+        t[label] = cuda_ms(fn, reps=reps)
+    for key in k.launches:   # the comparisons' launches are not the path's
+        k.launches[key] = before[key]
+    f_ms = min(t["kernel"], t["kernel2"])
+    f_plain_ms = min(t["plain"], t["plain2"])
+    S = min(int(nb) * k.bs, k.n_pad // 2)
+    (b_ms, b_by), tested, inside = alchemical_bound(xT, L, k, S)
+    say(f"phase 9 K2-alchemical at the final state (bound {int(nb)} blocks, "
+        f"S = {S} shells): kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by} ({tested:.0f} pair tests, "
+        f"{inside:.0f} pairs inside the cutoff) ({smi})")
+
+    state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50,
+                                                        phase="phase 9")
+    step_ms = 1e3 / median
+    say(f"phase 9 profile, 50 steps: {wall_ms:.3f} ms/step wall under the "
+        f"profiler ({step_ms:.3f} without it), device busy {busy_ms:.3f} "
+        f"ms/step: busy share {busy_ms / step_ms:.3f} of the unprofiled step "
+        f"({busy_ms / wall_ms:.3f} of the profiled one)")
+    say("phase 9 profile, device ms/step (host ms/step in the range) by "
+        "part: " + "; ".join(f"{label} {dev_ms:.4f} ({host_ms:.3f})"
+                             for label, (dev_ms, host_ms) in parts.items()))
+    say("phase 9 profile, busiest device activities (ms/step): " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in top))
+
+    # the sweep path against the dense alchemical term on a small box
+    small = AlchemicalWaterBox(box_edge=SMALL_EDGE, device=dev)
+    sc = compound_state(small.system)
+    b_s = BAOABIntegrator(temperature=WATER_T).bind(small.system)
+    b_d = BAOABIntegrator(temperature=WATER_T, sweep=None).bind(small.system)
+    assert b_s.sweep_mode and b_s._sweep_alch is not None
+    assert not b_d.sweep_mode
+    gen = torch.Generator(device=dev)
+    s_s = b_s.initial_state(small.sampler_state(), gen.manual_seed(1),
+                            thermodynamic_state=sc)
+    s_d = b_d.initial_state(small.sampler_state(), gen.manual_seed(1),
+                            thermodynamic_state=sc)
+    u_s, u_d = float(s_s.potentials[0]), float(s_d.potentials[0])
+    u_rel = abs(u_s - u_d) / abs(u_d)
+    f_rel = max_rel(s_s.forces[0], s_d.forces[0])
+    say(f"phase 9 sweep against dense, {small.system.n_particles} atoms "
+        f"({SMALL_EDGE} nm box): U {u_s:.4f} vs dense {u_d:.4f} (rel "
+        f"{u_rel:.2e}), forces rel {f_rel:.2e}")
+    # the JAX package's tolerances for its own alchemical sweep against the
+    # dense term (tests/test_sweep_nb.py:214-249)
+    assert u_rel <= 2e-3 and f_rel <= 2e-4
+    kernel = dict(name="sweep_forces_alch", route="cuda", source=SWEEP_SOURCE,
+                  replaces=SWEEP_REPLACES,
+                  launches=launches["sweep_forces_alch"],
+                  max_abs_err=k8["f"], ms=f_ms, plain_ms=f_plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return kernel, state, system, dict(
+        steps_per_s_max=best, steps_per_s_median=median, ns_per_day=ns_day,
+        setup_s=t_setup, step_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+        device_ms_by_part={k_: v[0] for k_, v in parts.items()})
+
+
+def phase_ncmc(dev, smi, state_a, system):
+    from openmmtools_tpu_torch.integrators import (
+        AlchemicalNonequilibriumLangevinIntegrator,
+        BAOABIntegrator,
+        ExternalPerturbationLangevinIntegrator,
+    )
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+    from openmmtools_tpu_torch.states import SamplerState
+
+    integ = AlchemicalNonequilibriumLangevinIntegrator(
+        alchemical_functions={"lambda_electrostatics": "1 - lambda"},
+        n_steps_neq=NCMC_STEPS, temperature=WATER_T, collision_rate=1.0,
+        timestep=0.002)
+    assert integ.splitting == "O { V R H R V } O"
+    bound = integ.bind(system)
+    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound._fused is None
+    k = bound._sweep_kernel
+    # electrostatics switched off at full sterics, from Path A's last
+    # configuration
+    start = {**integ.initial_params(), "lambda_sterics": 1.0}
+    for key in k.launches:
+        k.launches[key] = 0
+    state = bound.initial_state(bound.sampler_state_from(state_a),
+                                torch.Generator(device=dev).manual_seed(11),
+                                global_params=start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = bound.run(state, NCMC_STEPS)
+    work = float(state.protocol_work)
+    rate = NCMC_STEPS / (time.perf_counter() - t0)
+    launches = dict(k.launches)
+    final = {name: float(v) for name, v in state.global_params.items()}
+    accepted = int(state.n_accepted)
+    say(f"phase 10 NCMC: one {NCMC_STEPS}-step protocol "
+        f"(lambda_electrostatics = 1 - lambda, '{integ.splitting}'): "
+        f"protocol work {work:.4f} kJ/mol, {accepted} of "
+        f"{int(state.n_proposed)} blocks accepted, final lambda "
+        f"{float(state.lambda_):.6f} after {state.lambda_step} H steps, "
+        f"parameters {final}; {rate:.2f} steps/s; launches {launches} "
+        f"({smi})")
+    for kernel, count in launches.items():
+        assert count > 0, f"{kernel} never launched on the NCMC path"
+    assert math.isfinite(work) and torch.isfinite(state.positions).all()
+    assert float(state.lambda_) == 1.0 and final["lambda_electrostatics"] == 0.0
+    assert int(state.n_proposed) == NCMC_STEPS
+
+    # external perturbation: lambda_electrostatics 1 -> 0 between steps
+    ext = ExternalPerturbationLangevinIntegrator(
+        temperature=WATER_T, collision_rate=1.0, timestep=0.002)
+    b_e = ext.bind(system)
+    assert b_e.sweep_mode and b_e._sweep_alch is not None
+    s_e = b_e.initial_state(bound.sampler_state_from(state_a),
+                            torch.Generator(device=dev).manual_seed(13),
+                            global_params={"lambda_electrostatics": 1.0,
+                                           "lambda_sterics": 1.0})
+    s_e = b_e.run(s_e, 1)
+    # the independent sum: the plain sweep plus the remainder in float64
+    system64 = system.to(dtype=torch.float64)
+    ref = BAOABIntegrator(temperature=WATER_T, sweep="force").bind(system64)
+    ref._sweep_kernel = tsw.PlainSweepNonbonded.like(ref._sweep_kernel)
+    box = system.default_box
+    box64 = box.double()
+
+    def same_path(state, params):
+        sw = b_e._sweep_dict(state)
+        return float(b_e._group_energy_forces(None, state.positions, box,
+                                              params, sw)[0])
+
+    def plain64(x, params, s64=None):
+        p64 = {name: v.double() for name, v in params.items()}
+        if s64 is None:
+            s64 = ref.initial_state(
+                SamplerState(positions=x.double(),
+                             velocities=torch.zeros_like(x, dtype=torch.float64),
+                             box_vectors=box64), torch.Generator(device=dev),
+                global_params=p64)
+            return float(s64.potentials[0]), s64
+        return float(ref._sweep_eval(x.double(), box64, p64,
+                                     ref._sweep_dict(s64))[0]), s64
+
+    same = indep = 0.0
+    for step in range(PERTURB_STEPS):
+        lam = 1.0 - float(step + 1) / PERTURB_STEPS
+        old = dict(s_e.global_params)
+        new = {**old, "lambda_electrostatics": torch.tensor(lam, device=dev)}
+        same += same_path(s_e, new) - same_path(s_e, old)
+        u_old, s64 = plain64(s_e.positions, old)
+        u_new, _ = plain64(s_e.positions, new, s64)
+        indep += u_new - u_old
+        s_e = b_e.perturb(s_e, new)
+        s_e = b_e.run(s_e, 1)
+        w = float(s_e.protocol_work)
+        # the tolerances of tests/test_nonequilibrium.py:382-420: tight
+        # against the same evaluation path, and against the independent
+        # evaluation at the cross-program floor
+        assert math.isclose(w, same, rel_tol=1e-5, abs_tol=5e-4), (step, w, same)
+        assert math.isclose(w, indep, rel_tol=1e-3, abs_tol=2e-2), (
+            step, w, indep)
+    say(f"phase 10 external perturbation: {PERTURB_STEPS} steps, "
+        f"lambda_electrostatics 1 -> 0: protocol work {w:.5f} kJ/mol, the "
+        f"same differences summed outside the integrator {same:.5f}, the "
+        f"plain sweep + remainder in float64 {indep:.5f} (diff "
+        f"{w - indep:.2e})")
+    return dict(protocol_work=work, accepted=accepted,
+                steps_per_s=rate, launches=launches,
+                perturb_work=w, perturb_independent=indep)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -696,9 +1127,14 @@ def main():
     kernels, rate = phase_main_path(dev, smi, k)
     k6 = phase_sweep_kernels(dev)
     water_kernels, water_rate = phase_water(dev, smi, k6)
+    k8 = phase_alchemical_kernels(dev, smi)
+    alch_kernel, state_a, system_a, alch_rate = phase_alchemical_path(
+        dev, smi, k8)
+    ncmc = phase_ncmc(dev, smi, state_a, system_a)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
-                    "card": smi}))
-    print(json.dumps({"kernels": kernels + water_kernels}))
+                    "alchemical_path": alch_rate, "ncmc_path": ncmc,
+                    "alchemical_kernel_worst": k8, "card": smi}))
+    print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

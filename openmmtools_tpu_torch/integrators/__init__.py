@@ -1,4 +1,5 @@
-"""Integrators: the Langevin operator-splitting language and FIRE."""
+"""Integrators: the Langevin operator-splitting language, the
+nonequilibrium (NCMC) integrators and FIRE."""
 
 from openmmtools_tpu_torch.integrators.langevin import (  # noqa: F401
     BAOABIntegrator,
@@ -14,3 +15,10 @@ from openmmtools_tpu_torch.integrators.langevin import (  # noqa: F401
     thermalize_velocities,
 )
 from openmmtools_tpu_torch.integrators.minimize import fire_minimize  # noqa: F401
+from openmmtools_tpu_torch.integrators.nonequilibrium import (  # noqa: F401
+    AlchemicalNonequilibriumLangevinIntegrator,
+    BoundNonequilibriumIntegrator,
+    ExternalPerturbationLangevinIntegrator,
+    NonequilibriumLangevinIntegrator,
+    PeriodicNonequilibriumIntegrator,
+)

@@ -17,6 +17,9 @@ CUDA device" in place of "the backend is a TPU":
   NonbondedTerm's direct space goes through the bounded-sweep kernel of
   :mod:`openmmtools_tpu_torch.ops.sweep_nb`, and the bonded terms, exception
   add-back, reciprocal space and constraints run as tensor code around it;
+  an AlchemicalNonbondedTerm (softcore beta = 0, c = 6) goes through the
+  kernel's alchemical variant, its class scalars computed from the global
+  parameters on the device at every evaluation;
 * the fused kernel of :mod:`openmmtools_tpu_torch.ops.fused_langevin` for a
   plain R/V/O splitting of a monodisperse, uncharged, periodic LJ fluid; it
   supersedes sweep mode.
@@ -26,19 +29,22 @@ waters, cluster M-SHAKE/M-RATTLE for the remaining small clusters, Jacobi
 SHAKE/RATTLE where clustering fails (:mod:`openmmtools_tpu_torch.ops.constraints`).
 
 Noise comes from the ``torch.Generator`` the caller hands to
-``initial_state``; the state carries it and each run advances it.
+``initial_state``; the state carries it and each run advances it. The H
+token (alchemical perturbation) belongs to the nonequilibrium integrators of
+:mod:`openmmtools_tpu_torch.integrators.nonequilibrium`, which use the
+``_pre_step`` hook and the ``lambda_``/``lambda_step`` fields of the state.
 
-Not ported yet, each with its own slice: the neighbour-list force path, the
-alchemical sweep variant, and the H (alchemical perturbation) token of the
-nonequilibrium integrators.
+Not ported yet: the neighbour-list force path, with its own slice.
 """
 from __future__ import annotations
 
+import logging
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from openmmtools_tpu_torch.alchemy import AlchemicalNonbondedTerm
 from openmmtools_tpu_torch.constants import kB
 from openmmtools_tpu_torch.ops import bonded, constraints, nonbonded, sweep_nb
 from openmmtools_tpu_torch.ops.geometry import minimum_image
@@ -54,6 +60,9 @@ from openmmtools_tpu_torch.system import (
     value_and_grad,
 )
 from openmmtools_tpu_torch.utils.pytree import static_field, tensor_dataclass
+
+
+logger = logging.getLogger(__name__)
 
 
 class IntegratorError(Exception):
@@ -117,8 +126,10 @@ def parse_splitting(splitting: str) -> List[str]:
 class IntegratorState:
     """Carried state of an integrator: positions, velocities, kT, box, the
     per-force-group force/energy caches, work/heat bookkeeping and GHMC
-    counters, and in sweep mode the sweep state (None otherwise).
-    ``generator`` is the noise source (advanced in place)."""
+    counters, the nonequilibrium protocol's ``lambda_`` (a tensor) and
+    ``lambda_step`` (its H-step counter, an int like ``step_count``), and
+    in sweep mode the sweep state (None otherwise). ``generator`` is the
+    noise source (advanced in place)."""
 
     positions: torch.Tensor
     velocities: torch.Tensor
@@ -132,6 +143,8 @@ class IntegratorState:
     protocol_work: Any = 0.0
     n_accepted: Any = 0
     n_proposed: Any = 0
+    lambda_: Any = 0.0
+    lambda_step: int = 0
     step_count: int = 0
     # bounded-sweep state (ops/sweep_nb.py; None when sweep mode is off)
     sweep_perm: Optional[torch.Tensor] = None   # (N,) sorted slot -> atom
@@ -139,7 +152,7 @@ class IntegratorState:
     sweep_snap: Optional[torch.Tensor] = None   # (N, 3) sorted coords at rebuild
     sweep_nblk: Optional[torch.Tensor] = None   # () int32; -1 forces a rebuild
     sweep_excl: Optional[torch.Tensor] = None   # (mask_rows, n_pad) int32
-    sweep_par: Optional[torch.Tensor] = None    # (3, n_pad) sorted parameters
+    sweep_par: Optional[torch.Tensor] = None    # (n_par, n_pad) sorted parameters
     sweep_overflow: Optional[torch.Tensor] = None  # () bool, sticky
     generator: Optional[torch.Generator] = static_field(default=None)
 
@@ -174,6 +187,9 @@ class _Env:
         self.protocol_work = None
         self.n_accepted = None
         self.n_proposed = None
+        self.lambda_ = None
+        self.lambda_step = None
+        self.step_count = None
         self.box = None
         self.sweep = None
         self.stash = None
@@ -202,6 +218,10 @@ class BoundIntegrator:
         self.n_V = {g: max(1, (self.tokens.count("V") if g is None
                                else self.tokens.count(f"V{g}")))
                     for g in self.groups}
+        self.n_H = self.tokens.count("H")
+        toks = self.tokens
+        self._h_in_block = "{" in toks and "H" in toks[
+            toks.index("{"):toks.index("}")]
 
         dt = integrator.timestep
         gamma = integrator.collision_rate
@@ -240,10 +260,14 @@ class BoundIntegrator:
         large periodic systems with real force fields. The kernel replaces
         the NonbondedTerm's standard pair sum (exception pairs masked, added
         back as tensor code); bonded terms, reciprocal space, constraints
-        and the splitting run around it. ``sweep="auto"`` engages on a CUDA
-        system with N >= 1024; "force" (or "interpret", the JAX package's
-        name for its CPU mode) engages on any device, where a CPU system runs
-        the kernels' plain versions; None disables."""
+        and the splitting run around it. An AlchemicalNonbondedTerm takes
+        the kernel's alchemical variant when its softcore is the factory's
+        default (beta = 0, c = 6), for any number of regions; any other
+        softcore keeps the dense path, with a warning at N >= 4096.
+        ``sweep="auto"`` engages on a CUDA system with N >= 1024; "force"
+        (or "interpret", the JAX package's name for its CPU mode) engages on
+        any device, where a CPU system runs the kernels' plain versions; None
+        disables."""
         self.sweep_mode = False
         self._sweep_group = None
         integ = self.integrator
@@ -251,10 +275,23 @@ class BoundIntegrator:
         system = self.system
         if policy is None or system.default_box is None:
             return
-        nb_terms = [t for t in system.terms if type(t) is NonbondedTerm]
+        nb_terms = [t for t in system.terms
+                    if type(t) in (NonbondedTerm, AlchemicalNonbondedTerm)]
         if len(nb_terms) != 1:
             return
         term = nb_terms[0]
+        alchemical = type(term) is AlchemicalNonbondedTerm
+        if alchemical and (term.softcore_beta != 0.0
+                           or term.softcore_c != 6.0):
+            if system.n_particles >= 4096:
+                # the dense path holds (N, N) matrices: losing the kernel
+                # at this size is a cliff, so say so
+                logger.warning(
+                    "alchemical system with softcore_beta=%g, softcore_c=%g "
+                    "(N=%d) falls back to the dense O(N^2) force path; the "
+                    "sweep kernel covers beta=0, c=6 only",
+                    term.softcore_beta, term.softcore_c, system.n_particles)
+            return
         # the sweep serves the force group holding the NonbondedTerm; with
         # numbered Vn splittings (MTS) the other groups evaluate normally
         if self.groups == [None]:
@@ -281,32 +318,63 @@ class BoundIntegrator:
             ewald_alpha=term.ewald_alpha, shift_rf=term.shift_rf,
             switch_coulomb=term.switch_coulomb,
             shell_block=integ.sweep_shell_block or 8,
-            skin=integ.neighbor_skin or 0.1, mask_shells=mask_shells)
+            skin=integ.neighbor_skin or 0.1, mask_shells=mask_shells,
+            n_regions=term.n_regions if alchemical else None,
+            coulomb_pme_treatment=(alchemical
+                                   and term.coulomb_pme_treatment))
         self.sweep_mode = True
         self._sweep_group = sweep_group
         self._sweep_term = term
+        self._sweep_alch = term if alchemical else None
         self._sweep_pairs = sweep_nb.unique_pairs(term.exception_index)
-        self._sweep_sqrt_eps = torch.sqrt(term.epsilon)
+        # the unsorted per-atom rows (sigma, sqrt(eps), charge, region
+        # code); an alchemical term's sigma clamped to 1e-6
+        self._sweep_atom_rows = sweep_nb.term_params(term)
         self.sweep_sort_interval = integ.sweep_sort_interval or 100
         self._sweep_remainder_setup()
-        # dispersion tail: the pair-averaged integral does not depend on the
-        # configuration; summed once here in float64 chunks of rows (the
-        # dense form holds (N, N) matrices)
+        self._sweep_tail_setup()
+
+    def _sweep_tail_setup(self):
+        """The dispersion tail's pair-averaged integral does not depend on
+        the configuration: summed once here in float64 chunks of rows on the
+        system's device (the dense form holds (N, N) matrices). For an
+        alchemical term one sum per region-pair class (env-env first), which
+        the tail weights by each class's lam_s^a at every evaluation (the
+        dense path's lambda-weighted tail)."""
+        term = self._sweep_term
+        n = self.system.n_particles
         self._sweep_disp_avg = None
-        if term.use_dispersion_correction:
-            sig = term.sigma.to(torch.float64)
-            eps = term.epsilon.to(torch.float64)
-            rc3 = float(term.cutoff) ** 3
-            rc9 = rc3 ** 3
-            chunk = max(1, (1 << 22) // n)
-            total = torch.zeros((), dtype=torch.float64, device=sig.device)
-            for lo in range(0, n, chunk):
-                s_ij = 0.5 * (sig[lo:lo + chunk, None] + sig[None, :])
-                e_ij = torch.sqrt(eps[lo:lo + chunk, None] * eps[None, :])
-                s6 = s_ij ** 6
-                total = total + torch.sum(
-                    4.0 * e_ij * (s6 * s6 / (9.0 * rc9) - s6 / (3.0 * rc3)))
+        self._sweep_disp_class = None
+        if not term.use_dispersion_correction:
+            return
+        sig, _, _, code = self._sweep_atom_rows
+        sig = sig.to(torch.float64)
+        eps = term.epsilon.to(torch.float64)
+        rc3 = float(term.cutoff) ** 3
+        rc9 = rc3 ** 3
+        chunk = max(1, (1 << 22) // n)
+        if code is not None:
+            # class of the pair (g_i, g_j), env-env = 0
+            table = sweep_nb.class_index(term.n_regions, sig.device) + 1
+            code = code.long()
+            n_all = (term.n_regions + 1) * (term.n_regions + 2) // 2
+            sums = torch.zeros((n_all,), dtype=torch.float64,
+                               device=sig.device)
+        total = torch.zeros((), dtype=torch.float64, device=sig.device)
+        for lo in range(0, n, chunk):
+            s_ij = 0.5 * (sig[lo:lo + chunk, None] + sig[None, :])
+            e_ij = torch.sqrt(eps[lo:lo + chunk, None] * eps[None, :])
+            s6 = s_ij ** 6
+            integral = 4.0 * e_ij * (s6 * s6 / (9.0 * rc9) - s6 / (3.0 * rc3))
+            if code is None:
+                total = total + torch.sum(integral)
+            else:
+                cls = table[code[lo:lo + chunk, None], code[None, :]]
+                sums.index_add_(0, cls.reshape(-1), integral.reshape(-1))
+        if code is None:
             self._sweep_disp_avg = float(total) / (n * n)
+        else:
+            self._sweep_disp_class = sums / (n * n)
 
     def _sweep_remainder_setup(self):
         """Sort the terms sharing the sweep's force group into what one
@@ -320,7 +388,11 @@ class BoundIntegrator:
                  if t is not term and (g is None or t.force_group == g)]
         exc = term.exception_index
         self._sweep_recip = None
-        if exc.shape[0] > 0:
+        # the alchemical term adds its exceptions back through its own
+        # exception_add_energy (lambda-scaled), and the reciprocal term then
+        # evaluates whole, its exclusion correction included
+        fuse = exc.shape[0] > 0 and self._sweep_alch is None
+        if fuse:
             for t in other:
                 if (isinstance(t, EwaldReciprocalTerm) and t.kmax is not None
                         and t.exclusion_index.shape == exc.shape
@@ -342,7 +414,7 @@ class BoundIntegrator:
                 cols += [t.index[:, c] for c in range(t.index.shape[1])]
             else:
                 self._sweep_leftover.append(t)
-        if exc.shape[0] > 0:
+        if fuse:
             cols += [exc[:, 0], exc[:, 1]]
         self._sweep_rows = (torch.cat(cols).long() if cols else None)
 
@@ -356,11 +428,13 @@ class BoundIntegrator:
         perm, inv = sweep_nb.sort_for_sweep(state.positions, box, k.n_pad)
         excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
             self._sweep_pairs, inv, k.n_pad, k.mask_rows)
-        # the unscaled [sigma, sqrt(eps), charge] rows in the new order, in
-        # the kernels' layout; _sweep_eval folds in any scale parameters
+        # the unscaled [sigma, sqrt(eps), charge(, code)] rows in the new
+        # order, in the kernels' layout; _sweep_eval folds in any scale
+        # parameters
+        sigma, sqrt_eps, charge, code = self._sweep_atom_rows
         par = sweep_nb.sorted_params(
-            term.sigma, self._sweep_sqrt_eps, term.charge, perm.long(),
-            k.n_pad, k.input_dtype(state.positions))
+            sigma, sqrt_eps, charge, perm.long(), k.n_pad,
+            k.input_dtype(state.positions), code)
         overflow = max_sep > k.mask_shells
         if state.sweep_overflow is not None:
             overflow = overflow | state.sweep_overflow
@@ -406,7 +480,11 @@ class BoundIntegrator:
                     t.k)
         recip = self._sweep_recip
         m = term.exception_index.shape[0]
-        if m > 0:
+        if self._sweep_alch is not None:
+            # the kernel masked the exception pairs (the subtract); their own
+            # lambda-scaled interaction remains
+            tot = tot + term.exception_add_energy(xx, box, params)
+        elif m > 0:
             # exception pairs REPLACE the combined-rule pair: plain no-cutoff
             # LJ + Coulomb ...
             d = seg(m) - seg(m)
@@ -434,7 +512,8 @@ class BoundIntegrator:
         """Energy and forces of the sweep's force group: the sweep kernel
         for the NonbondedTerm's standard pairs plus the remainder with
         autograd forces. ``sw`` is a dict of the sweep state; returns
-        (u, F, new_sw). The rebuild flag stays on the device."""
+        (u, F, new_sw), u in float64. The rebuild flag stays on the
+        device."""
         k = self._sweep_kernel
         term = self._sweep_term
         n = self.system.n_particles
@@ -445,11 +524,21 @@ class BoundIntegrator:
         moved = torch.max(torch.sum(disp * disp, dim=-1)) > (0.5 * k.skin) ** 2
         rebuild = (sw["nblk"] < 0) | moved
 
-        # global charge/lj scale parameters fold into the per-atom rows:
-        # q -> q scale and sqrt_eps -> sqrt_eps sqrt(lj_scale)
         par = sw["par"]
         lj_scale = None
-        if term.lj_scale_param is not None or term.charge_scale_param is not None:
+        lam = lam_s_cls = None
+        alch = self._sweep_alch
+        if alch is not None:
+            # the kernel's per-class scalars, from the parameters by tensor
+            # operations on the device; 'exact' scales the charges by region
+            lam, lam_s_cls, charge_scale = alch.sweep_lambdas(params, xT)
+            lam = lam.to(dtype).contiguous()
+            if charge_scale is not None:
+                par = sweep_nb.scale_charges_by_code(par, charge_scale)
+        elif (term.lj_scale_param is not None
+                or term.charge_scale_param is not None):
+            # global charge/lj scale parameters fold into the per-atom
+            # rows: q -> q scale and sqrt_eps -> sqrt_eps sqrt(lj_scale)
             one = torch.ones((), dtype=dtype, device=x.device)
             scale = [one, one, one]
             if term.lj_scale_param is not None:
@@ -464,16 +553,28 @@ class BoundIntegrator:
         L = torch.diagonal(box)
         F_s, u_s, nblk = k.evaluate(xT, par, sw["excl"],
                                     L.to(dtype).contiguous(), rebuild,
-                                    sw["nblk"])
+                                    sw["nblk"], lam)
         F_direct = F_s.t()[sw["inv"].long()].to(x.dtype)
         u_r, g_r = value_and_grad(
             lambda xx: self._sweep_rest_energy(xx, box, params), x)
-        u = u_s[0].to(x.dtype) + u_r
+        # the parts add up in float64, as OpenMM's mixed precision sums
+        # energies: a float32 total of 24,000 waters (-3.2e5 kJ/mol) moves
+        # in steps of 0.03 kJ/mol, and the nonequilibrium work is a sum of
+        # differences of such totals
+        u = u_s[0].to(torch.float64) + u_r.to(torch.float64)
+        volume = torch.prod(L.to(torch.float64))
         if self._sweep_disp_avg is not None:
-            tail = (2.0 * math.pi * n * n / torch.prod(L)) * self._sweep_disp_avg
+            tail = (2.0 * math.pi * n * n / volume) * self._sweep_disp_avg
             if lj_scale is not None:
                 tail = tail * lj_scale   # eps_ij scales linearly in lj_scale
             u = u + tail
+        elif self._sweep_disp_class is not None:
+            # class sums (env-env first) weighted by lam_s^a per class
+            weights = torch.cat([torch.ones((1,), dtype=torch.float64,
+                                            device=x.device),
+                                 lam_s_cls.to(torch.float64)])
+            u = u + (2.0 * math.pi * n * n / volume) * torch.sum(
+                self._sweep_disp_class * weights)
         new_sw = dict(sw)
         new_sw["snap"] = torch.where(rebuild, y, sw["snap"])
         new_sw["nblk"] = nblk.reshape(())
@@ -639,9 +740,18 @@ class BoundIntegrator:
         accept = u < torch.exp(-shadow / env.kT)
         env.x = torch.where(accept, env.x, x0)
         env.v = torch.where(accept, env.v, -v0)   # momentum flip on rejection
-        for g in self.groups:
-            env.U[g] = torch.where(accept, env.U[g], U0[g])
-            env.F[g] = torch.where(accept, env.F[g], F0[g])
+        if self._h_in_block:
+            # the global parameters moved inside the block: the stashed U/F
+            # belong to the old lambda, so recompute at (the kept x, the
+            # current parameters)
+            for g in self.groups:
+                env.U[g] = None
+                env.F[g] = None
+            self._ensure_forces(env)
+        else:
+            for g in self.groups:
+                env.U[g] = torch.where(accept, env.U[g], U0[g])
+                env.F[g] = torch.where(accept, env.F[g], F0[g])
         env.n_accepted = env.n_accepted + accept.to(torch.int64)
         env.n_proposed = env.n_proposed + 1
         env.stash = None
@@ -651,6 +761,10 @@ class BoundIntegrator:
             "H token requires a nonequilibrium integrator subclass")
 
     # -- program assembly ---------------------------------------------------
+    def _pre_step(self, env: _Env):
+        """Hook run at the start of each step (the nonequilibrium cycle
+        reset)."""
+
     def _vproj_skip_eligible(self) -> bool:
         """True when the LAST substep's velocity projection is redundant
         inside a run: the RATTLE projection P is linear and idempotent in v
@@ -695,9 +809,13 @@ class BoundIntegrator:
         env.protocol_work = state.protocol_work
         env.n_accepted = state.n_accepted
         env.n_proposed = state.n_proposed
+        env.lambda_ = state.lambda_
+        env.lambda_step = state.lambda_step
+        env.step_count = state.step_count
         if self.sweep_mode and state.sweep_perm is not None:
             env.sweep = self._sweep_dict(state)
 
+        self._pre_step(env)
         for ti, tok in enumerate(self.tokens):
             if tok == "R":
                 self._emit_R(env)
@@ -727,6 +845,7 @@ class BoundIntegrator:
             heat=env.heat, shadow_work=env.shadow_work,
             protocol_work=env.protocol_work,
             n_accepted=env.n_accepted, n_proposed=env.n_proposed,
+            lambda_=env.lambda_, lambda_step=env.lambda_step,
             step_count=state.step_count + 1)
 
     # -- public API ---------------------------------------------------------
@@ -758,8 +877,8 @@ class BoundIntegrator:
         state = IntegratorState(
             positions=x, velocities=v, kT=kT, box=box, global_params=params,
             heat=zero, shadow_work=zero, protocol_work=zero,
-            n_accepted=izero, n_proposed=izero, step_count=0,
-            generator=generator)
+            n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
+            step_count=0, generator=generator)
         sw = None
         if self.sweep_mode:
             state = self._resort_sweep(state)

@@ -9,6 +9,7 @@ from openmmtools_tpu_torch.models.testsystems import (  # noqa: F401
     TestSystem,
 )
 from openmmtools_tpu_torch.models.water import (  # noqa: F401
+    AlchemicalWaterBox,
     DischargedWaterBox,
     DischargedWaterBoxHsites,
     FiveSiteWaterBox,

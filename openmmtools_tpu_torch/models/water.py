@@ -13,7 +13,8 @@ models:
 
 Rigid water = 3 distance constraints per molecule (OH, OH, HH), which the
 integrators hand to SETTLE. Intramolecular nonbonded pairs are excluded.
-``AlchemicalWaterBox`` arrives with the alchemy port.
+``AlchemicalWaterBox`` makes the first molecule alchemical with the
+factory's defaults.
 """
 from __future__ import annotations
 
@@ -433,3 +434,22 @@ class DischargedWaterBoxHsites(WaterBox):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.system = _discharged_system(self.system, h_lj=True)
+
+
+class AlchemicalWaterBox(WaterBox):
+    """Water box whose first molecule is alchemically modifiable through
+    ``lambda_electrostatics`` / ``lambda_sterics`` (the factory's defaults:
+    direct-space PME treatment, annihilated electrostatics, decoupled
+    sterics, the alchemical term in force group 1)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        from openmmtools_tpu_torch.alchemy import (
+            AbsoluteAlchemicalFactory,
+            AlchemicalRegion,
+        )
+
+        spm = self.system.n_particles // self.n_waters
+        region = AlchemicalRegion(alchemical_atoms=list(range(spm)))
+        factory = AbsoluteAlchemicalFactory()
+        self.system = factory.create_alchemical_system(self.system, region)

@@ -53,6 +53,11 @@ SIGNATURES = {
     #  f_part, e_part, F, U, stream)
     "sweep_forces_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F, _F,
                          _F, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
+    # (the same arguments up to ke, then lam, n_regions, coulomb_plain,
+    #  f_part, e_part, F, U, stream)
+    "sweep_forces_alch_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F,
+                              _F, _F, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P,
+                              _P, _P, _P),
 }
 
 

@@ -18,25 +18,36 @@ partners ``i +- s`` of the sorted order for ``s`` up to ``bound * shell_block``
   (i, i+s)); the caller adds their own interaction back;
 * a distance-only pass that re-measures the block bound on rebuild:
   1 + the last block of ``shell_block`` shells holding a pair within
-  (cutoff + skin)^2.
+  (cutoff + skin)^2;
+* the alchemical variant (``alchemical=True``, ``n_regions``): a 4th
+  parameter row carries each slot's region code g = region_id + 1 (0 =
+  environment), and every pair takes the scalars (lam_s, asc, lam_e) of its
+  region-pair class {min(g_i, g_j), max(g_i, g_j)} from the ``lam`` input
+  [lam_s x C, asc x C, lam_e x C] (C = (R+1)(R+2)/2 - 1 classes, env-env
+  excluded: it keeps lam_s = lam_e = 1, asc = 0): softcore LJ (beta = 0,
+  c = 6) x = s6/(asc s6 + 1) with s6 clamped to 1e18, U = 4 eps lam_s
+  x (x - 1), and the Coulomb term times lam_e; the 'coulomb' PME treatment
+  uses plain 1/r for pairs with an alchemical member.
 
 :class:`SweepNonbonded` has the arguments and the ``forces`` contract of the
-TPU kernel ``openmmtools_tpu.ops.sweep_nb.SweepNonbonded`` (standard variant;
-the alchemical variant comes with the alchemy port). On CUDA tensors its two
-wrappers, :meth:`SweepNonbonded.measure_bound` and :meth:`SweepNonbonded.sweep`,
-launch the hand-written kernels of ``csrc/sweep_nb.cu`` or raise; on CPU
-tensors they run the plain PyTorch versions :func:`measure_bound_reference` and
-:func:`sweep_forces_reference`, which are also the kernels' oracle on the card.
-The rebuild flag and the bound stay device tensors that the kernels read, so a
+TPU kernel ``openmmtools_tpu.ops.sweep_nb.SweepNonbonded``, both variants. On
+CUDA tensors its two wrappers, :meth:`SweepNonbonded.measure_bound` and
+:meth:`SweepNonbonded.sweep`, launch the hand-written kernels of
+``csrc/sweep_nb.cu`` or raise; on CPU tensors they run the plain PyTorch
+versions :func:`measure_bound_reference` and :func:`sweep_forces_reference`,
+which are also the kernels' oracle on the card. The rebuild flag, the bound
+and the alchemical scalars stay device tensors that the kernels read, so a
 step never waits on the host.
 
 Semantics kept from the TPU kernel: pad slots (``n <= i < n_pad``) take no
 part; the minimum image is one conditional shift per axis (exact for wrapped
 coordinates); the shell ``s = n_pad/2`` reaches the same partner from both
 sides and counts half from each; an exception bit is read only for
-``s <= 32 * mask_rows``. Divergence: erfc is exact (``erfcf`` in the kernel,
+``s <= 32 * mask_rows``. Divergences: erfc is exact (``erfcf`` in the kernel,
 ``torch.special.erfc`` here) where the TPU kernel uses the Abramowitz-Stegun
-7.1.26 rational (|error| < 1.5e-7).
+7.1.26 rational (|error| < 1.5e-7); a pair's region-pair class is an integer
+index computed from (min(g_i, g_j), max(g_i, g_j)) where the TPU kernel
+compares float (g_i + g_j, g_i g_j) against each class.
 """
 from __future__ import annotations
 
@@ -54,8 +65,9 @@ from openmmtools_tpu_torch.ops._build import (
 
 __all__ = ["SweepNonbonded", "PlainSweepNonbonded", "build_exclusion_bitfield",
            "sort_for_sweep", "sorted_positions", "sorted_params",
-           "sorted_inputs", "measure_bound_reference",
-           "sweep_forces_reference"]
+           "sorted_inputs", "term_params", "scale_charges_by_code",
+           "class_index",
+           "measure_bound_reference", "sweep_forces_reference"]
 
 # rows of sorted slots per chunk of the plain versions: a chunk holds
 # (rows, partners) tensors, never (N, N) ones
@@ -115,20 +127,44 @@ def _excluded(excl, o, i, j):
     return (bits == 1) & (ao <= 32 * mask_rows)
 
 
+def class_index(n_regions, device=None):
+    """(R+1, R+1) int64 table of the region-pair class of two region codes:
+    the position of {min, max} in the classes (a, b), 0 <= a <= b <= R, in
+    order, less one (env-env, which has no class, gives -1). The kernel
+    computes the same index arithmetically."""
+    R = int(n_regions)
+    a = torch.arange(R + 1, device=device)
+    lo = torch.minimum(a[:, None], a[None, :])
+    hi = torch.maximum(a[:, None], a[None, :])
+    return lo * (R + 1) - lo * (lo - 1) // 2 + (hi - lo) - 1
+
+
 def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
                            shell_block, switch_width=None, dielectric=78.3,
-                           alpha=None, shift_rf=True, switch_coulomb=False):
+                           alpha=None, shift_rf=True, switch_coulomb=False,
+                           n_regions=0, coulomb_plain=False, lam=None):
     """Forces (3, n_pad) and energy (1,) of the bounded sweep: the plain
     version of ``sweep_forces_kernel``. ``xT`` (3, n_pad) sorted wrapped
-    positions, ``par`` (3, n_pad) sorted [sigma, sqrt(eps), charge], ``excl``
+    positions, ``par`` (3, n_pad) sorted [sigma, sqrt(eps), charge] (the
+    alchemical variant, ``n_regions`` > 0: (4, n_pad) with the region codes
+    g as the 4th row, and ``lam`` the (3 C,) class scalars), ``excl``
     (mask_rows, n_pad) int32 bitfield, ``nblk`` (1,) the block bound; any
-    floating dtype. Each slot sums its full ring neighbourhood i +- s."""
+    floating dtype. Each slot sums its full ring neighbourhood i +- s. The
+    alchemical variant's energy is float64, as the kernel's."""
     dev, dtype = xT.device, xT.dtype
+    alch = n_regions > 0
+    if alch:
+        table = class_index(n_regions, dev)
+        n_cls = (n_regions + 1) * (n_regions + 2) // 2 - 1
+        lam = lam.to(device=dev, dtype=dtype)
+        code = par[3].long()
     n_pad = xT.shape[1]
     half = n_pad // 2
     S = min(int(nblk.reshape(-1)[0]) * shell_block, half)
     F = torch.zeros((3, n_pad), dtype=dtype, device=dev)
-    U = torch.zeros((), dtype=dtype, device=dev)
+    # the alchemical variant's energy total is float64, as the kernel's
+    acc = torch.float64 if alch else dtype
+    U = torch.zeros((), dtype=acc, device=dev)
     if S <= 0:
         return F, U.reshape(1)
     rc2 = cutoff * cutoff
@@ -156,9 +192,28 @@ def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
         eps = par[1][i] * par[1][j]
         s2 = sig * sig * inv_r2
         s6 = s2 * s2 * s2
-        s12 = s6 * s6
-        e_lj = 4.0 * eps * (s12 - s6)
-        w_lj = eps * (48.0 * s12 - 24.0 * s6) * inv_r2
+        if alch:
+            # the pair's class scalars; env-env pairs (class -1) keep
+            # lam_s = lam_e = 1, asc = 0
+            gi, gj = code[i], code[j]
+            ci = table[gi, gj]
+            has = ci >= 0
+            ci = torch.clamp(ci, min=0)
+            lam_s = torch.where(has, lam[ci], 1.0)
+            asc = torch.where(has, lam[n_cls + ci], 0.0)
+            lam_e = torch.where(has, lam[2 * n_cls + ci], 1.0)
+            # softcore (beta = 0, c = 6): x = s6/(asc s6 + 1); s6 clamped so
+            # that asc s6 + 1 cannot overflow at deep overlap
+            s6 = torch.clamp(s6, max=1e18)
+            inv_den = 1.0 / (asc * s6 + 1.0)
+            xsc = s6 * inv_den
+            el4 = (4.0 * eps) * lam_s
+            e_lj = el4 * (xsc * xsc - xsc)
+            w_lj = (6.0 * el4) * (2.0 * xsc - 1.0) * xsc * inv_den * inv_r2
+        else:
+            s12 = s6 * s6
+            e_lj = 4.0 * eps * (s12 - s6)
+            w_lj = eps * (48.0 * s12 - 24.0 * s6) * inv_r2
         qq = ONE_4PI_EPS0 * par[2][i] * par[2][j]
         if method in ("pme", "ewald"):
             z = alpha * r
@@ -166,9 +221,17 @@ def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
             e_c = qq * erfc * inv_r
             w_c = qq * inv_r2 * (erfc * inv_r
                                  + two_over_sqrt_pi * alpha * torch.exp(-z * z))
+            if alch and coulomb_plain:
+                # 'coulomb' PME treatment: plain 1/r for involved pairs
+                involved = (gi > 0) | (gj > 0)
+                e_c = torch.where(involved, qq * inv_r, e_c)
+                w_c = torch.where(involved, qq * inv_r2 * inv_r, w_c)
         else:
             e_c = qq * (inv_r + k_rf * r2 - c_rf)
             w_c = qq * (inv_r2 * inv_r - 2.0 * k_rf)
+        if alch:
+            e_c = e_c * lam_e
+            w_c = w_c * lam_e
         if switch_width is not None:
             inv_span = 1.0 / switch_width
             tt = torch.clamp((r - (cutoff - switch_width)) * inv_span, 0.0, 1.0)
@@ -189,24 +252,28 @@ def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
         rows_i = i[:, 0]
         for c in range(3):
             F[c, rows_i] = torch.sum(w * ds[c], dim=1)
-        U = U + 0.5 * torch.sum(e)
+        U = U + 0.5 * torch.sum(e, dtype=acc)
     return F, U.reshape(1)
 
 
 class SweepNonbonded:
     """Bounded-sweep direct-space force program for one NonbondedTerm
-    configuration (the standard, non-alchemical variant).
+    configuration, standard or alchemical.
 
     Static per instance: method, cutoff, switch, dielectric, alpha, particle
-    count. Runtime inputs: sorted coordinates and parameters, box, exclusion
-    bitfield, rebuild flag and current block bound. ``launches`` counts
-    kernel launches per kernel, on CUDA tensors only.
+    count, and for the alchemical variant the region count and the
+    'coulomb' PME treatment. Runtime inputs: sorted coordinates and
+    parameters, box, exclusion bitfield, rebuild flag, current block bound
+    and the alchemical class scalars ``lam``. ``launches`` counts kernel
+    launches per kernel, on CUDA tensors only: ``sweep_bound`` and
+    ``sweep_forces`` (standard) or ``sweep_forces_alch`` (alchemical).
     """
 
     def __init__(self, n_particles, method, cutoff, switch_width=None,
                  dielectric=78.3, ewald_alpha=None, shift_rf=True,
                  switch_coulomb=False, shell_block=8, skin=0.1,
-                 mask_shells=2048):
+                 mask_shells=2048, alchemical=False, n_regions=None,
+                 coulomb_pme_treatment=False):
         if method not in ("pme", "ewald", "cutoff_periodic"):
             raise ValueError(f"sweep kernel: unsupported method {method!r}")
         self.n = int(n_particles)
@@ -226,15 +293,33 @@ class SweepNonbonded:
             raise ValueError("mask_shells must be a multiple of 32")
         self.mask_rows = self.mask_shells // 32
         self.n_blocks = -(-(self.n_pad // 2) // self.bs)
-        self.launches = {"sweep_bound": 0, "sweep_forces": 0}
+        # alchemical variant: region codes g = region_id + 1 in a 4th
+        # parameter row, and 3 scalars per region-pair class (a, b),
+        # 0 <= a <= b <= R, env-env (0, 0) excluded
+        self.n_regions = (int(n_regions) if n_regions is not None
+                          else (1 if alchemical else 0))
+        self.alchemical = self.n_regions > 0
+        R = self.n_regions
+        self.alch_classes = tuple(
+            (a, b) for a in range(R + 1) for b in range(a, R + 1))[1:]
+        self.n_lam = 3 * len(self.alch_classes)
+        self.coulomb_pme_treatment = (self.alchemical
+                                      and bool(coulomb_pme_treatment))
+        self.n_par = 4 if self.alchemical else 3
+        self.forces_kernel = ("sweep_forces_alch" if self.alchemical
+                              else "sweep_forces")
+        self.launches = {"sweep_bound": 0, self.forces_kernel: 0}
 
     def physics(self):
-        """Keyword arguments of :func:`sweep_forces_reference`."""
+        """Keyword arguments of :func:`sweep_forces_reference` (``lam``
+        aside)."""
         return dict(n=self.n, cutoff=self.rc, method=self.method,
                     shell_block=self.bs, switch_width=self.switch_width,
                     dielectric=self.dielectric, alpha=self.alpha,
                     shift_rf=self.shift_rf,
-                    switch_coulomb=self.switch_coulomb)
+                    switch_coulomb=self.switch_coulomb,
+                    n_regions=self.n_regions,
+                    coulomb_plain=self.coulomb_pme_treatment)
 
     def measure_bound(self, xT, L, rebuild, bound):
         """The block bound (int32 (1,)) for this evaluation: re-measured when
@@ -262,14 +347,18 @@ class SweepNonbonded:
         check(err, "sweep_bound_f32")
         return nblk
 
-    def sweep(self, xT, par, excl, L, nblk):
+    def sweep(self, xT, par, excl, L, nblk, lam=None):
         """Forces (3, n_pad) and energy (1,) of sorted positions ``xT`` at
-        the block bound ``nblk`` (int32 (1,), read on the device)."""
+        the block bound ``nblk`` (int32 (1,), read on the device); the
+        alchemical variant reads its class scalars from ``lam`` (n_lam,),
+        also on the device."""
+        if self.alchemical and lam is None:
+            raise ValueError("the alchemical sweep needs its class scalars")
         if not kernels_for(xT, "sweep kernel"):
-            return sweep_forces_reference(xT, par, excl, L, nblk,
+            return sweep_forces_reference(xT, par, excl, L, nblk, lam=lam,
                                           **self.physics())
         check_input(xT, torch.float32, (3, self.n_pad))
-        check_input(par, torch.float32, (3, self.n_pad))
+        check_input(par, torch.float32, (self.n_par, self.n_pad))
         check_input(excl, torch.int32, (self.mask_rows, self.n_pad))
         check_input(L, torch.float32, (3,))
         check_input(nblk, torch.int32, (1,))
@@ -280,7 +369,10 @@ class SweepNonbonded:
         e_part = torch.empty((_SLICES * grid,), dtype=torch.float32,
                              device=dev)
         F = torch.empty((3, self.n_pad), dtype=torch.float32, device=dev)
-        U = torch.empty((1,), dtype=torch.float32, device=dev)
+        # the alchemical variant's energy total is a double (its differences
+        # are nonequilibrium work)
+        U = torch.empty((1,), dtype=(torch.float64 if self.alchemical
+                                     else torch.float32), device=dev)
         ewald = self.method in ("pme", "ewald")
         if ewald:
             k_rf = c_rf = 0.0
@@ -290,17 +382,28 @@ class SweepNonbonded:
             c_rf = ((1.0 / self.rc) * (3.0 * d) / (2.0 * d + 1.0)
                     if self.shift_rf else 0.0)
         sw = self.switch_width
-        err = load_library().sweep_forces_f32(
-            xT.data_ptr(), par.data_ptr(), excl.data_ptr(), self.n,
-            self.n_pad, self.mask_rows, self.bs, L.data_ptr(),
-            nblk.data_ptr(), self.rc * self.rc, int(not ewald),
-            self.alpha if ewald else 0.0, k_rf, c_rf, int(sw is not None),
-            int(self.switch_coulomb), 0.0 if sw is None else self.rc - sw,
-            0.0 if sw is None else 1.0 / sw, ONE_4PI_EPS0,
-            f_part.data_ptr(), e_part.data_ptr(), F.data_ptr(), U.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        self.launches["sweep_forces"] += 1
-        check(err, "sweep_forces_f32")
+        args = [xT.data_ptr(), par.data_ptr(), excl.data_ptr(), self.n,
+                self.n_pad, self.mask_rows, self.bs, L.data_ptr(),
+                nblk.data_ptr(), self.rc * self.rc, int(not ewald),
+                self.alpha if ewald else 0.0, k_rf, c_rf, int(sw is not None),
+                int(self.switch_coulomb), 0.0 if sw is None else self.rc - sw,
+                0.0 if sw is None else 1.0 / sw, ONE_4PI_EPS0]
+        lib = load_library()
+        if self.alchemical:
+            if self.n_lam > _MAX_LAM:
+                raise ValueError(
+                    f"the alchemical sweep kernel takes at most "
+                    f"{_MAX_REGIONS} regions, got {self.n_regions}")
+            check_input(lam, torch.float32, (self.n_lam,))
+            fn, name = lib.sweep_forces_alch_f32, "sweep_forces_alch_f32"
+            args += [lam.data_ptr(), self.n_regions,
+                     int(self.coulomb_pme_treatment)]
+        else:
+            fn, name = lib.sweep_forces_f32, "sweep_forces_f32"
+        err = fn(*args, f_part.data_ptr(), e_part.data_ptr(), F.data_ptr(),
+                 U.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        self.launches[self.forces_kernel] += 1
+        check(err, name)
         return F, U
 
     def input_dtype(self, t):
@@ -309,21 +412,25 @@ class SweepNonbonded:
         return (torch.float32 if kernels_for(t, "sweep kernel")
                 else t.dtype)
 
-    def evaluate(self, xT, par, excl, L, rebuild, bound):
+    def evaluate(self, xT, par, excl, L, rebuild, bound, lam=None):
         """One force evaluation on the (3, n_pad) layout: the bound, then the
         sweep at it. Returns (F (3, n_pad), U (1,), new_bound (1,) int32)."""
         nblk = self.measure_bound(xT, L, rebuild, bound)
-        F, U = self.sweep(xT, par, excl, L, nblk)
+        F, U = self.sweep(xT, par, excl, L, nblk, lam)
         return F, U, nblk
 
-    def forces(self, x_sorted, par_sorted, box, excl, rebuild, bound):
+    def forces(self, x_sorted, par_sorted, box, excl, rebuild, bound,
+               lam=None):
         """One force evaluation, the TPU kernel's contract.
 
         x_sorted: (n_pad, 3) sorted, wrapped positions (pad rows ignored);
-        par_sorted: (n_pad, 3) [sigma, sqrt_eps, charge], sorted, 0 pad;
+        par_sorted: (n_pad, n_par) [sigma, sqrt_eps, charge(, code)],
+            sorted, 0 pad;
         excl: (mask_rows, n_pad) int32 exception bitfield;
         rebuild: () bool tensor -- re-measure the bound before the sweep;
-        bound: () int32 tensor -- the current block bound.
+        bound: () int32 tensor -- the current block bound;
+        lam: (n_lam,) class scalars [lam_s x C, asc x C, lam_e x C] in the
+            order of ``alch_classes`` (alchemical variant only).
 
         Returns (F (n_pad, 3), U (), new_bound () int32).
         """
@@ -331,7 +438,9 @@ class SweepNonbonded:
         xT = x_sorted.t().to(dtype).contiguous()
         par = par_sorted.t().to(dtype).contiguous()
         L = torch.diagonal(box).to(device=xT.device, dtype=dtype).contiguous()
-        F, U, nblk = self.evaluate(xT, par, excl, L, rebuild, bound)
+        if lam is not None:
+            lam = lam.to(device=xT.device, dtype=dtype).contiguous()
+        F, U, nblk = self.evaluate(xT, par, excl, L, rebuild, bound, lam)
         return F.t(), U[0], nblk[0]
 
 
@@ -344,22 +453,32 @@ class PlainSweepNonbonded(SweepNonbonded):
         return cls(k.n, k.method, k.rc, switch_width=k.switch_width,
                    dielectric=k.dielectric, ewald_alpha=k.alpha,
                    shift_rf=k.shift_rf, switch_coulomb=k.switch_coulomb,
-                   shell_block=k.bs, skin=k.skin, mask_shells=k.mask_shells)
+                   shell_block=k.bs, skin=k.skin, mask_shells=k.mask_shells,
+                   n_regions=k.n_regions,
+                   coulomb_pme_treatment=k.coulomb_pme_treatment)
 
     def measure_bound(self, xT, L, rebuild, bound):
         return measure_bound_reference(xT, L, rebuild, bound, n=self.n,
                                        cutoff=self.rc, skin=self.skin,
                                        shell_block=self.bs)
 
-    def sweep(self, xT, par, excl, L, nblk):
-        return sweep_forces_reference(xT, par, excl, L, nblk,
+    def sweep(self, xT, par, excl, L, nblk, lam=None):
+        return sweep_forces_reference(xT, par, excl, L, nblk, lam=lam,
                                       **self.physics())
+
+    def input_dtype(self, t):
+        """The plain versions take the caller's own float type anywhere."""
+        return t.dtype
 
 
 # kernel launch shape, mirrored in csrc/sweep_nb.cu: 128 sorted slots a
 # block, the partner range cut into 8 slices (grid.y)
 _BLOCK = 128
 _SLICES = 8
+# the alchemical kernel stages its class scalars in shared memory: at most
+# 16 regions, 3 * (17 * 18 / 2 - 1) = 456 scalars
+_MAX_REGIONS = 16
+_MAX_LAM = 3 * ((_MAX_REGIONS + 1) * (_MAX_REGIONS + 2) // 2 - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -444,25 +563,52 @@ def sorted_positions(x, box, perm, n_pad, dtype=None):
     return y, torch.cat([y.t().to(dtype), pad], dim=1)
 
 
-def sorted_params(sigma, sqrt_eps, charge, perm, n_pad, dtype=None):
+def sorted_params(sigma, sqrt_eps, charge, perm, n_pad, dtype=None,
+                  code=None):
     """(3, n_pad) [sigma, sqrt(eps), charge] in the sorted order, 0 on the
-    pad slots."""
-    par = torch.stack([sigma, sqrt_eps, charge])[:, perm]
+    pad slots; with the region codes ``code`` (N,) a 4th row (the
+    alchemical variant; pad slots get 0, the environment)."""
+    rows = [sigma, sqrt_eps, charge]
+    if code is not None:
+        rows.append(code.to(charge.dtype))
+    par = torch.stack(rows)[:, perm]
     dtype = par.dtype if dtype is None else dtype
-    pad = torch.zeros((3, n_pad - par.shape[1]), dtype=dtype,
+    pad = torch.zeros((len(rows), n_pad - par.shape[1]), dtype=dtype,
                       device=par.device)
     return torch.cat([par.to(dtype), pad], dim=1)
 
 
+def scale_charges_by_code(par, scale):
+    """The alchemical variant's (4, n_pad) ``par`` with its charge row
+    scaled by ``scale`` (R+1,) at each slot's region code: the 'exact' PME
+    treatment's per-particle charge scaling in the kernels' layout."""
+    q = par[2] * scale.to(par.dtype)[par[3].long()]
+    return torch.stack([par[0], par[1], q, par[3]])
+
+
+def term_params(term):
+    """The unsorted per-atom rows the kernels take for ``term``: (sigma,
+    sqrt(eps), charge, code); an alchemical term (one with ``region_id``)
+    gets sigma clamped to 1e-6 (sigma = 0 sites) and its region codes
+    g = region_id + 1, a standard one no code."""
+    region_id = getattr(term, "region_id", None)
+    if region_id is None:
+        return term.sigma, torch.sqrt(term.epsilon), term.charge, None
+    return (torch.clamp(term.sigma, min=1e-6), torch.sqrt(term.epsilon),
+            term.charge, region_id + 1)
+
+
 def sorted_inputs(term, x, box, k):
-    """The inputs of ``k``'s wrappers for the NonbondedTerm ``term`` at
-    positions ``x``, in a fresh sort: (xT, par, excl, L, max_sep)."""
+    """The inputs of ``k``'s wrappers for the term ``term`` (a
+    NonbondedTerm, or an AlchemicalNonbondedTerm for the alchemical
+    variant) at positions ``x``, in a fresh sort: (xT, par, excl, L,
+    max_sep). The charges are the term's own, unscaled."""
     dtype = k.input_dtype(x)
     perm, inv = sort_for_sweep(x, box, k.n_pad)
     perm = perm.long()
     _, xT = sorted_positions(x, box, perm, k.n_pad, dtype)
-    par = sorted_params(term.sigma, torch.sqrt(term.epsilon), term.charge,
-                        perm, k.n_pad, dtype)
+    sigma, sqrt_eps, charge, code = term_params(term)
+    par = sorted_params(sigma, sqrt_eps, charge, perm, k.n_pad, dtype, code)
     excl, max_sep = build_exclusion_bitfield(term.exception_index, inv,
                                              k.n_pad, k.mask_rows)
     L = torch.diagonal(box).to(dtype).contiguous()

@@ -7,6 +7,10 @@ arrays. Its numpy form, which this module reads, is plain Python:
 * an array becomes a ``numpy.ndarray``;
 * tuples, lists, dicts, strings, numbers, bools and None stay as they are.
 
+The alchemical terms come across with their region metadata (lambda names,
+annihilate flags, region interactions) and the reciprocal term with its
+``alch_mask``/``lambda_name``, as every other field: by name.
+
 :func:`system_from_numpy` builds a port ``System`` from that form (the terms
 by class name, among the terms this port has), and
 :func:`sampler_state_from_numpy` / :func:`integrator_state_from_numpy` carry
@@ -20,6 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from openmmtools_tpu_torch.alchemy import (
+    AlchemicalHarmonicAngleTerm,
+    AlchemicalHarmonicBondTerm,
+    AlchemicalNonbondedTerm,
+    AlchemicalPeriodicTorsionTerm,
+)
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState
 from openmmtools_tpu_torch.system import (
@@ -36,11 +46,12 @@ from openmmtools_tpu_torch.system import (
 _CLASSES = {cls.__name__: cls for cls in (
     System, NonbondedTerm, CustomExternalTerm, Constraints, VirtualSites,
     HarmonicBondTerm, HarmonicAngleTerm, PeriodicTorsionTerm,
-    EwaldReciprocalTerm)}
+    EwaldReciprocalTerm, AlchemicalNonbondedTerm, AlchemicalHarmonicBondTerm,
+    AlchemicalHarmonicAngleTerm, AlchemicalPeriodicTorsionTerm)}
 
 
 def _tensor(value, device, dtype):
-    t = torch.as_tensor(np.asarray(value), device=device)
+    t = torch.as_tensor(np.array(value), device=device)  # a copy: JAX arrays are read-only
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
@@ -101,5 +112,5 @@ def integrator_state_from_numpy(positions, velocities, box, kT,
         kT=_tensor(np.asarray(kT, dtype=np.float64), device, x.dtype),
         box=None if box is None else _tensor(box, device, dtype),
         global_params={}, heat=zero, shadow_work=zero, protocol_work=zero,
-        n_accepted=izero, n_proposed=izero, step_count=0,
-        generator=generator)
+        n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
+        step_count=0, generator=generator)

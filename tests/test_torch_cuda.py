@@ -308,3 +308,136 @@ def test_cuda_sweep_wrapper_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous CUDA"):
         k.measure_bound(xT[:, :-128], L, torch.tensor(True, device=cuda), nb)
     assert k.launches == {"sweep_bound": 0, "sweep_forces": 0}
+
+
+# ---------------------------------------------------------------------------
+# K2's alchemical variant (csrc/sweep_nb.cu sweep_forces_alch_f32)
+# ---------------------------------------------------------------------------
+
+
+def _alchemical_case(treatment, regions, device):
+    """A 3.1 nm alchemical water box (3,000 atoms) made by the factory, its
+    alchemical term and the kernel for it."""
+    from openmmtools_tpu_torch.alchemy import (
+        AbsoluteAlchemicalFactory,
+        AlchemicalRegion,
+    )
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w = PMEWaterBox(box_edge=3.1, cutoff=0.9, device=device)
+    if regions == 1:
+        reg, inter = AlchemicalRegion(alchemical_atoms=[0, 1, 2]), ()
+    else:
+        reg = [AlchemicalRegion(alchemical_atoms=[0, 1, 2], name="a",
+                                annihilate_sterics=True),
+               AlchemicalRegion(alchemical_atoms=[3, 4, 5], name="b",
+                                annihilate_electrostatics=False)]
+        inter = {("a", "b")} if regions == "interacting" else ()
+    system = AbsoluteAlchemicalFactory(
+        alchemical_pme_treatment=treatment).create_alchemical_system(
+        w.system, reg, frozenset(inter))
+    term = system.terms[0]
+    n = system.n_particles
+    n_pad = -(-n // 128) * 128
+    k = tsw.SweepNonbonded(
+        n, term.method, term.cutoff, switch_width=term.switch_width,
+        ewald_alpha=term.ewald_alpha,
+        mask_shells=min(2048, max(32, (n_pad // 2 // 32) * 32)),
+        n_regions=term.n_regions,
+        coulomb_pme_treatment=term.coulomb_pme_treatment)
+    return w, system, term, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("treatment,regions,lam", [
+    ("direct-space", 1, 1.0), ("direct-space", 1, 0.5),
+    ("direct-space", 1, 0.0), ("exact", 1, 0.55), ("coulomb", 1, 0.55),
+    ("direct-space", "interacting", 0.55), ("direct-space", "apart", 0.55)])
+def test_cuda_alchemical_sweep_matches_plain(cuda, treatment, regions, lam):
+    """The alchemical kernel against its plain version with the class
+    scalars the term computes on the card, across the treatments, lambdas
+    and region counts of chip_smoke.py's phase 8."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w, system, term, k = _alchemical_case(treatment, regions, cuda)
+    names = list(term.lambda_sterics_names + term.lambda_electrostatics_names)
+    params = {name: torch.tensor(lam if name.endswith(("s", "_a")) else 0.3,
+                                 device=cuda) for name in names}
+    xT, par, excl, L, _ = tsw.sorted_inputs(term, w.positions,
+                                            system.default_box, k)
+    lam_t, _, scale = term.sweep_lambdas(params, xT)
+    if scale is not None:
+        par = tsw.scale_charges_by_code(par, scale)
+    plain = tsw.PlainSweepNonbonded.like(k)
+    flag = torch.tensor(True, device=cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, flag, zero)
+    F, U = k.sweep(xT, par, excl, L, nb, lam_t.contiguous())
+    F_ref, U_ref = plain.sweep(xT, par, excl, L,
+                               plain.measure_bound(xT, L, flag, zero), lam_t)
+    torch.cuda.synchronize()
+    assert int(nb) == int(plain.measure_bound(xT, L, flag, zero)) > 0
+    assert _rel(F, F_ref) <= REL
+    assert abs(float(U - U_ref)) <= REL * abs(float(U_ref))
+    assert not torch.any(F[:, k.n:])
+    assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_alchemical_sweep_refuses_missing_scalars(cuda):
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w, system, term, k = _alchemical_case("direct-space", 1, cuda)
+    xT, par, excl, L, _ = tsw.sorted_inputs(term, w.positions,
+                                            system.default_box, k)
+    nb = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="class scalars"):
+        k.sweep(xT, par, excl, L, nb)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.sweep(xT, par[:3].contiguous(), excl, L, nb,
+                torch.ones(6, device=cuda))
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.sweep(xT, par, excl, L, nb, torch.ones(5, device=cuda))
+    assert k.launches == {"sweep_bound": 0, "sweep_forces_alch": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_alchemical_path_engages_the_kernel(cuda):
+    """Path A on the card: AlchemicalWaterBox -> compound state -> bind
+    (sweep mode with the alchemical kernel) -> run through one re-sort; the
+    kernel launched once a step plus once for initial_state, and the final
+    energy and forces match the plain sweep plus remainder."""
+    from openmmtools_tpu_torch.alchemy import AlchemicalState
+    from openmmtools_tpu_torch.models import AlchemicalWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+    from openmmtools_tpu_torch.states import (
+        CompoundThermodynamicState,
+        ThermodynamicState,
+    )
+
+    w = AlchemicalWaterBox(box_edge=3.1, device=cuda)
+    compound = CompoundThermodynamicState(
+        base_state=ThermodynamicState(system=w.system, temperature=300.0),
+        composable_states=(AlchemicalState(lambda_electrostatics=0.0,
+                                           lambda_sterics=0.5),))
+    bound = BAOABIntegrator(temperature=300.0, collision_rate=1.0,
+                            timestep=0.002).bind(w.system)
+    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound._fused is None
+    k = bound._sweep_kernel
+    state = bound.initial_state(w.sampler_state(),
+                                torch.Generator(device=cuda).manual_seed(0),
+                                thermodynamic_state=compound)
+    state = bound.run(state, 150)
+    assert k.launches == {"sweep_bound": 151, "sweep_forces_alch": 151}
+    x = state.positions
+    assert torch.isfinite(x).all()
+    sw = bound._sweep_dict(bound._resort_sweep(state))
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+    finally:
+        bound._sweep_kernel = k
+    assert abs(float(state.potentials[0] - u_p)) <= REL * abs(float(u_p))
+    assert _rel(state.forces[0], f_p) <= REL

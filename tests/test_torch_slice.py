@@ -11,6 +11,13 @@ initial_state -> run, in the port's sweep mode (the kernels' plain versions
 on the CPU, re-sorting every 5 steps) against the JAX package's dense path:
 rigid water under SETTLE, 10 steps at collision_rate 0, dx < 1e-3 nm as in
 tests/test_sweep_nb.py:58.
+
+The alchemical path the same way: AlchemicalWaterBox -> a
+CompoundThermodynamicState of AlchemicalState(lambda_electrostatics=0,
+lambda_sterics=0.5) -> BAOABIntegrator -> bind (sweep mode with the
+alchemical variant) -> initial_state(thermodynamic_state=...) -> run, then
+NCMC switching of lambda_electrostatics on the state it reached, both
+against the JAX package's dense path at collision rate 0.
 """
 import ast
 import pathlib
@@ -19,14 +26,29 @@ import jax
 import numpy as np
 import torch
 
+from openmmtools_tpu import alchemy as jalch
+from openmmtools_tpu import states as jstates
+from openmmtools_tpu.integrators import (
+    AlchemicalNonequilibriumLangevinIntegrator as JaxNCMC,
+)
 from openmmtools_tpu.integrators import BAOABIntegrator as JaxBAOAB
+from openmmtools_tpu.models import AlchemicalWaterBox as JaxAlchemicalWaterBox
 from openmmtools_tpu.models import LennardJonesFluid as JaxLJ
 from openmmtools_tpu.models import PMEWaterBox as JaxPMEWaterBox
 from openmmtools_tpu.states import SamplerState as JaxSamplerState
 import openmmtools_tpu_torch
+from openmmtools_tpu_torch import alchemy as talch
+from openmmtools_tpu_torch import states as tstates
 from openmmtools_tpu_torch.constants import kB
-from openmmtools_tpu_torch.integrators import BAOABIntegrator
-from openmmtools_tpu_torch.models import LennardJonesFluid, PMEWaterBox
+from openmmtools_tpu_torch.integrators import (
+    AlchemicalNonequilibriumLangevinIntegrator,
+    BAOABIntegrator,
+)
+from openmmtools_tpu_torch.models import (
+    AlchemicalWaterBox,
+    LennardJonesFluid,
+    PMEWaterBox,
+)
 from openmmtools_tpu_torch.states import SamplerState
 
 from test_torch_support import np64, wrapped_distance
@@ -105,6 +127,75 @@ def test_explicit_solvent_path_matches_jax_dense():
     r = torch.linalg.norm(ts.positions[i] - ts.positions[j], dim=1)
     assert float(((r - c.distance) / c.distance).abs().max()) < 1e-5
     assert tb._sweep_kernel.launches == {"sweep_bound": 0, "sweep_forces": 0}
+
+
+def _compound(system, alchemy, states):
+    return states.CompoundThermodynamicState(
+        base_state=states.ThermodynamicState(system=system,
+                                             temperature=300.0),
+        composable_states=(alchemy.AlchemicalState(
+            lambda_electrostatics=0.0, lambda_sterics=0.5),))
+
+
+def test_alchemical_path_matches_jax_dense():
+    kw = dict(box_edge=1.9, cutoff=0.9)
+    jw = JaxAlchemicalWaterBox(**kw)
+    tw = AlchemicalWaterBox(device="cpu", **kw)
+    n = jw.system.n_particles
+    masses = np.asarray(jw.system.masses, np.float64)
+    v0 = (np.random.default_rng(9).normal(size=(n, 3))
+          * np.sqrt(kB * 300.0 / masses)[:, None]).astype(np.float32)
+
+    # Path A: an equilibrium lambda window
+    jb = JaxBAOAB(temperature=300.0, collision_rate=0.0, timestep=0.001,
+                  sweep=None, neighborlist=None).bind(jw.system)
+    js = jb.initial_state(
+        JaxSamplerState(positions=jw.positions, velocities=v0,
+                        box_vectors=jw.system.default_box),
+        jax.random.PRNGKey(0),
+        thermodynamic_state=_compound(jw.system, jalch, jstates))
+    js = jb.run(js, 10)
+    tb = BAOABIntegrator(temperature=300.0, collision_rate=0.0,
+                         timestep=0.001, sweep="force",
+                         sweep_sort_interval=5).bind(tw.system)
+    assert tb.sweep_mode and tb._sweep_alch is not None
+    assert tb._sweep_kernel.alchemical and tb._fused is None
+    ts = tb.initial_state(
+        SamplerState(positions=tw.positions, velocities=torch.as_tensor(v0),
+                     box_vectors=tw.system.default_box),
+        torch.Generator().manual_seed(0),
+        thermodynamic_state=_compound(tw.system, talch, tstates))
+    assert {k: float(v) for k, v in ts.global_params.items()} == {
+        "lambda_electrostatics": 0.0, "lambda_sterics": 0.5}
+    ts = tb.run(ts, 10)
+    assert torch.isfinite(ts.positions).all()
+    assert np.abs(np64(ts.positions) - np64(js.positions)).max() < 1e-3
+
+    # Path B: NCMC switching of the electrostatics from there, 4 steps
+    params = {"lambda_electrostatics": 1.0, "lambda_sterics": 1.0}
+    funcs = {"lambda_electrostatics": "1 - lambda"}
+    jn = JaxNCMC(alchemical_functions=funcs, splitting="V R H R V",
+                 temperature=300.0, collision_rate=0.0, timestep=0.001,
+                 n_steps_neq=4, sweep=None, neighborlist=None).bind(jw.system)
+    jns = jn.initial_state(
+        JaxSamplerState(positions=js.positions, velocities=js.velocities,
+                        box_vectors=jw.system.default_box),
+        jax.random.PRNGKey(1), global_params=params)
+    jns = jn.run(jns, 4)
+    tn = AlchemicalNonequilibriumLangevinIntegrator(
+        alchemical_functions=funcs, splitting="V R H R V", temperature=300.0,
+        collision_rate=0.0, timestep=0.001, n_steps_neq=4, sweep="force",
+        sweep_sort_interval=5).bind(tw.system)
+    tns = tn.initial_state(tb.sampler_state_from(ts), torch.Generator(),
+                           global_params=params)
+    tns = tn.run(tns, 4)
+    assert float(tns.lambda_) == 1.0 and tns.lambda_step == 4
+    assert float(tns.global_params["lambda_electrostatics"]) == 0.0
+    w_j = float(jns.protocol_work)
+    assert abs(float(tns.protocol_work) - w_j) <= 1e-3 * abs(w_j)
+    assert np.abs(np64(tns.positions) - np64(jns.positions)).max() < 1e-3
+    assert tb._sweep_kernel.launches == tn._sweep_kernel.launches == {
+        "sweep_bound": 0, "sweep_forces_alch": 0}
 
 
 def test_bound_integrator_does_not_fuse_on_cpu():

@@ -7,6 +7,7 @@ that ``openmmtools_tpu_torch.utils.convert`` reads.
 import dataclasses
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -95,6 +96,48 @@ def np64(x):
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, dtype=np.float64)
+
+
+def fluid_with_exceptions(jsys, positions):
+    """A JAX system (the charged LJ fluid) with three exceptions inside
+    the cutoff of nonzero parameters: the nearest pairs of atoms 0-23 with
+    each other, with the rest, and of the rest."""
+    from openmmtools_tpu.system import NonbondedTerm
+
+    idx = next(i for i, t in enumerate(jsys.terms) if type(t) is NonbondedTerm)
+    pos = np.asarray(positions)
+    box = np.diag(np.asarray(jsys.default_box))
+    d = pos[:, None, :] - pos[None, :, :]
+    d -= box * np.round(d / box)
+    r = np.linalg.norm(d, axis=-1)
+    np.fill_diagonal(r, np.inf)
+    alch = np.zeros(pos.shape[0], bool)
+    alch[:24] = True
+
+    def closest(mask):
+        rr = np.where(mask, r, np.inf)
+        return np.unravel_index(np.argmin(rr), rr.shape)
+
+    pairs = np.asarray([closest(alch[:, None] & alch[None, :]),
+                        closest(alch[:, None] & ~alch[None, :]),
+                        closest(~alch[:, None] & ~alch[None, :])], np.int32)
+    term = jsys.terms[idx].replace(
+        exception_index=jnp.asarray(pairs),
+        exception_chargeprod=jnp.asarray([0.02, -0.01, 0.015], jnp.float32),
+        exception_sigma=jnp.asarray([0.3, 0.31, 0.3], jnp.float32),
+        exception_epsilon=jnp.asarray([0.4, 0.2, 0.3], jnp.float32))
+    return jsys.replace_term(idx, term)
+
+
+def two_regions(module, interacting):
+    """Regions a (atoms 0-11, annihilated sterics) and b (12-23, decoupled
+    electrostatics) of ``module``'s alchemy, and their interactions."""
+    regions = [module.AlchemicalRegion(alchemical_atoms=list(range(12)),
+                                       name="a", annihilate_sterics=True),
+               module.AlchemicalRegion(alchemical_atoms=list(range(12, 24)),
+                                       name="b",
+                                       annihilate_electrostatics=False)]
+    return regions, ({("a", "b")} if interacting else frozenset())
 
 
 def test_numpy_form_round_trips_lj_fluid():
