@@ -49,7 +49,25 @@ nonzero exit. Phases:
    lambda, 500 steps, 'O { V R H R V } O') for one whole protocol, and a
    10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
    0.1) whose protocol work is held against the same energy differences
-   summed outside the integrator.
+   summed outside the integrator;
+11. K3's chunk kernel (FusedDenseBAOAB, one cooperative launch a chunk) on
+   LJ-2048 against its plain version (K1's plain chunk for "V R O R V"): F
+   and U at n_steps = 0, 40-step chunks at gamma 0 and 1 on one seed; then
+   ``run`` as bench.py drives a run, a 50,000-step warm-up and 50,000-step
+   chunks each ending in a host fetch, its launches, steps/s, the final U
+   and F against the dense evaluation, the kinetic temperature, and its
+   time per step beside the plain version and the bound;
+12. K4's kernels (FusedLJBAOAB's cell-grid forces and chunk) on LJ-2048: the
+   grid spec, the forces against the plain version and the dense sum, a
+   noisy 40-step run across a rebin against the plain run, a gamma = 0
+   100-step run (rebin every 25 steps) from a FIRE-minimized start against
+   K3's kernel, the kinetic temperature, ``run`` in 50,000-step chunks from
+   that start with capacity and occupancy a chunk, the final forces against
+   the dense sum, the kernels', rebin's and plain versions' times and
+   bounds, and K4's forces beside K1's on LennardJonesFluid(16384).
+
+Times of the K3 and K4 chunk kernels (``ms``, ``plain_ms``, ``bound_ms`` of
+their entries, marked ``"per": "step"``) are per step of a chunk.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,6 +90,12 @@ SOURCE = "openmmtools_tpu_torch/csrc/fused_langevin.cu"
 REPLACES = "openmmtools_tpu/ops/pallas_baoab.py:761"
 SWEEP_SOURCE = "openmmtools_tpu_torch/csrc/sweep_nb.cu"
 SWEEP_REPLACES = "openmmtools_tpu/ops/sweep_nb.py:471"
+DENSE_SOURCE = "openmmtools_tpu_torch/csrc/dense_baoab.cu"
+DENSE_REPLACES = "openmmtools_tpu/ops/pallas_baoab.py:296"
+CELL_SOURCE = "openmmtools_tpu_torch/csrc/cell_md.cu"
+CELL_REPLACES = "openmmtools_tpu/ops/pallas_md.py:503"
+TIMED_STEPS = 1_000      # steps of the timed K3 chunk (the plain version: 20)
+CELL_N_LARGE = 16_384    # the second size of the cell-list question
 WATER_EDGE = 6.223       # the JAC DHFR box: 20^3 TIP3P waters, 24,000 atoms
 WATER_T = 300.0
 WARMUP = 5_000
@@ -153,6 +177,55 @@ def cuda_ms(fn, reps=200):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, entry, reps=50):
+    """Mean device time (ms) of the launches of the C entry point ``entry``
+    over ``reps`` calls of ``fn`` (one launch a call) after warm-up, every
+    launch counted: CUDA events recorded just before and just after each
+    launch. A spin kernel holds the stream while the host queues the calls,
+    so the device never waits on the host between a pair of events; the
+    wrapper's own torch work (small operations before the launch, which
+    CUDA events around back-to-back calls would time instead) runs outside
+    the pairs."""
+    from openmmtools_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    launch = getattr(lib, entry)
+    pairs = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = launch(*args)
+        end.record()
+        pairs.append((start, end))
+        return err
+
+    for _ in range(3):
+        fn()
+    setattr(lib, entry, timed)
+    try:
+        for cycles in (20_000_000, 80_000_000, 320_000_000):
+            torch.cuda.synchronize()
+            pairs.clear()
+            torch.cuda._sleep(cycles)
+            held = torch.cuda.Event()
+            held.record()
+            for _ in range(reps):
+                fn()
+            queued_while_held = not held.query()
+            torch.cuda.synchronize()
+            if queued_while_held:
+                break
+        else:
+            raise AssertionError(f"{entry}: the host did not queue {reps} "
+                                 "calls within the spin kernel")
+    finally:
+        setattr(lib, entry, launch)
+    assert len(pairs) == reps, (entry, len(pairs))
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def max_rel(a, b):
@@ -341,11 +414,7 @@ def phase_main_path(dev, smi, k):
     # pairs tested once and each pair inside the cutoff evaluated once
     # (Newton's third law; the kernel meets each pair from both ends); the
     # substep reads x, v, F and writes x, v
-    d2 = sum((xT[c][:, None] - xT[c][None, :]
-              - L[c] * torch.round((xT[c][:, None] - xT[c][None, :]) / L[c])
-              ) ** 2 for c in range(3))
-    n_in = int(((d2 < prog.rc ** 2) & (d2 > 1e-12)).sum()) // 2
-    n_tests = N * (N - 1) // 2
+    n_tests, n_in = lj_pair_counts(xT, L, prog.rc)
     f_bound = bound_ms(4 * (3 * N + 3 + 3 * N + 1),
                        n_tests * OPS_DIST + n_in * OPS_PAIR)
     s_bound = bound_ms(4 * (5 * 3 * N + 4), 0)
@@ -362,6 +431,16 @@ def phase_main_path(dev, smi, k):
              max_abs_err=k["s_err"], ms=s_ms, plain_ms=s_plain,
              bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None),
     ], dict(steps_per_s_max=best, steps_per_s_median=median)
+
+
+def lj_pair_counts(xT, L, rc):
+    """The pairs an all-pairs LJ evaluation of (3, N) positions needs, each
+    once: N(N-1)/2 tested, and those inside the cutoff (minimum image)."""
+    n = xT.shape[1]
+    d2 = sum((xT[c][:, None] - xT[c][None, :]
+              - L[c] * torch.round((xT[c][:, None] - xT[c][None, :]) / L[c])
+              ) ** 2 for c in range(3))
+    return n * (n - 1) // 2, int(((d2 < rc ** 2) & (d2 > 1e-12)).sum()) // 2
 
 
 def bound_ms(n_bytes, n_ops):
@@ -1118,6 +1197,457 @@ def phase_ncmc(dev, smi, state_a, system):
                 perturb_work=w, perturb_independent=indep)
 
 
+# ---------------------------------------------------------------------------
+# the LJ cell-list slice: K3 (the dense BAOAB chunk) and K4 (the cell grid)
+# ---------------------------------------------------------------------------
+
+
+def dense_program(fluid, collision_rate=1.0):
+    from openmmtools_tpu_torch.ops.fused_langevin import FusedDenseBAOAB
+
+    t = fluid.system.terms[0]
+    return FusedDenseBAOAB(
+        fluid.n_particles, t.cutoff, t.switch_width, float(t.sigma[0]),
+        float(t.epsilon[0]), float(fluid.system.masses[0]), 0.002,
+        collision_rate, device=fluid.positions.device)
+
+
+def cell_program(fluid, collision_rate=1.0, **kw):
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    t = fluid.system.terms[0]
+    spec = tmd.make_grid_spec(
+        fluid.n_particles, fluid.box_edge, t.cutoff, t.switch_width,
+        float(t.sigma[0]), float(t.epsilon[0]), float(fluid.system.masses[0]),
+        0.002, collision_rate)
+    return tmd.FusedLJBAOAB(spec, fluid.n_particles, temperature=TEMPERATURE,
+                            device=fluid.positions.device, **kw)
+
+
+def thermal(n, dev, seed):
+    from openmmtools_tpu_torch.constants import kB
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, 3), device=dev, generator=gen) * (
+        (kB * TEMPERATURE / 39.9) ** 0.5)
+
+
+def mean_temperature(step, masses, x, v, label):
+    """50 kinetic-temperature samples 100 steps apart by ``step(x, v, 100)``,
+    after 1,000 steps; the mean within 5 % of the target."""
+    from openmmtools_tpu_torch.system import instantaneous_temperature
+
+    x, v = step(x, v, 1000)
+    temps = []
+    for _ in range(50):
+        x, v = step(x, v, 100)
+        temps.append(float(instantaneous_temperature(masses, v)))
+    mean_t = statistics.fmean(temps)
+    say(f"{label} thermostat: mean kinetic temperature {mean_t:.3f} K over "
+        f"50 samples 100 steps apart (target {TEMPERATURE} K, sd "
+        f"{statistics.stdev(temps):.3f} K)")
+    assert abs(mean_t - TEMPERATURE) < 0.05 * TEMPERATURE
+
+
+def timed_chunks(run, x, v, chunk_line=None):
+    """bench.py's drive: a 50,000-step warm-up, then 50,000-step chunks, each
+    ending in a host fetch of the positions, for up to 8 s (at least two).
+    Returns (x, v, the chunks' steps/s)."""
+    x, v = run(x, v, CHUNK)
+    torch.cuda.synchronize()
+    rates = []
+    t0 = time.perf_counter()
+    while len(rates) < 2 or (time.perf_counter() - t0 < 8.0
+                             and len(rates) < 12):
+        tc = time.perf_counter()
+        x, v = run(x, v, CHUNK)
+        positions = x.cpu().numpy()
+        rates.append(CHUNK / (time.perf_counter() - tc))
+        assert positions.shape == (N, 3)
+        assert bool((positions == positions).all()), "non-finite positions"
+        if chunk_line is not None:
+            say(chunk_line(len(rates), rates[-1]))
+    return x, v, rates
+
+
+def phase_dense(dev, smi, k):
+    from openmmtools_tpu_torch.constants import kB
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+    from openmmtools_tpu_torch.ops.fused_langevin import (
+        fused_langevin_reference,
+    )
+    from openmmtools_tpu_torch.system import make_energy_force_fn
+
+    fluid = LennardJonesFluid(nparticles=N, device=dev)
+    box = fluid.system.default_box
+    edge = float(fluid.box_edge)
+    kT = kB * TEMPERATURE
+    v0 = k["vT"].t().contiguous()
+
+    # the kernel against its plain version: n_steps = 0, then 40-step chunks
+    kd = dense_program(fluid)
+    out = kd.chunk(fluid.positions, v0, box, kT, 4242, 0)
+    ref = fused_langevin_reference(kd.program, fluid.positions, v0, box, kT,
+                                   4242, 0)
+    torch.cuda.synchronize()
+    f_err = float((out[2] - ref[2]).abs().max())
+    f_rel = max_rel(out[2], ref[2])
+    u_rel = abs(float(out[3] - ref[3])) / abs(float(ref[3]))
+    say(f"phase 11 dense_baoab N={N}, 0 steps: max|dF| {f_err:.3e} (rel "
+        f"{f_rel:.2e}), U {float(out[3]):.6f} vs plain {float(ref[3]):.6f} "
+        f"(rel {u_rel:.2e})")
+    assert f_rel <= REL_TOL and u_rel <= REL_TOL, (f_rel, u_rel)
+    for gamma in (0.0, 1.0):
+        p = dense_program(fluid, gamma)
+        out = p.chunk(fluid.positions, v0, box, kT, 4242, 40)
+        ref = fused_langevin_reference(p.program, fluid.positions, v0, box,
+                                       kT, 4242, 40)
+        dx = wrapped_dx(out[0], ref[0], edge)
+        dv = float((out[1] - ref[1]).abs().max())
+        v_scale = float(ref[1].abs().max())
+        du = abs(float(out[3] - ref[3])) / abs(float(ref[3]))
+        df = max_rel(out[2], ref[2])
+        say(f"phase 11 dense_baoab chunk gamma={gamma}, 40 steps, one "
+            f"launch: dx {dx:.2e} dv/v {dv / v_scale:.2e} dU/U {du:.2e} "
+            f"dF/F {df:.2e}")
+        assert p.launches == {"dense_baoab": 1}
+        assert dx < 5e-4 and dv < 5e-3 * v_scale and du <= REL_TOL \
+            and df <= REL_TOL, (gamma, dx, dv, du, df)
+
+    # the main path: run as bench.py drives a run
+    gen = torch.Generator().manual_seed(0)
+    state = {}
+
+    def run(x, v, n_steps):
+        x, v, state["F"], state["U"] = kd.run(x, v, box, kT, gen, n_steps)
+        return x, v
+
+    kd.launches["dense_baoab"] = 0
+    x, v, rates = timed_chunks(run, fluid.positions, v0)
+    launches = kd.launches["dense_baoab"]
+    say(f"phase 11 main path: {CHUNK * (1 + len(rates))} steps in "
+        f"{1 + len(rates)} chunks; launches {{'dense_baoab': {launches}}}")
+    assert launches == 1 + len(rates), launches
+    assert torch.isfinite(x).all() and torch.isfinite(v).all()
+    u_ref, f_ref = make_energy_force_fn(fluid.system)(x)
+    u_rel = abs(float(state["U"] - u_ref)) / abs(float(u_ref))
+    f_rel = max_rel(state["F"], f_ref)
+    say(f"phase 11 final state: U {float(state['U']):.4f} vs dense "
+        f"{float(u_ref):.4f} (rel {u_rel:.2e}), forces rel {f_rel:.2e}")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+    best, median = max(rates), statistics.median(rates)
+    say(f"phase 11 throughput: {best:.1f} steps/s max, {median:.1f} median "
+        f"({len(rates)} timed chunks of {CHUNK}) on {smi}")
+    mean_temperature(run, fluid.system.masses, x, v, "phase 11")
+
+    # kernel and plain time per step at the main path's final state
+    L = torch.diagonal(box).contiguous()
+    t = {}
+    for label, fn, steps, reps in (
+            ("plain", lambda: fused_langevin_reference(
+                kd.program, x, v, box, kT, 5, 20), 20, 2),
+            ("kernel", lambda: kd.chunk(x, v, box, kT, 5, TIMED_STEPS),
+             TIMED_STEPS, 3),
+            ("kernel2", lambda: kd.chunk(x, v, box, kT, 5, TIMED_STEPS),
+             TIMED_STEPS, 3),
+            ("plain2", lambda: fused_langevin_reference(
+                kd.program, x, v, box, kT, 5, 20), 20, 2)):
+        t[label] = cuda_ms(fn, reps=reps) / steps
+    ms = min(t["kernel"], t["kernel2"])
+    plain_ms = min(t["plain"], t["plain2"])
+    # the bound of a chunk of n steps: n + 1 all-pairs evaluations at this
+    # state's pairs, and the substeps' bytes; per step
+    n_tests, n_in = lj_pair_counts(x.t().contiguous(), L, kd.program.rc)
+    steps = TIMED_STEPS
+    b_ms, b_by = bound_ms(
+        (steps + 1) * 4 * (3 * N + 3 + 3 * N + 1) + steps * 4 * (5 * 3 * N + 4),
+        (steps + 1) * (n_tests * OPS_DIST + n_in * OPS_PAIR))
+    b_ms /= steps
+    say(f"phase 11 dense_baoab per step ({TIMED_STEPS}-step chunk, one "
+        f"launch): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms (20-step "
+        f"chunk), bound {b_ms:.6f} ms by {b_by} ({n_tests} pair tests, "
+        f"{n_in} pairs inside the cutoff a step) ({smi})")
+    # where K3's step goes: its kernel at n_steps = 0 (the wrap and one
+    # all-pairs evaluation with its energy) beside K1's forces launch (force
+    # and energy-sum kernels) on the same positions, device time of each
+    xT = (x - L * torch.floor(x / L)).t().contiguous()
+    kT_t = torch.tensor([kT], device=dev)
+    one_ms = launch_ms(lambda: kd.chunk(x, v, box, kT_t, 5, 0),
+                       "dense_baoab_chunk_f32", reps=20)
+    k1_ms = launch_ms(lambda: kd.program.forces(xT, L), "lj_forces_f32",
+                      reps=20)
+    kd.launches["dense_baoab"] = launches
+    say(f"phase 11 one all-pairs evaluation at the final state, device time: "
+        f"dense_baoab_kernel at 0 steps {one_ms:.5f} ms, K1's lj_forces_f32 "
+        f"(forces and energy sum) {k1_ms:.5f} ms ({smi})")
+    return dict(name="dense_baoab_chunk", route="cuda", source=DENSE_SOURCE,
+                replaces=DENSE_REPLACES, launches=launches, max_abs_err=f_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, per="step"), dict(
+        steps_per_s_max=best, steps_per_s_median=median, step_ms=ms,
+        one_evaluation_ms=one_ms, k1_forces_ms=k1_ms)
+
+
+def cell_pair_counts(x_slots, valid, spec, rows):
+    """The slot pairs a cell-grid evaluation needs, each once: unordered
+    pairs of valid slots in the same or adjacent cells, and those inside the
+    cutoff."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    interior, neighbours = tmd._grid_geometry(spec, x_slots.device)
+    xi = x_slots[:, :rows, interior]
+    vi = valid[:rows, interior] > 0
+    tested = inside = 0
+    for gn, shift in neighbours:
+        xj = x_slots[:, :rows, gn] + shift[:, None, :]
+        d = xi[:, :, None, :] - xj[:, None, :, :]
+        r2 = (d * d).sum(0)
+        pair = vi[:, None, :] & (valid[:rows, gn] > 0)[None, :, :] & (
+            r2 > tmd.R2_MIN)
+        tested += int(pair.sum())
+        inside += int((pair & (r2 < spec.cutoff ** 2)).sum())
+    return tested // 2, inside // 2
+
+
+def cell_forces_check(kc, x, label, v=None):
+    """K4's forces kernel on the bin of positions x (N, 3) (velocities v,
+    default 0) by ``kc``: against its plain version and against the dense
+    all-pairs sum. Returns (bin, F, max|dF|)."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+    from openmmtools_tpu_torch.ops.fused_langevin import lj_forces_reference
+
+    xs, vs, valid, sp, mo = kc.bin(x, torch.zeros_like(x) if v is None else v)
+    spec = kc.spec
+    F = kc.forces(xs, valid, rows=mo)
+    F_ref = tmd.cell_forces_reference(xs, valid, kc.spec)
+    n = x.shape[0]
+    Fp, _ = tmd.unbin_particles(F, F, sp, n)
+    xw, _ = tmd.unbin_particles(xs, xs, sp, n)
+    L = torch.full((3,), spec.box_edge, device=x.device)
+    F_dense, _ = lj_forces_reference(
+        xw.t().contiguous(), L, cutoff=spec.cutoff,
+        switch_width=spec.switch_width, sigma=spec.sigma,
+        epsilon=spec.epsilon)
+    torch.cuda.synchronize()
+    f_err = float((F - F_ref).abs().max())
+    rel_plain, rel_dense = max_rel(F, F_ref), max_rel(Fp, F_dense.t())
+    say(f"{label}: max occupancy {mo} of capacity {spec.capacity}; max|dF| "
+        f"{f_err:.3e} (rel {rel_plain:.2e}) against plain, rel "
+        f"{rel_dense:.2e} against the dense sum")
+    assert rel_plain <= REL_TOL and rel_dense <= REL_TOL
+    return (xs, vs, valid, sp, mo), F, f_err
+
+
+def phase_cell(dev, smi):
+    from openmmtools_tpu_torch.constants import kB
+    from openmmtools_tpu_torch.integrators import fire_minimize
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+    from openmmtools_tpu_torch.ops.fused_langevin import FusedSortedLangevin
+
+    fluid = LennardJonesFluid(nparticles=N, device=dev)
+    box = fluid.system.default_box
+    edge = float(fluid.box_edge)
+    kT = kB * TEMPERATURE
+    kc = cell_program(fluid)
+    spec = kc.spec
+    say(f"phase 12 grid: n_side {spec.n_side}, capacity {spec.capacity}, "
+        f"G {spec.g_cells}, cell edge {spec.cell_edge:.4f} nm (cutoff "
+        f"{spec.cutoff} nm), rebuild interval {kc.rebuild_interval}")
+    assert (spec.n_side, spec.capacity, spec.g_cells,
+            kc.rebuild_interval) == (8, 16, 1000, 175)
+    _, _, f_err = cell_forces_check(kc, fluid.positions,
+                                    "phase 12 cell_forces, Sobol start")
+
+    # a noisy 40-step run across one rebin against the plain run
+    v0 = thermal(N, dev, 1)
+    ka = cell_program(fluid, rebuild_interval=20)
+    kp = cell_program(fluid, rebuild_interval=20)
+    xa, va = ka.run(fluid.positions, v0, kT, torch.Generator().manual_seed(6),
+                    40)
+    xb, vb = tmd.fused_lj_reference(kp, fluid.positions, v0, kT,
+                                    torch.Generator().manual_seed(6), 40)
+    run_dx, dv = wrapped_dx(xa, xb, edge), float((va - vb).abs().max())
+    v_scale = float(vb.abs().max())
+    say(f"phase 12 run gamma=1, 40 steps across a rebin: launches "
+        f"{ka.launches}; dx {run_dx:.2e} dv/v {dv / v_scale:.2e} against "
+        f"plain")
+    assert ka.launches == {"cell_forces": 2, "cell_chunk": 2}
+    assert run_dx < 5e-4 and dv < 5e-3 * v_scale, (run_dx, dv)
+
+    # gamma = 0 from a FIRE-minimized start: K4 against K3's kernel
+    xmin, _ = fire_minimize(fluid.system, fluid.positions, box, max_steps=200)
+    k0 = cell_program(fluid, 0.0, rebuild_interval=25)
+    xa, va = k0.run(xmin, v0, kT, torch.Generator(), 100)
+    xb, vb, _, _ = dense_program(fluid, 0.0).run(xmin, v0, box, kT,
+                                                  torch.Generator(), 100)
+    dx, dv = wrapped_dx(xa, xb, edge), float((va - vb).abs().max())
+    v_scale = float(vb.abs().max())
+    say(f"phase 12 gamma=0, 100 steps (rebin every 25) from a FIRE-minimized "
+        f"start: dx {dx:.2e} dv/v {dv / v_scale:.2e} against K3's kernel")
+    assert dx < 5e-4 and dv < 5e-3 * v_scale, (dx, dv)
+
+    gen = torch.Generator().manual_seed(2)
+    kt = cell_program(fluid)
+    mean_temperature(lambda x, v, n: kt.run(x, v, kT, gen, n),
+                     fluid.system.masses, xmin, v0, "phase 12")
+
+    # the main path: run in 50,000-step chunks from the minimized start
+    km = cell_program(fluid)
+    for key in km.launches:
+        km.launches[key] = 0
+    bins = []
+    # keep the main path's fullest bin: its positions and velocities
+    fullest = {"occupancy": -1}
+    bin_ = km.bin
+
+    def bin_keeping_the_fullest(x, v):
+        out = bin_(x, v)
+        if out[4] > fullest["occupancy"]:
+            fullest.update(occupancy=out[4], x=x, v=v)
+        return out
+
+    km.bin = bin_keeping_the_fullest
+
+    def run(x, v, n_steps):
+        x, v = km.run(x, v, kT, gen, n_steps)
+        bins.append(-(-n_steps // km.rebuild_interval))
+        return x, v
+
+    def chunk_line(i, rate):
+        return (f"phase 12 chunk {i}: {rate:.1f} steps/s, capacity "
+                f"{km.spec.capacity}, max occupancy {km.max_occupancy}, "
+                f"capacity bumps so far {km.capacity_bumps}")
+
+    x, v, rates = timed_chunks(run, xmin, v0, chunk_line)
+    del km.bin
+    launches = dict(km.launches)
+    say(f"phase 12 main path: {CHUNK * (1 + len(rates))} steps in "
+        f"{1 + len(rates)} runs ({sum(bins)} bins); launches {launches}; "
+        f"fullest bin: occupancy {fullest['occupancy']}")
+    assert launches["cell_forces"] == launches["cell_chunk"] == sum(bins) > 0
+    assert torch.isfinite(x).all() and torch.isfinite(v).all()
+    best, median = max(rates), statistics.median(rates)
+    say(f"phase 12 throughput: {best:.1f} steps/s max, {median:.1f} median "
+        f"({len(rates)} timed chunks of {CHUNK}) on {smi}")
+
+    # the main path's own program at its own shapes (capacity and rows as
+    # the condensed fluid raised them): the final state, then the fullest
+    # bin, forces and a noisy 40-step chunk against the plain versions
+    cell_forces_check(km, x, "phase 12 cell_forces, final state")
+    (xs, vs, valid, sp, mo), _, f_err_full = cell_forces_check(
+        km, fullest["x"], "phase 12 cell_forces, the main path's fullest bin",
+        v=fullest["v"])
+    assert mo == fullest["occupancy"]
+    kT_t = torch.tensor([kT], device=dev)
+    xa, va = km.chunk(xs.clone(), vs.clone(), valid, kT_t, 8, 40, rows=mo)
+    xb, vb = tmd.cell_chunk_reference(xs, vs, valid, kT_t, 8, 40, km.spec, mo)
+    occupied = valid[None] > 0
+    chunk_dx = float(((xa - xb) * occupied).abs().max())
+    dv = float(((va - vb) * occupied).abs().max())
+    v_scale = float(vb.abs().max())
+    say(f"phase 12 cell_chunk, the fullest bin (occupancy {mo}, capacity "
+        f"{km.spec.capacity}), 40 steps gamma=1: dx {chunk_dx:.2e} dv/v "
+        f"{dv / v_scale:.2e} against plain")
+    assert chunk_dx < 5e-4 and dv < 5e-3 * v_scale, (chunk_dx, dv)
+
+    # times at the fullest bin, in turns with the plain versions: the
+    # kernels' device time (a wrapper call is host-bound: it makes the
+    # occupancy and the forces buffer with small torch operations first),
+    # the wrapper call and the plain versions by CUDA events
+    steps = km.rebuild_interval
+    forces = lambda: km.forces(xs, valid, rows=mo)  # noqa: E731
+    chunk = lambda: km.chunk(xs.clone(), vs.clone(), valid, kT_t, 5,  # noqa: E731
+                             steps, rows=mo)
+    xf, vf = fullest["x"], fullest["v"]
+    t = {}
+    for label, fn, reps, per in (
+            ("plain_f", lambda: tmd.cell_forces_reference(xs, valid, km.spec,
+                                                          mo), 5, 1),
+            ("kernel_f", (forces, "cell_forces_f32"), 50, 1),
+            ("kernel_f2", (forces, "cell_forces_f32"), 50, 1),
+            ("plain_f2", lambda: tmd.cell_forces_reference(xs, valid,
+                                                           km.spec, mo), 5, 1),
+            ("wrapper_f", forces, 100, 1),
+            ("plain_c", lambda: tmd.cell_chunk_reference(
+                xs, vs, valid, kT_t, 5, 5, km.spec, mo), 2, 5),
+            ("kernel_c", (chunk, "cell_chunk_f32"), 10, steps),
+            ("kernel_c2", (chunk, "cell_chunk_f32"), 10, steps),
+            ("plain_c2", lambda: tmd.cell_chunk_reference(
+                xs, vs, valid, kT_t, 5, 5, km.spec, mo), 2, 5),
+            ("rebin", lambda: tmd.unbin_particles(*km.bin(xf, vf)[:2], sp, N),
+             20, 1),
+            ("rebin2", lambda: tmd.unbin_particles(*km.bin(xf, vf)[:2], sp,
+                                                   N), 20, 1)):
+        t[label] = (launch_ms(*fn, reps=reps) if isinstance(fn, tuple)
+                    else cuda_ms(fn, reps=reps)) / per
+    f_ms, f_plain = (min(t["kernel_f"], t["kernel_f2"]),
+                     min(t["plain_f"], t["plain_f2"]))
+    c_ms, c_plain = (min(t["kernel_c"], t["kernel_c2"]),
+                     min(t["plain_c"], t["plain_c2"]))
+    rebin_ms = min(t["rebin"], t["rebin2"])
+    M, G = km.spec.capacity, km.spec.g_cells
+    tested, inside = cell_pair_counts(xs, valid, km.spec, mo)
+    pair_ops = tested * OPS_DIST + inside * OPS_PAIR
+    # bytes of the occupied slots only (the kernels touch no other): forces
+    # read x and the occupancy and write F; a chunk reads x, v, F and the
+    # occupancy and kT, and writes x and v. cell_chunk_kernel evaluates the
+    # forces once a step (cell_forces_kernel the chunk's start)
+    n_slots = int((valid > 0).sum())
+    f_bound = bound_ms(4 * (3 * n_slots * 2 + G), pair_ops)
+    c_bound = bound_ms(4 * (3 * n_slots * 3 + G + 1 + 3 * n_slots * 2),
+                       steps * pair_ops)
+    c_bound = (c_bound[0] / steps, c_bound[1])
+    say(f"phase 12 at the fullest bin (max occupancy {mo}, capacity {M}): "
+        f"cell_forces kernel {f_ms:.5f} ms (device; the wrapper call "
+        f"{t['wrapper_f']:.5f} ms), plain {f_plain:.4f} ms, bound "
+        f"{f_bound[0]:.6f} ms by {f_bound[1]} ({tested} slot pairs tested, "
+        f"{inside} inside the cutoff); cell_chunk per step ({steps}-step "
+        f"chunk, device) kernel {c_ms:.5f} ms, plain {c_plain:.4f} ms (5-step "
+        f"chunk), bound {c_bound[0]:.6f} ms by {c_bound[1]}; torch rebin (bin "
+        f"with its host read + unbin) {rebin_ms:.4f} ms a chunk ({smi})")
+
+    # the cell-list question at two sizes: K4's forces beside K1's on the
+    # same positions (printed, not asserted); at N the main path's program
+    # at its final state
+    sizes = []
+    for n, xn in ((N, x), (CELL_N_LARGE, None)):
+        fl = fluid if xn is not None else LennardJonesFluid(
+            nparticles=n, device=dev)
+        xn = fl.positions if xn is None else xn
+        kn = km if n == N else cell_program(fl)
+        xs_n, _, valid_n, _, mo_n = kn.bin(xn, torch.zeros_like(xn))
+        tn = fl.system.terms[0]
+        k1 = FusedSortedLangevin(n, tn.cutoff, tn.switch_width,
+                                 float(tn.sigma[0]), float(tn.epsilon[0]),
+                                 39.9, 0.002, 1.0)
+        L = torch.diagonal(fl.system.default_box).contiguous()
+        xT = (xn - L * torch.floor(xn / L)).t().contiguous()
+        k4_ms = launch_ms(lambda: kn.forces(xs_n, valid_n, rows=mo_n),
+                          "cell_forces_f32")
+        k1_ms = launch_ms(lambda: k1.forces(xT, L), "lj_forces_f32",
+                          reps=20)
+        sizes.append(dict(n=n, k4_forces_ms=k4_ms, k1_lj_forces_ms=k1_ms,
+                          max_occupancy=mo_n, capacity=kn.spec.capacity))
+        say(f"phase 12 cell list against all pairs, N={n}, device time: K4 "
+            f"cell_forces_f32 {k4_ms:.5f} ms (max occupancy {mo_n}, "
+            f"capacity {kn.spec.capacity}), K1 lj_forces_f32 {k1_ms:.5f} "
+            f"ms, ratio {k1_ms / k4_ms:.2f} ({smi})")
+    return [
+        dict(name="cell_forces", route="cuda", source=CELL_SOURCE,
+             replaces=CELL_REPLACES, launches=launches["cell_forces"],
+             max_abs_err=max(f_err, f_err_full), ms=f_ms, plain_ms=f_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
+        dict(name="cell_chunk", route="cuda", source=CELL_SOURCE,
+             replaces=CELL_REPLACES, launches=launches["cell_chunk"],
+             max_abs_err=max(run_dx, chunk_dx), ms=c_ms, plain_ms=c_plain,
+             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
+             per="step"),
+    ], dict(steps_per_s_max=best, steps_per_s_median=median,
+            capacity=km.spec.capacity, capacity_bumps=km.capacity_bumps,
+            fullest_occupancy=mo, rebin_ms=rebin_ms, cell_list_question=sizes)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -1131,10 +1661,14 @@ def main():
     alch_kernel, state_a, system_a, alch_rate = phase_alchemical_path(
         dev, smi, k8)
     ncmc = phase_ncmc(dev, smi, state_a, system_a)
+    dense_kernel, dense_rate = phase_dense(dev, smi, k)
+    cell_kernels, cell_rate = phase_cell(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
-                    "alchemical_kernel_worst": k8, "card": smi}))
-    print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]}))
+                    "alchemical_kernel_worst": k8, "dense_path": dense_rate,
+                    "cell_path": cell_rate, "card": smi}))
+    print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
+                      + [dense_kernel] + cell_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -37,11 +37,16 @@
 // all-pairs loop, a skin-bounded rebuild, many steps per launch or a CUDA
 // graph) is later work.
 //
+// The pair term, the tile loop and the noise draw live in lj_common.cuh,
+// shared with K3 (dense_baoab.cu) and K4 (cell_md.cu).
+//
 // Every C entry point returns cudaGetLastError() after its launches; the
 // Python wrapper raises if it is not 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lj_common.cuh"
 
 namespace {
 
@@ -49,15 +54,9 @@ constexpr int FORCE_BLOCK = 64;
 constexpr int REDUCE_BLOCK = 256;
 constexpr int SUBSTEP_BLOCK = 256;
 
-__device__ __forceinline__ float min_image(float d, float L, float inv_L) {
-    return d - L * rintf(d * inv_L);
-}
-
 __global__ void __launch_bounds__(FORCE_BLOCK)
 lj_forces_kernel(const float* __restrict__ x, int n,
-                 const float* __restrict__ L,
-                 float rc2, float sig2, float eps4, float eps24,
-                 float r_switch, float inv_span, int use_switch,
+                 const float* __restrict__ L, lj::Params p,
                  float* __restrict__ F, float* __restrict__ u_partial) {
     __shared__ float sx[FORCE_BLOCK];
     __shared__ float sy[FORCE_BLOCK];
@@ -66,8 +65,6 @@ lj_forces_kernel(const float* __restrict__ x, int n,
 
     const int tid = threadIdx.x;
     const int i = blockIdx.x * FORCE_BLOCK + tid;
-    const float Lx = L[0], Ly = L[1], Lz = L[2];
-    const float iLx = 1.0f / Lx, iLy = 1.0f / Ly, iLz = 1.0f / Lz;
     const bool active = i < n;
 
     float xi = 0.0f, yi = 0.0f, zi = 0.0f;
@@ -76,52 +73,9 @@ lj_forces_kernel(const float* __restrict__ x, int n,
         yi = x[n + i];
         zi = x[2 * n + i];
     }
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f, e_acc = 0.0f;
-
-    for (int j0 = 0; j0 < n; j0 += FORCE_BLOCK) {
-        const int j = j0 + tid;
-        if (j < n) {
-            sx[tid] = x[j];
-            sy[tid] = x[n + j];
-            sz[tid] = x[2 * n + j];
-        }
-        __syncthreads();
-        const int jn = min(FORCE_BLOCK, n - j0);
-        if (active) {
-            for (int k = 0; k < jn; ++k) {
-                const float dx = min_image(xi - sx[k], Lx, iLx);
-                const float dy = min_image(yi - sy[k], Ly, iLy);
-                const float dz = min_image(zi - sz[k], Lz, iLz);
-                const float r2 = dx * dx + dy * dy + dz * dz;
-                // the self pair (r2 = 0) and pairs beyond the cutoff drop out
-                if (r2 < rc2 && r2 > 1e-12f) {
-                    const float inv_r = rsqrtf(r2);
-                    const float inv_r2 = inv_r * inv_r;
-                    const float s2 = sig2 * inv_r2;
-                    const float s6 = s2 * s2 * s2;
-                    const float s12 = s6 * s6;
-                    float e = eps4 * (s12 - s6);
-                    float w = eps24 * (2.0f * s12 - s6) * inv_r2;
-                    if (use_switch) {
-                        const float r = r2 * inv_r;
-                        // r < rc, so t <= 1: only the lower clamp
-                        const float t = fmaxf((r - r_switch) * inv_span, 0.0f);
-                        const float S =
-                            1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
-                        const float omt = 1.0f - t;
-                        const float dS = (-30.0f * inv_span) * (t * t) * (omt * omt);
-                        w = w * S - e * dS * inv_r;
-                        e = e * S;
-                    }
-                    fx += w * dx;
-                    fy += w * dy;
-                    fz += w * dz;
-                    e_acc += e;
-                }
-            }
-        }
-        __syncthreads();
-    }
+    float fx, fy, fz, e_acc;
+    lj::all_pairs<FORCE_BLOCK>(x, n, active, xi, yi, zi, L[0], L[1], L[2], p,
+                               sx, sy, sz, fx, fy, fz, e_acc);
 
     if (active) {
         F[i] = fx;
@@ -154,33 +108,6 @@ sum_energy_kernel(const float* __restrict__ u_partial, int m,
     if (tid == 0) U[0] = 0.5f * s[0];
 }
 
-// Philox4x32-10 (Salmon et al., SC'11), the Random123 round function.
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
-                                              uint32_t k1) {
-    for (int r = 0; r < 10; ++r) {
-        if (r > 0) {
-            k0 += 0x9E3779B9u;
-            k1 += 0xBB67AE85u;
-        }
-        const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
-        const uint32_t lo0 = 0xD2511F53u * c[0];
-        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
-        const uint32_t lo1 = 0xCD9E8D57u * c[2];
-        const uint32_t n0 = hi1 ^ c[1] ^ k0;
-        const uint32_t n2 = hi0 ^ c[3] ^ k1;
-        c[0] = n0;
-        c[1] = lo1;
-        c[2] = n2;
-        c[3] = lo0;
-    }
-}
-
-// 23 random bits -> uniform in (0, 1), never 0 (so log() stays finite);
-// the same map as the TPU kernel's draw_noise
-__device__ __forceinline__ float bits_to_uniform(uint32_t r) {
-    return static_cast<float>(r >> 9) * (1.0f / 8388608.0f) + (0.5f / 8388608.0f);
-}
-
 __global__ void __launch_bounds__(SUBSTEP_BLOCK)
 langevin_substep_kernel(float* __restrict__ x, float* __restrict__ v,
                         const float* __restrict__ F, int n,
@@ -208,18 +135,9 @@ langevin_substep_kernel(float* __restrict__ x, float* __restrict__ v,
             vz += hv_inv_m * F[2 * n + i];
         } else {                    // O: Ornstein-Uhlenbeck
             if (ou_b != 0.0f) {
-                uint32_t c[4] = {static_cast<uint32_t>(i), step, o_idx, 0u};
-                philox4x32_10(c, k0, k1);
-                const float u0 = bits_to_uniform(c[0]);
-                const float u1 = bits_to_uniform(c[1]);
-                const float u2 = bits_to_uniform(c[2]);
-                const float u3 = bits_to_uniform(c[3]);
-                const float two_pi = 6.2831853071795865f;
-                const float rad01 = sqrtf(-2.0f * logf(u0));
-                const float rad23 = sqrtf(-2.0f * logf(u2));
-                const float z0 = rad01 * cosf(two_pi * u1);
-                const float z1 = rad01 * sinf(two_pi * u1);
-                const float z2 = rad23 * cosf(two_pi * u3);
+                float z0, z1, z2;
+                lj::normal3(static_cast<uint32_t>(i), step, o_idx, k0, k1,
+                            z0, z1, z2);
                 vx = ou_a * vx + sig * z0;
                 vy = ou_a * vy + sig * z1;
                 vz = ou_a * vz + sig * z2;
@@ -257,9 +175,9 @@ int lj_forces_f32(const float* x, int n, const float* L, float rc2, float sig2,
                   void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n + FORCE_BLOCK - 1) / FORCE_BLOCK;
-    lj_forces_kernel<<<blocks, FORCE_BLOCK, 0, s>>>(
-        x, n, L, rc2, sig2, eps4, eps24, r_switch, inv_span, use_switch, F,
-        u_partial);
+    const lj::Params p{rc2, sig2, eps4, eps24, r_switch, inv_span, use_switch,
+                       1e-12f};
+    lj_forces_kernel<<<blocks, FORCE_BLOCK, 0, s>>>(x, n, L, p, F, u_partial);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     sum_energy_kernel<<<1, REDUCE_BLOCK, 0, s>>>(u_partial, blocks, U);

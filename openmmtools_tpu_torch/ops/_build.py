@@ -58,6 +58,23 @@ SIGNATURES = {
     "sweep_forces_alch_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F,
                               _F, _F, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P,
                               _P, _P, _P),
+    # (out): co-resident blocks of K3's cooperative kernel
+    "dense_baoab_max_blocks": (_P,),
+    # (x, v, xb, F, u_partial, U, L, kT, n, n_steps, rc2, sig2, eps4, eps24,
+    #  r_switch, inv_span, use_switch, h_R, hv_inv_m, ou_a, ou_b, inv_m,
+    #  seed, stream)
+    "dense_baoab_chunk_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                              _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64,
+                              _P),
+    # (x, occ, n_side, M, rows, L, rc2, sig2, eps4, eps24, r_switch,
+    #  inv_span, use_switch, F, stream)
+    "cell_forces_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I,
+                        _P, _P),
+    # (x, xb, v, F, occ, kT, n_side, M, rows, L, n_steps, rc2, sig2, eps4,
+    #  eps24, r_switch, inv_span, use_switch, half_dt, kick, ou_a, ou_b,
+    #  inv_m, seed, stream)
+    "cell_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F, _F,
+                       _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64, _P),
 }
 
 

@@ -33,9 +33,18 @@ counterpart in this all-pairs design, so neither has its ``last_stats``
 (rebuild count, shell bound); only the TPU tuning scripts read those. The
 measurement-only knobs ``rsqrt_newton``/``bf16_mask`` are not ported.
 ``launches`` counts kernel launches per kernel, on CUDA tensors only.
+
+:class:`FusedDenseBAOAB` is the counterpart of the TPU kernel
+``openmmtools_tpu.ops.pallas_baoab.FusedDenseBAOAB`` (K3): BAOAB ("V R O R
+V") over all pairs, a whole chunk in one launch of the cooperative kernel of
+``csrc/dense_baoab.cu``. Its plain version is :func:`fused_langevin_reference`
+of a "V R O R V" :class:`FusedSortedLangevin`, the same Philox stream
+included.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -47,9 +56,10 @@ from openmmtools_tpu_torch.ops._build import (
     load_library,
 )
 
-__all__ = ["FusedSortedLangevin", "FusedSortedBAOAB",
+__all__ = ["FusedSortedLangevin", "FusedSortedBAOAB", "FusedDenseBAOAB",
            "fused_langevin_reference", "lj_forces_reference",
-           "langevin_substep_reference", "philox_normals"]
+           "lj_pair_reference", "langevin_substep_reference",
+           "philox_normals"]
 
 _TOKEN_CODE = {"R": 0, "V": 1, "O": 2}
 _MAX_SEGMENT = 16  # 2 bits a token in a uint32
@@ -110,18 +120,10 @@ def philox_normals(n: int, seed: int, step: int, o_index: int, device):
 # ---------------------------------------------------------------------------
 
 
-def lj_forces_reference(xT, L, *, cutoff, switch_width, sigma, epsilon):
-    """Forces (3, n) and energy () of positions ``xT`` (3, n) in a box of
-    diagonal ``L`` (3,): the plain version of ``lj_forces_kernel``."""
-    rc2 = cutoff * cutoff
-    ds = []
-    r2 = None
-    for c in range(3):
-        d = xT[c][:, None] - xT[c][None, :]
-        d = d - L[c] * torch.round(d * (1.0 / L[c]))
-        ds.append(d)
-        r2 = d * d if r2 is None else r2 + d * d
-    mask = (r2 < rc2) & (r2 > 1e-12)
+def lj_pair_reference(r2, mask, *, cutoff, switch_width, sigma, epsilon):
+    """(w, e) of the pairs at squared distances ``r2`` where ``mask`` holds,
+    0 elsewhere: the force on i is w * (x_i - x_j), e the pair energy. The
+    plain version of lj_common.cuh ``pair``."""
     # masking flows through inv_r: zero kills every term below
     inv_r = torch.where(mask, torch.rsqrt(torch.where(mask, r2, 1.0)), 0.0)
     inv_r2 = inv_r * inv_r
@@ -139,6 +141,23 @@ def lj_forces_reference(xT, L, *, cutoff, switch_width, sigma, epsilon):
         dS = (-30.0 * inv_span) * (t * t) * (omt * omt)
         w = w * S - e * dS * inv_r
         e = e * S
+    return w, e
+
+
+def lj_forces_reference(xT, L, *, cutoff, switch_width, sigma, epsilon):
+    """Forces (3, n) and energy () of positions ``xT`` (3, n) in a box of
+    diagonal ``L`` (3,): the plain version of ``lj_forces_kernel``."""
+    ds = []
+    r2 = None
+    for c in range(3):
+        d = xT[c][:, None] - xT[c][None, :]
+        d = d - L[c] * torch.round(d * (1.0 / L[c]))
+        ds.append(d)
+        r2 = d * d if r2 is None else r2 + d * d
+    mask = (r2 < cutoff * cutoff) & (r2 > 1e-12)
+    w, e = lj_pair_reference(r2, mask, cutoff=cutoff,
+                             switch_width=switch_width, sigma=sigma,
+                             epsilon=epsilon)
     F = torch.stack([torch.sum(w * d, dim=1) for d in ds])
     return F, 0.5 * torch.sum(e)
 
@@ -346,3 +365,92 @@ def fused_langevin_reference(program: FusedSortedLangevin, x, v, box, kT,
 
 # backward-compatible name (tokens default to BAOAB)
 FusedSortedBAOAB = FusedSortedLangevin
+
+DENSE_BLOCK = 64   # threads a block of dense_baoab_kernel, one a particle
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_max_blocks(device_index: int) -> int:
+    """The most blocks of dense_baoab_kernel that fit on a card at once
+    (occupancy x SM count; 0 where the card cannot launch cooperative
+    kernels)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(load_library().dense_baoab_max_blocks(ctypes.addressof(out)),
+              "dense_baoab_max_blocks")
+    return out.value
+
+
+class FusedDenseBAOAB:
+    """Fused BAOAB + all-pairs LJ chunk program for one fluid configuration:
+    the port of the TPU kernel ``FusedDenseBAOAB``.
+
+    Physics arguments as the TPU kernel's; box and kT are runtime inputs of
+    :meth:`run`. The TPU kernel's ``shell_block`` (its shell tiling of the
+    lane axis) and ``interpret`` (its CPU mode) have no counterpart: a CPU
+    tensor runs the plain chunk. ``launches`` counts the kernel's launches,
+    one a chunk, on CUDA tensors only.
+    """
+
+    def __init__(self, n_particles, cutoff, switch_width, sigma, epsilon,
+                 mass, timestep, collision_rate, device="cuda"):
+        self.program = FusedSortedLangevin(
+            n_particles, cutoff, switch_width, sigma, epsilon, mass,
+            timestep, collision_rate, tokens=("V", "R", "O", "R", "V"))
+        self.n = self.program.n
+        self.device = torch.device(device)
+        self.launches = {"dense_baoab": 0}
+
+    @property
+    def max_particles(self) -> int:
+        """The largest N whose grid (one thread a particle) fits on the card
+        at once; larger fluids raise."""
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        return DENSE_BLOCK * _dense_max_blocks(index)
+
+    def run(self, x, v, box, kT, generator, n_steps):
+        """Advance (x, v) (N, 3) by ``n_steps``; returns float32 (x, v, F, U)
+        with x wrapped into the box and F, U those of the returned x. The
+        seed is drawn from ``generator``, which advances."""
+        return self.chunk(x, v, box, kT, draw_seed(generator), n_steps)
+
+    def chunk(self, x, v, box, kT, seed, n_steps):
+        """:meth:`run` with an explicit 63-bit ``seed``."""
+        x = torch.as_tensor(x, device=self.device)
+        v = torch.as_tensor(v, device=self.device)
+        box = torch.as_tensor(box, device=self.device)
+        if not kernels_for(x, "dense BAOAB kernel"):
+            return fused_langevin_reference(self.program, x, v, box, kT,
+                                            seed, n_steps)
+        n, prog = self.n, self.program
+        blocks = -(-n // DENSE_BLOCK)
+        if n > self.max_particles:
+            raise ValueError(
+                f"the dense BAOAB grid of {blocks} blocks cannot be "
+                f"co-resident on {torch.cuda.get_device_name(x.device)}: at "
+                f"most {self.max_particles} particles")
+        xT = torch.empty((3, n), dtype=torch.float32, device=x.device)
+        vT = torch.empty_like(xT)
+        xT.copy_(x.detach().t())
+        vT.copy_(v.detach().t())
+        L = torch.diagonal(box).to(torch.float32).contiguous()
+        kT = torch.as_tensor(kT).to(device=x.device,
+                                    dtype=torch.float32).reshape(1)
+        check_input(L, torch.float32, (3,))
+        F, xb = torch.empty_like(xT), torch.empty_like(xT)
+        U, partial = xT.new_empty(1), xT.new_empty(blocks)
+        sw = prog.switch_width
+        err = load_library().dense_baoab_chunk_f32(
+            xT.data_ptr(), vT.data_ptr(), xb.data_ptr(), F.data_ptr(),
+            partial.data_ptr(), U.data_ptr(), L.data_ptr(), kT.data_ptr(), n,
+            int(n_steps), prog.rc * prog.rc, prog.sigma * prog.sigma,
+            4.0 * prog.epsilon, 24.0 * prog.epsilon,
+            0.0 if sw is None else prog.rc - sw,
+            0.0 if sw is None else 1.0 / sw, int(sw is not None), prog.h_R,
+            prog.hv_inv_m, prog.ou_a, prog.ou_b, prog.inv_m, seed,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        self.launches["dense_baoab"] += 1
+        check(err, "dense_baoab_chunk_f32")
+        return xT.t().contiguous(), vT.t().contiguous(), F.t().contiguous(), U[0]

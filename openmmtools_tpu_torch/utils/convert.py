@@ -17,7 +17,8 @@ by class name, among the terms this port has), and
 (positions, velocities, box, kT) across. The port never sees a JAX object:
 whoever holds one makes the numpy form first. Like every entry point of the
 port, they put their tensors on the card unless the caller names another
-device.
+device. :func:`grid_spec` carries a cell-grid spec (``pallas_md.LJGridSpec``)
+across as plain numbers.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from openmmtools_tpu_torch.alchemy import (
     AlchemicalNonbondedTerm,
     AlchemicalPeriodicTorsionTerm,
 )
+from openmmtools_tpu_torch.ops.fused_md import LJGridSpec
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState
 from openmmtools_tpu_torch.system import (
@@ -114,3 +116,14 @@ def integrator_state_from_numpy(positions, velocities, box, kT,
         global_params={}, heat=zero, shadow_work=zero, protocol_work=zero,
         n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
         step_count=0, generator=generator)
+
+
+def grid_spec(spec) -> LJGridSpec:
+    """The port's ``LJGridSpec`` from any object with the JAX spec's fields
+    as attributes, read as plain numbers."""
+    ints = ("n_side", "capacity")
+    values = {name: getattr(spec, name) for name in LJGridSpec._fields}
+    return LJGridSpec(**{
+        name: (None if value is None else int(value) if name in ints
+               else float(value))
+        for name, value in values.items()})

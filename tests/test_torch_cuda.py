@@ -441,3 +441,196 @@ def test_cuda_alchemical_path_engages_the_kernel(cuda):
         bound._sweep_kernel = k
     assert abs(float(state.potentials[0] - u_p)) <= REL * abs(float(u_p))
     assert _rel(state.forces[0], f_p) <= REL
+
+
+# ---------------------------------------------------------------------------
+# K3: the dense BAOAB chunk (csrc/dense_baoab.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dense(fluid, collision_rate, n=None):
+    from openmmtools_tpu_torch.ops.fused_langevin import FusedDenseBAOAB
+
+    t = fluid.system.terms[0]
+    return FusedDenseBAOAB(
+        n or fluid.n_particles, t.cutoff, t.switch_width, float(t.sigma[0]),
+        float(t.epsilon[0]), float(fluid.system.masses[0]), 0.002,
+        collision_rate, device=fluid.positions.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 1000, 200])
+def test_cuda_dense_baoab_forces_match_plain(cuda, n):
+    """n_steps = 0: F and U of the wrapped start (N = 1000 and 200 leave a
+    ragged last block)."""
+    fluid = LennardJonesFluid(nparticles=n, device=cuda)
+    k = _dense(fluid, 1.0)
+    v0 = _thermal(n, cuda)
+    box = fluid.system.default_box
+    out = k.chunk(fluid.positions, v0, box, kB * 120.0, 5, 0)
+    ref = fused_langevin_reference(k.program, fluid.positions, v0, box,
+                                   kB * 120.0, 5, 0)
+    torch.cuda.synchronize()
+    assert k.launches == {"dense_baoab": 1}
+    assert _wrapped_dx(out[0], ref[0], float(box[0, 0])) <= 1e-5
+    assert float(out[0].min()) >= 0.0 and torch.equal(out[1], ref[1])
+    assert _rel(out[2], ref[2]) <= REL
+    assert abs(float(out[3] - ref[3])) <= REL * abs(float(ref[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 1.0])
+def test_cuda_dense_baoab_chunk_matches_plain(cuda, calm_fluid, gamma):
+    """One launch for a 40-step chunk; with noise on, the same Philox
+    stream as the plain chunk."""
+    fluid = calm_fluid
+    k = _dense(fluid, gamma)
+    v0 = _thermal(1000, cuda)
+    box = fluid.system.default_box
+    out = k.chunk(fluid.positions, v0, box, kB * 120.0, 2**62 + 77, 40)
+    ref = fused_langevin_reference(k.program, fluid.positions, v0, box,
+                                   kB * 120.0, 2**62 + 77, 40)
+    torch.cuda.synchronize()
+    assert k.launches == {"dense_baoab": 1}
+    assert _wrapped_dx(out[0], ref[0], float(box[0, 0])) < 5e-4
+    assert float((out[1] - ref[1]).abs().max()) < 5e-3 * float(ref[1].abs().max())
+    assert _rel(out[2], ref[2]) <= 10 * REL
+    assert abs(float(out[3] - ref[3])) <= REL * abs(float(ref[3]))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_baoab_refuses_an_oversized_grid(cuda):
+    """A fluid one particle past the co-resident grid raises before any
+    launch."""
+    fluid = LennardJonesFluid(nparticles=64, device=cuda)
+    n = _dense(fluid, 1.0).max_particles + 1
+    assert n > 2048
+    big = _dense(fluid, 1.0, n=n)
+    x = torch.zeros((n, 3), device=cuda)
+    with pytest.raises(ValueError, match="co-resident"):
+        big.run(x, x, fluid.system.default_box, 1.0, torch.Generator(), 1)
+    assert big.launches == {"dense_baoab": 0}
+
+
+# ---------------------------------------------------------------------------
+# K4: the cell-grid forces and chunk (csrc/cell_md.cu)
+# ---------------------------------------------------------------------------
+
+
+def _cell_program(fluid, collision_rate=1.0, **kw):
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    t = fluid.system.terms[0]
+    spec = tmd.make_grid_spec(
+        fluid.n_particles, fluid.box_edge, t.cutoff, t.switch_width,
+        float(t.sigma[0]), float(t.epsilon[0]), float(fluid.system.masses[0]),
+        0.002, collision_rate)
+    return tmd.FusedLJBAOAB(spec, fluid.n_particles, temperature=120.0,
+                            device=fluid.positions.device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 1000, 16384])
+def test_cuda_cell_forces_match_plain_and_dense(cuda, n):
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    fluid = LennardJonesFluid(nparticles=n, device=cuda)
+    k = _cell_program(fluid)
+    x = fluid.positions
+    xs, vs, valid, sp, mo = k.bin(x, torch.zeros_like(x))
+    F = k.forces(xs, valid, rows=mo)
+    F_ref = tmd.cell_forces_reference(xs, valid, k.spec)
+    torch.cuda.synchronize()
+    assert k.launches["cell_forces"] == 1
+    assert _rel(F, F_ref) <= REL
+    assert not torch.any(F * (1.0 - valid))
+    Fp, _ = tmd.unbin_particles(F, F, sp, n)
+    xw, _ = tmd.unbin_particles(xs, xs, sp, n)
+    L = torch.full((3,), k.spec.box_edge, device=cuda)
+    F_dense, _ = lj_forces_reference(xw.t().contiguous(), L,
+                                     cutoff=k.spec.cutoff,
+                                     switch_width=k.spec.switch_width,
+                                     sigma=k.spec.sigma,
+                                     epsilon=k.spec.epsilon)
+    assert _rel(Fp, F_dense.t()) <= REL
+
+
+@pytest.mark.cuda
+def test_cuda_cell_run_matches_plain_with_noise(cuda, calm_fluid):
+    """40 steps with a rebin after 20: the kernels' run and the plain run
+    on the same seeds."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    fluid = calm_fluid
+    v0 = _thermal(1000, cuda)
+    k = _cell_program(fluid, rebuild_interval=20)
+    p = _cell_program(fluid, rebuild_interval=20)
+    xa, va = k.run(fluid.positions, v0, kB * 120.0,
+                   torch.Generator().manual_seed(4), 40)
+    xb, vb = tmd.fused_lj_reference(p, fluid.positions, v0, kB * 120.0,
+                                    torch.Generator().manual_seed(4), 40)
+    torch.cuda.synchronize()
+    assert k.launches == {"cell_forces": 2, "cell_chunk": 2}
+    assert p.launches == {"cell_forces": 0, "cell_chunk": 0}
+    assert _wrapped_dx(xa, xb, float(fluid.box_edge)) < 5e-4
+    assert float((va - vb).abs().max()) < 5e-3 * float(vb.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_cell_run_matches_dense_baoab_at_gamma_0(cuda, calm_fluid):
+    """gamma = 0, 100 steps with a rebin every 25: K4's kernels follow K3's
+    all-pairs chunk."""
+    fluid = calm_fluid
+    v0 = _thermal(1000, cuda)
+    k = _cell_program(fluid, collision_rate=0.0, rebuild_interval=25)
+    xa, va = k.run(fluid.positions, v0, kB * 120.0, torch.Generator(), 100)
+    xb, vb, _, _ = _dense(fluid, 0.0).run(fluid.positions, v0,
+                                          fluid.system.default_box,
+                                          kB * 120.0, torch.Generator(), 100)
+    torch.cuda.synchronize()
+    assert k.launches == {"cell_forces": 4, "cell_chunk": 4}
+    assert _wrapped_dx(xa, xb, float(fluid.box_edge)) < 5e-4
+    assert float((va - vb).abs().max()) < 5e-3 * float(vb.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_cell_wrapper_refuses_bad_inputs(cuda):
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    k = _cell_program(fluid)
+    x = fluid.positions
+    xs, vs, valid, _, _ = k.bin(x, torch.zeros_like(x))
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.forces(xs.double(), valid)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.forces(xs[:, :8].contiguous(), valid)
+    kT = torch.tensor([1.0], device=cuda)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        k.chunk(xs, vs, valid.bool(), kT, 1, 1)
+    assert k.launches == {"cell_forces": 0, "cell_chunk": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_cell_kernels_past_capacity_16(cuda):
+    """A droplet-like start (the fluid squeezed into one octant of its box,
+    then FIRE-minimized) bins past the start's capacity of 16, as the
+    condensing LJ-2048 fluid does: forces and a noisy 40-step chunk at those
+    strides and rows against the plain versions."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    x, _ = fire_minimize(fluid.system, 0.5 * fluid.positions,
+                         fluid.system.default_box, max_steps=200)
+    k = _cell_program(fluid)
+    xs, vs, valid, _, mo = k.bin(x, _thermal(2048, cuda))
+    assert k.capacity_bumps > 0 and mo > 16
+    F = k.forces(xs, valid, rows=mo)
+    assert _rel(F, tmd.cell_forces_reference(xs, valid, k.spec, mo)) <= REL
+    kT = torch.tensor([kB * 120.0], device=cuda)
+    xa, va = k.chunk(xs.clone(), vs.clone(), valid, kT, 9, 40, rows=mo)
+    xb, vb = tmd.cell_chunk_reference(xs, vs, valid, kT, 9, 40, k.spec, mo)
+    torch.cuda.synchronize()
+    assert k.launches == {"cell_forces": 2, "cell_chunk": 1}
+    occupied = valid[None] > 0
+    assert float(((xa - xb) * occupied).abs().max()) < 5e-4
+    assert float(((va - vb) * occupied).abs().max()) < 5e-3 * float(
+        vb.abs().max())

@@ -208,13 +208,16 @@ def test_bound_integrator_does_not_fuse_on_cpu():
 
 
 def test_port_never_imports_jax():
-    """No module of the port imports jax or the JAX package (read from the
-    source: this test process has both imported already)."""
+    """No module of the port, and not chip_smoke.py, which drives it on the
+    card, imports jax or the JAX package (read from the source: this test
+    process has both imported already)."""
     root = pathlib.Path(openmmtools_tpu_torch.__file__).parent
     offenders = []
     files = sorted(root.rglob("*.py"))
     assert len(files) >= 15
-    for path in files:
+    smoke = root.parent / "chip_smoke.py"
+    assert smoke.exists()
+    for path in files + [smoke]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -225,5 +228,5 @@ def test_port_never_imports_jax():
             for name in names:
                 top = name.split(".")[0]
                 if top in ("jax", "jaxlib", "openmmtools_tpu"):
-                    offenders.append(f"{path.relative_to(root)}: {name}")
+                    offenders.append(f"{path.relative_to(root.parent)}: {name}")
     assert not offenders, offenders
