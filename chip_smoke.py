@@ -11,14 +11,17 @@ nonzero exit. Phases:
    means exit 1 (there is no CPU path);
 2. build: nvcc of each ``csrc/*.cu``, all at once, with the time;
 3. K1's kernels against their plain PyTorch versions on the card, at the LJ
-   path's shapes (LJ fluid, N = 2048): forces and energy, one substep run,
-   and 40-step chunks of four splittings without and with noise;
+   path's shapes (LJ fluid, N = 2048): forces and energy, and the chunk
+   kernel, one launch a 40-step chunk, for four splittings and a two-sweep
+   one, without and with noise, at N = 2048 and at a ragged N = 1000;
 4. noise statistics: BAOAB at 120 K through the bound integrator, mean
    kinetic temperature within 5 %;
 5. the LJ main path as bench.py drives it (LennardJonesFluid(2048) ->
    BAOABIntegrator(120 K, 1/ps, 2 fs) -> bind -> initial_state -> run in
    50,000-step chunks), with a host fetch of positions each chunk, the
-   kernels' launch counts, steps/s, and kernel and plain times;
+   kernels' launch counts (one chunk kernel a chunk, one force kernel for
+   the initial state), steps/s, the chunk kernel's share of a chunk's wall
+   time, and kernel and plain times;
 6. K2's kernels (the bounded sweep) against their plain versions at the
    explicit-solvent shapes (24,000 atoms, 24,064 slots): PME with the LJ
    switch, reaction field, and the Coulomb switch, each with the bound
@@ -50,13 +53,14 @@ nonzero exit. Phases:
    10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
    0.1) whose protocol work is held against the same energy differences
    summed outside the integrator;
-11. K3's chunk kernel (FusedDenseBAOAB, one cooperative launch a chunk) on
-   LJ-2048 against its plain version (K1's plain chunk for "V R O R V"): F
-   and U at n_steps = 0, 40-step chunks at gamma 0 and 1 on one seed; then
-   ``run`` as bench.py drives a run, a 50,000-step warm-up and 50,000-step
-   chunks each ending in a host fetch, its launches, steps/s, the final U
-   and F against the dense evaluation, the kinetic temperature, and its
-   time per step beside the plain version and the bound;
+11. K3 (FusedDenseBAOAB: the chunk kernel with "V R O R V", one
+   cooperative launch a chunk) on LJ-2048 against its plain version (K1's
+   plain chunk for "V R O R V"): F and U at n_steps = 0, 40-step chunks at
+   gamma 0 and 1 on one seed; then ``run`` as bench.py drives a run, a
+   50,000-step warm-up and 50,000-step chunks each ending in a host fetch,
+   its launches, steps/s, the final U and F against the dense evaluation,
+   the kinetic temperature, its time per step beside the plain version and
+   the bound, and one evaluation at 0 steps beside K1's force kernel;
 12. K4's kernels (FusedLJBAOAB's cell-grid forces and chunk) on LJ-2048: the
    grid spec, the forces against the plain version and the dense sum, a
    noisy 40-step run across a rebin against the plain run, a gamma = 0
@@ -66,8 +70,9 @@ nonzero exit. Phases:
    the dense sum, the kernels', rebin's and plain versions' times and
    bounds, and K4's forces beside K1's on LennardJonesFluid(16384).
 
-Times of the K3 and K4 chunk kernels (``ms``, ``plain_ms``, ``bound_ms`` of
-their entries, marked ``"per": "step"``) are per step of a chunk.
+Times of the chunk kernels of K1, K3 and K4 (``ms``, ``plain_ms``,
+``bound_ms`` of their entries, marked ``"per": "step"``) are per step of a
+chunk.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -94,7 +99,8 @@ DENSE_SOURCE = "openmmtools_tpu_torch/csrc/dense_baoab.cu"
 DENSE_REPLACES = "openmmtools_tpu/ops/pallas_baoab.py:296"
 CELL_SOURCE = "openmmtools_tpu_torch/csrc/cell_md.cu"
 CELL_REPLACES = "openmmtools_tpu/ops/pallas_md.py:503"
-TIMED_STEPS = 1_000      # steps of the timed K3 chunk (the plain version: 20)
+TIMED_STEPS = 1_000      # steps of a timed chunk (the plain version: 20)
+RAGGED_N = 1_000         # a fluid whose last block of warps is ragged
 CELL_N_LARGE = 16_384    # the second size of the cell-list question
 WATER_EDGE = 6.223       # the JAC DHFR box: 20^3 TIP3P waters, 24,000 atoms
 WATER_T = 300.0
@@ -179,6 +185,39 @@ def cuda_ms(fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
+class launch_events:
+    """Within the block, every call of the C entry point ``entry`` records a
+    CUDA event just before and just after its launch into ``pairs``: the
+    device time of each launch, none of the wrapper's own torch work."""
+
+    def __init__(self, entry):
+        from openmmtools_tpu_torch.ops import _build
+
+        self.lib = _build.load_library()
+        self.entry = entry
+        self.launch = getattr(self.lib, entry)
+        self.pairs = []
+
+    def timed(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = self.launch(*args)
+        end.record()
+        self.pairs.append((start, end))
+        return err
+
+    def __enter__(self):
+        setattr(self.lib, self.entry, self.timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.entry, self.launch)
+
+    def ms(self):
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
 def launch_ms(fn, entry, reps=50):
     """Mean device time (ms) of the launches of the C entry point ``entry``
     over ``reps`` calls of ``fn`` (one launch a call) after warm-up, every
@@ -188,28 +227,12 @@ def launch_ms(fn, entry, reps=50):
     wrapper's own torch work (small operations before the launch, which
     CUDA events around back-to-back calls would time instead) runs outside
     the pairs."""
-    from openmmtools_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    launch = getattr(lib, entry)
-    pairs = []
-
-    def timed(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        err = launch(*args)
-        end.record()
-        pairs.append((start, end))
-        return err
-
     for _ in range(3):
         fn()
-    setattr(lib, entry, timed)
-    try:
+    with launch_events(entry) as rec:
         for cycles in (20_000_000, 80_000_000, 320_000_000):
             torch.cuda.synchronize()
-            pairs.clear()
+            rec.pairs.clear()
             torch.cuda._sleep(cycles)
             held = torch.cuda.Event()
             held.record()
@@ -222,10 +245,8 @@ def launch_ms(fn, entry, reps=50):
         else:
             raise AssertionError(f"{entry}: the host did not queue {reps} "
                                  "calls within the spin kernel")
-    finally:
-        setattr(lib, entry, launch)
-    assert len(pairs) == reps, (entry, len(pairs))
-    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+    assert len(rec.pairs) == reps, (entry, len(rec.pairs))
+    return sum(rec.ms()) / reps
 
 
 def max_rel(a, b):
@@ -249,10 +270,10 @@ def fluid_program(fluid, tokens="V R O R V", collision_rate=1.0):
 
 def phase_kernels(dev):
     from openmmtools_tpu_torch.constants import kB
+    from openmmtools_tpu_torch.integrators import fire_minimize
     from openmmtools_tpu_torch.models import LennardJonesFluid
     from openmmtools_tpu_torch.ops.fused_langevin import (
         fused_langevin_reference,
-        langevin_substep_reference,
         lj_forces_reference,
     )
 
@@ -261,9 +282,6 @@ def phase_kernels(dev):
     xT = fluid.positions.t().contiguous()
     L = torch.diagonal(fluid.system.default_box).contiguous()
     kT = torch.tensor([kB * TEMPERATURE], device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    vT = torch.randn((3, N), device=dev, generator=gen) * (
-        (kB * TEMPERATURE / 39.9) ** 0.5)
 
     F, U = prog.forces(xT, L)
     F_ref, U_ref = lj_forces_reference(xT, L, **prog._physics())
@@ -274,36 +292,38 @@ def phase_kernels(dev):
         f"U {float(U[0]):.6f} vs plain {float(U_ref):.6f} (rel {u_rel:.2e})")
     assert f_rel <= REL_TOL and u_rel <= REL_TOL, (f_rel, u_rel)
 
-    seg = prog.program[0][1]
-    sub_args = prog._substep_args(seed=99, step=7, o_base=0, wrap=True)
-    xs, vs = prog.substep(xT.clone(), vT.clone(), F, L, kT, seg, seed=99,
-                          step=7, o_base=0, wrap=True)
-    xr, vr = langevin_substep_reference(xT, vT, F_ref, L, kT, seg, **sub_args)
-    torch.cuda.synchronize()
-    s_err = max(float((xs - xr).abs().max()), float((vs - vr).abs().max()))
-    say(f"phase 3 langevin_substep {' '.join(seg)}: max|dx|,|dv| {s_err:.3e}")
-    assert max_rel(xs, xr) <= REL_TOL and max_rel(vs, vr) <= REL_TOL
-
-    box = fluid.system.default_box
-    edge = float(L[0])
-    v0 = vT.t().contiguous()
-    for gamma in (0.0, 1.0):
-        for splitting in SPLITTINGS:
-            p = fluid_program(fluid, splitting, gamma)
-            out = p._chunk(fluid.positions, v0, box, kT, 4242, 40, p.forces,
-                           p.substep)
-            ref = fused_langevin_reference(p, fluid.positions, v0, box, kT,
-                                           4242, 40)
-            dx = wrapped_dx(out[0], ref[0], edge)
-            dv = float((out[1] - ref[1]).abs().max())
-            v_scale = float(ref[1].abs().max())
-            du = abs(float(out[3] - ref[3])) / abs(float(ref[3]))
-            say(f"phase 3 chunk gamma={gamma} '{splitting}' 40 steps: "
-                f"dx {dx:.2e} dv/v {dv / v_scale:.2e} dU/U {du:.2e}")
-            assert dx < 5e-4 and dv < 5e-3 * v_scale and du <= REL_TOL, (
-                splitting, gamma, dx, dv, du)
-    return dict(fluid=fluid, prog=prog, xT=xT, vT=vT, L=L, kT=kT, F=F,
-                f_err=f_err, s_err=s_err, seg=seg, sub_args=sub_args)
+    # the chunk kernel, one launch a chunk, against the plain chunk: every
+    # splitting, a two-sweep one among them, with noise off and on, at N and
+    # at a ragged N (a FIRE-minimized start there: the raw Sobol start at a
+    # ragged N holds a clash that makes 40 steps chaotic at float32 rounding)
+    ragged = LennardJonesFluid(nparticles=RAGGED_N, device=dev)
+    ragged.positions, _ = fire_minimize(ragged.system, ragged.positions,
+                                        ragged.system.default_box,
+                                        max_steps=200)
+    chunk_err = 0.0
+    for fl in (fluid, ragged):
+        n = fl.n_particles
+        box = fl.system.default_box
+        v0 = thermal(n, dev, 1)
+        for gamma in (0.0, 1.0):
+            for splitting in SPLITTINGS + ("R V R V",):
+                p = fluid_program(fl, splitting, gamma)
+                out = p.chunk(fl.positions, v0, box, kT, 4242, 40)
+                ref = fused_langevin_reference(p, fl.positions, v0, box, kT,
+                                               4242, 40)
+                dx = wrapped_dx(out[0], ref[0], float(box[0, 0]))
+                dv = float((out[1] - ref[1]).abs().max())
+                v_scale = float(ref[1].abs().max())
+                du = abs(float(out[3] - ref[3])) / abs(float(ref[3]))
+                say(f"phase 3 chunk N={n} gamma={gamma} '{splitting}' 40 "
+                    f"steps, launches {p.launches}: dx {dx:.2e} dv/v "
+                    f"{dv / v_scale:.2e} dU/U {du:.2e}")
+                assert p.launches == {"lj_forces": 0, "lj_chunk": 1}
+                assert dx < 5e-4 and dv < 5e-3 * v_scale and du <= REL_TOL, (
+                    n, splitting, gamma, dx, dv, du)
+                chunk_err = max(chunk_err, dx)
+    return dict(prog=prog, xT=xT, L=L, kT=kT, f_err=f_err,
+                chunk_err=chunk_err, v=thermal(N, dev, 1))
 
 
 def phase_noise(dev):
@@ -335,7 +355,7 @@ def phase_main_path(dev, smi, k):
     from openmmtools_tpu_torch.integrators import BAOABIntegrator
     from openmmtools_tpu_torch.models import LennardJonesFluid
     from openmmtools_tpu_torch.ops.fused_langevin import (
-        langevin_substep_reference,
+        fused_langevin_reference,
         lj_forces_reference,
     )
     from openmmtools_tpu_torch.system import make_energy_force_fn
@@ -346,30 +366,36 @@ def phase_main_path(dev, smi, k):
     bound = integ.bind(fluid.system)
     fused = bound._fused
     assert fused is not None, "the fused path did not engage on CUDA"
+    for key in fused.launches:
+        fused.launches[key] = 0
     state = bound.initial_state(fluid.sampler_state(),
                                 torch.Generator().manual_seed(0),
                                 temperature=TEMPERATURE)
-
-    for key in fused.launches:
-        fused.launches[key] = 0
     state = bound.run(state, CHUNK)  # warm-up
     torch.cuda.synchronize()
-    rates = []
+    rates, busy = [], []
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 8.0 and len(rates) < 12:
-        tc = time.perf_counter()
-        state = bound.run(state, CHUNK)
-        positions = state.positions.cpu().numpy()
-        rates.append(CHUNK / (time.perf_counter() - tc))
-        assert positions.shape == (N, 3)
-        assert bool((positions == positions).all()), "non-finite positions"
+    # the chunk kernel's device time against each chunk's wall time: how
+    # much of a chunk the host holds the card idle
+    with launch_events("lj_chunk_f32") as rec:
+        while time.perf_counter() - t0 < 8.0 and len(rates) < 12:
+            tc = time.perf_counter()
+            state = bound.run(state, CHUNK)
+            positions = state.positions.cpu().numpy()
+            wall = time.perf_counter() - tc
+            rates.append(CHUNK / wall)
+            busy.append(rec.ms()[-1] / (1e3 * wall))
+            assert positions.shape == (N, 3)
+            assert bool((positions == positions).all()), "non-finite positions"
     launches = dict(fused.launches)
-    steps = CHUNK * (1 + len(rates))
-    say(f"phase 5 main path: {steps} steps in {1 + len(rates)} chunks; "
-        f"launches {launches}")
+    chunks = 1 + len(rates)
+    steps = CHUNK * chunks
+    say(f"phase 5 main path: {steps} steps in {chunks} chunks; launches "
+        f"{launches} ({launches['lj_chunk'] / chunks:.0f} a chunk; lj_forces "
+        f"the initial state's F and U)")
     for kernel, count in launches.items():
         assert count > 0, f"{kernel} never launched on the main path"
-    assert launches["lj_forces"] == steps + 1 + len(rates)
+    assert launches == {"lj_forces": 1, "lj_chunk": chunks}, launches
 
     # the output is right: finite, and its energy and forces agree with the
     # port's own dense analytic evaluation of the final positions
@@ -384,53 +410,91 @@ def phase_main_path(dev, smi, k):
 
     best, median = max(rates), statistics.median(rates)
     say(f"phase 5 throughput: {best:.1f} steps/s max, {median:.1f} median "
-        f"({len(rates)} timed chunks of {CHUNK}) on {smi}")
+        f"({len(rates)} timed chunks of {CHUNK}); the chunk kernel busy "
+        f"{min(busy):.4f}-{max(busy):.4f} of a chunk's wall time (median "
+        f"{statistics.median(busy):.4f}) on {smi}")
 
-    # kernel and plain times at the main path's shapes, in turns
-    prog, xT, L = k["prog"], k["xT"], k["L"]
+    # kernel and plain times at the main path's shapes, in turns: one force
+    # evaluation, and a step of a TIMED_STEPS chunk (plain: 20 steps)
+    prog, xT, L, kT = k["prog"], k["xT"], k["L"], k["kT"]
     physics = prog._physics()
-    kernel_f = lambda: prog.forces(xT, L)  # noqa: E731
-    plain_f = lambda: lj_forces_reference(xT, L, **physics)  # noqa: E731
-    seg, kT, F = k["seg"], k["kT"], k["F"]
-    xb, vb = xT.clone(), k["vT"].clone()
-    kernel_s = lambda: prog.substep(xb, vb, F, L, kT, seg, seed=5, step=0,  # noqa: E731
-                                    o_base=0, wrap=True)
-    plain_s = lambda: langevin_substep_reference(  # noqa: E731
-        xT, k["vT"], F, L, kT, seg, **k["sub_args"])
+    box = fluid.system.default_box
+    v = k["v"]
+    x0 = fluid.positions
     times = {}
-    for label, fn in (("plain_f", plain_f), ("kernel_f", kernel_f),
-                      ("kernel_f2", kernel_f), ("plain_f2", plain_f),
-                      ("plain_s", plain_s), ("kernel_s", kernel_s),
-                      ("kernel_s2", kernel_s), ("plain_s2", plain_s)):
-        times[label] = cuda_ms(fn)
+    for label, fn, per in (
+            ("plain_f", lambda: lj_forces_reference(xT, L, **physics), 1),
+            ("kernel_f", (lambda: prog.forces(xT, L), "lj_forces_f32"), 1),
+            ("kernel_f2", (lambda: prog.forces(xT, L), "lj_forces_f32"), 1),
+            ("plain_f2", lambda: lj_forces_reference(xT, L, **physics), 1),
+            ("plain_c", lambda: fused_langevin_reference(
+                prog, x0, v, box, kT, 5, 20), 20),
+            ("kernel_c", (lambda: prog.chunk(x0, v, box, kT, 5, TIMED_STEPS),
+                          "lj_chunk_f32"), TIMED_STEPS),
+            ("kernel_c2", (lambda: prog.chunk(x0, v, box, kT, 5, TIMED_STEPS),
+                           "lj_chunk_f32"), TIMED_STEPS),
+            ("plain_c2", lambda: fused_langevin_reference(
+                prog, x0, v, box, kT, 5, 20), 20)):
+        if isinstance(fn, tuple):
+            times[label] = launch_ms(*fn, reps=20 if per == 1 else 3) / per
+        else:
+            times[label] = cuda_ms(fn, reps=200 if per == 1 else 2) / per
     f_ms = min(times["kernel_f"], times["kernel_f2"])
     f_plain = min(times["plain_f"], times["plain_f2"])
-    s_ms = min(times["kernel_s"], times["kernel_s2"])
-    s_plain = min(times["plain_s"], times["plain_s2"])
-    say(f"phase 5 one force evaluation N={N}: kernel {f_ms:.4f} ms, plain "
-        f"{f_plain:.4f} ms; one substep run '{' '.join(seg)}': kernel "
-        f"{s_ms:.4f} ms, plain {s_plain:.4f} ms ({smi})")
+    c_ms = min(times["kernel_c"], times["kernel_c2"])
+    c_plain = min(times["plain_c"], times["plain_c2"])
+    say(f"phase 5 one force evaluation N={N} (device): kernel {f_ms:.5f} ms, "
+        f"plain {f_plain:.4f} ms; a step of a {TIMED_STEPS}-step chunk "
+        f"(device): kernel {c_ms:.5f} ms, plain {c_plain:.4f} ms (20-step "
+        f"chunk) ({smi})")
+    # where a step goes: "R V R V" runs two sweeps and three segments a step
+    # where "V R O R V" runs one and two, so the difference is a sweep with
+    # its grid barrier and a segment
+    two = fluid_program(fluid, "R V R V")
+    two_ms = launch_ms(lambda: two.chunk(x0, v, box, kT, 5, TIMED_STEPS),
+                       "lj_chunk_f32", reps=3) / TIMED_STEPS
+    say(f"phase 5 a step of 'R V R V' (two sweeps): {two_ms:.5f} ms; so a "
+        f"sweep with its grid barrier and a segment {two_ms - c_ms:.5f} ms, "
+        f"a segment with the step's own work {2 * c_ms - two_ms:.5f} ms "
+        f"({smi})")
     # bounds from this run's inputs: the forces need each of the N(N-1)/2
     # pairs tested once and each pair inside the cutoff evaluated once
-    # (Newton's third law; the kernel meets each pair from both ends); the
-    # substep reads x, v, F and writes x, v
+    # (Newton's third law; the kernel meets each pair from both ends); a
+    # chunk of n steps needs n * sweeps + 1 such evaluations and reads x, v,
+    # F and writes x, v a step
     n_tests, n_in = lj_pair_counts(xT, L, prog.rc)
     f_bound = bound_ms(4 * (3 * N + 3 + 3 * N + 1),
                        n_tests * OPS_DIST + n_in * OPS_PAIR)
-    s_bound = bound_ms(4 * (5 * 3 * N + 4), 0)
-    say(f"phase 5 bounds: lj_forces {f_bound[0]:.5f} ms by {f_bound[1]} "
-        f"({n_tests} pair tests, {n_in} pairs inside the cutoff), "
-        f"langevin_substep {s_bound[0]:.5f} ms by {s_bound[1]}")
+    c_bound = chunk_bound_ms(prog, TIMED_STEPS, n_tests, n_in)
+    say(f"phase 5 bounds: lj_forces {f_bound[0]:.6f} ms by {f_bound[1]} "
+        f"({n_tests} pair tests, {n_in} pairs inside the cutoff), lj_chunk "
+        f"{c_bound[0]:.6f} ms a step by {c_bound[1]}")
     return [
         dict(name="lj_forces", route="cuda", source=SOURCE, replaces=REPLACES,
              launches=launches["lj_forces"], max_abs_err=k["f_err"],
              ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
              bound_by=f_bound[1], library_ms=None),
-        dict(name="langevin_substep", route="cuda", source=SOURCE,
-             replaces=REPLACES, launches=launches["langevin_substep"],
-             max_abs_err=k["s_err"], ms=s_ms, plain_ms=s_plain,
-             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None),
-    ], dict(steps_per_s_max=best, steps_per_s_median=median)
+        dict(name="lj_chunk", route="cuda", source=DENSE_SOURCE,
+             replaces=REPLACES, launches=launches["lj_chunk"],
+             max_abs_err=k["chunk_err"], ms=c_ms, plain_ms=c_plain,
+             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
+             per="step"),
+    ], dict(steps_per_s_max=best, steps_per_s_median=median,
+            chunk_busy_median=statistics.median(busy), step_ms=c_ms,
+            two_sweep_step_ms=two_ms, forces_ms=f_ms)
+
+
+def chunk_bound_ms(prog, steps, n_tests, n_in):
+    """The bound of one step of a ``steps``-step chunk of ``prog`` (ms, and
+    what bounds it): steps x (sweeps a step) + 1 all-pairs evaluations at
+    these pairs, and the segments' bytes (x, v, F read, x, v written a
+    step), divided by the steps."""
+    sweeps = [item[0] for item in prog.program].count("sweep")
+    evaluations = steps * sweeps + 1
+    ms, by = bound_ms(
+        evaluations * 4 * (3 * N + 3 + 3 * N + 1) + steps * 4 * (5 * 3 * N + 4),
+        evaluations * (n_tests * OPS_DIST + n_in * OPS_PAIR))
+    return ms / steps, by
 
 
 def lj_pair_counts(xT, L, rc):
@@ -1282,7 +1346,7 @@ def phase_dense(dev, smi, k):
     box = fluid.system.default_box
     edge = float(fluid.box_edge)
     kT = kB * TEMPERATURE
-    v0 = k["vT"].t().contiguous()
+    v0 = k["v"]
 
     # the kernel against its plain version: n_steps = 0, then 40-step chunks
     kd = dense_program(fluid)
@@ -1355,31 +1419,27 @@ def phase_dense(dev, smi, k):
         t[label] = cuda_ms(fn, reps=reps) / steps
     ms = min(t["kernel"], t["kernel2"])
     plain_ms = min(t["plain"], t["plain2"])
-    # the bound of a chunk of n steps: n + 1 all-pairs evaluations at this
-    # state's pairs, and the substeps' bytes; per step
+    # the bound of a step of the chunk at this state's pairs
     n_tests, n_in = lj_pair_counts(x.t().contiguous(), L, kd.program.rc)
-    steps = TIMED_STEPS
-    b_ms, b_by = bound_ms(
-        (steps + 1) * 4 * (3 * N + 3 + 3 * N + 1) + steps * 4 * (5 * 3 * N + 4),
-        (steps + 1) * (n_tests * OPS_DIST + n_in * OPS_PAIR))
-    b_ms /= steps
+    b_ms, b_by = chunk_bound_ms(kd.program, TIMED_STEPS, n_tests, n_in)
     say(f"phase 11 dense_baoab per step ({TIMED_STEPS}-step chunk, one "
         f"launch): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms (20-step "
         f"chunk), bound {b_ms:.6f} ms by {b_by} ({n_tests} pair tests, "
         f"{n_in} pairs inside the cutoff a step) ({smi})")
     # where K3's step goes: its kernel at n_steps = 0 (the wrap and one
-    # all-pairs evaluation with its energy) beside K1's forces launch (force
-    # and energy-sum kernels) on the same positions, device time of each
+    # all-pairs evaluation with its energy, two grid barriers) beside K1's
+    # forces launch (the same sweep, its energy summed in the launch) on the
+    # same positions, device time of each
     xT = (x - L * torch.floor(x / L)).t().contiguous()
     kT_t = torch.tensor([kT], device=dev)
     one_ms = launch_ms(lambda: kd.chunk(x, v, box, kT_t, 5, 0),
-                       "dense_baoab_chunk_f32", reps=20)
+                       "lj_chunk_f32", reps=20)
     k1_ms = launch_ms(lambda: kd.program.forces(xT, L), "lj_forces_f32",
                       reps=20)
     kd.launches["dense_baoab"] = launches
     say(f"phase 11 one all-pairs evaluation at the final state, device time: "
-        f"dense_baoab_kernel at 0 steps {one_ms:.5f} ms, K1's lj_forces_f32 "
-        f"(forces and energy sum) {k1_ms:.5f} ms ({smi})")
+        f"the chunk kernel at 0 steps {one_ms:.5f} ms, K1's lj_forces_f32 "
+        f"{k1_ms:.5f} ms ({smi})")
     return dict(name="dense_baoab_chunk", route="cuda", source=DENSE_SOURCE,
                 replaces=DENSE_REPLACES, launches=launches, max_abs_err=f_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,

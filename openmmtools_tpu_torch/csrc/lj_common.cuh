@@ -1,8 +1,9 @@
-// Device code shared by the LJ-fluid kernels: fused_langevin.cu (K1),
-// dense_baoab.cu (K3) and cell_md.cu (K4). With one pair term, one
-// all-pairs tile loop and one noise draw, the three kernels compute a pair
-// and draw their Ornstein-Uhlenbeck noise alike, and their plain PyTorch
-// versions (ops/fused_langevin.py, ops/fused_md.py) repeat this arithmetic.
+// Device code shared by the LJ-fluid kernels: fused_langevin.cu (K1's
+// forces), dense_baoab.cu (the chunk kernel of K1 and K3) and cell_md.cu
+// (K4). With one pair term, one all-pairs sweep and one noise draw, the
+// kernels compute a pair and draw their Ornstein-Uhlenbeck noise alike, and
+// their plain PyTorch versions (ops/fused_langevin.py, ops/fused_md.py)
+// repeat this arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,45 +48,123 @@ __device__ __forceinline__ bool pair(float r2, const Params& p, float& w,
     return true;
 }
 
-// Force on particle (xi, yi, zi) and its pair-energy sum against all n
-// particles of x (3, n), minimum image in an orthorhombic box: partner
-// tiles of BLOCK are staged in shared memory by the whole block, so every
-// thread of the block calls it, those without a particle with
-// active = false. x is read with plain loads: in a cooperative kernel the
-// positions were written by other blocks earlier in the same launch.
-template <int BLOCK>
-__device__ __forceinline__ void all_pairs(
-        const float* x, int n, bool active, float xi, float yi, float zi,
-        float Lx, float Ly, float Lz, const Params& p, float* sx, float* sy,
-        float* sz, float& fx, float& fy, float& fz, float& e_acc) {
-    const int tid = threadIdx.x;
-    const float iLx = 1.0f / Lx, iLy = 1.0f / Ly, iLz = 1.0f / Lz;
-    fx = fy = fz = e_acc = 0.0f;
-    for (int j0 = 0; j0 < n; j0 += BLOCK) {
-        const int j = j0 + tid;
-        if (j < n) {
-            sx[tid] = x[j];
-            sy[tid] = x[n + j];
-            sz[tid] = x[2 * n + j];
-        }
-        __syncthreads();
-        const int jn = min(BLOCK, n - j0);
-        if (active) {
-            for (int k = 0; k < jn; ++k) {
-                const float dx = min_image(xi - sx[k], Lx, iLx);
-                const float dy = min_image(yi - sy[k], Ly, iLy);
-                const float dz = min_image(zi - sz[k], Lz, iLz);
-                float w, e;
-                if (pair(dx * dx + dy * dy + dz * dz, p, w, e)) {
-                    fx += w * dx;
-                    fy += w * dy;
-                    fz += w * dz;
-                    e_acc += e;
-                }
-            }
-        }
-        __syncthreads();
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr int TILE = 2048;   // partners a block stages in shared memory
+
+// One partner at minimum-image offset (dx, dy, dz) from the particle: its
+// pair force and energy added to the accumulators.
+__device__ __forceinline__ void add_pair(float dx, float dy, float dz,
+                                         const Params& p, float& fx,
+                                         float& fy, float& fz, float& e_acc) {
+    float w, e;
+    if (pair(dx * dx + dy * dy + dz * dz, p, w, e)) {
+        fx += w * dx;
+        fy += w * dy;
+        fz += w * dz;
+        e_acc += e;
     }
+}
+
+// Force on particle i and its pair-energy sum against all n particles of x
+// (3, n), minimum image in an orthorhombic box, one warp a particle and
+// WARPS particles a block: the block stages tiles of TILE partners in
+// shared memory, and lane l of a warp takes the partners j = l, l + 32, ...
+// of each tile; a xor butterfly of shuffles then sums the 32 lanes, so
+// every lane ends with the same totals, summed in the same order on every
+// launch (no atomics). Every thread of the block calls it, equally often; a
+// warp without a particle passes i >= n and gets zeros. x is read with plain
+// loads: in a cooperative kernel the positions were written by other
+// blocks earlier in the same launch.
+//
+// Why this layout: one thread a particle would run the sweep at one
+// thread's serial latency, N iterations, on N/64 blocks of 64 (32 of the
+// H100's 132 SMs at N = 2048). A warp a particle gives N warps of N/32
+// iterations, enough to fill every SM. Read straight from global memory,
+// each iteration of a lane would wait on an L1/L2 load; from a staged tile
+// the loads take a shared-memory round trip, four partners at a time.
+// Tensor cores do not serve: the work is a minimum-image distance test
+// with a branch per pair, not a matrix product, and TF32's 10-bit mantissa
+// would round r^2 well past the kernels' 2e-4 tolerance.
+template <int WARPS>
+__device__ __forceinline__ void block_pairs(
+        const float* x, int n, int i, float Lx, float Ly, float Lz,
+        const Params& p, float& fx, float& fy, float& fz, float& e_acc) {
+    __shared__ float sx[TILE], sy[TILE], sz[TILE];
+    const int lane = threadIdx.x & 31;
+    const float iLx = 1.0f / Lx, iLy = 1.0f / Ly, iLz = 1.0f / Lz;
+    const bool mine = i < n;
+    const float xi = mine ? x[i] : 0.0f;
+    const float yi = mine ? x[n + i] : 0.0f;
+    const float zi = mine ? x[2 * n + i] : 0.0f;
+    fx = fy = fz = e_acc = 0.0f;
+    for (int t0 = 0; t0 < n; t0 += TILE) {
+        const int m = min(TILE, n - t0);
+        __syncthreads();   // every warp is done with the previous tile
+        for (int k = threadIdx.x; k < m; k += WARPS * 32) {
+            sx[k] = x[t0 + k];
+            sy[k] = x[n + t0 + k];
+            sz[k] = x[2 * n + t0 + k];
+        }
+        __syncthreads();
+        if (!mine) continue;
+        int k = lane;
+        // four partners a lane at a time, their distances first: the
+        // shared-memory loads and the distance tests of the four overlap
+        for (; k + 96 < m; k += 128) {
+            float dx[4], dy[4], dz[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                dx[u] = min_image(xi - sx[k + 32 * u], Lx, iLx);
+                dy[u] = min_image(yi - sy[k + 32 * u], Ly, iLy);
+                dz[u] = min_image(zi - sz[k + 32 * u], Lz, iLz);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                add_pair(dx[u], dy[u], dz[u], p, fx, fy, fz, e_acc);
+        }
+        for (; k < m; k += 32)
+            add_pair(min_image(xi - sx[k], Lx, iLx),
+                     min_image(yi - sy[k], Ly, iLy),
+                     min_image(zi - sz[k], Lz, iLz), p, fx, fy, fz, e_acc);
+    }
+    for (int offset = 16; offset > 0; offset >>= 1) {
+        fx += __shfl_xor_sync(FULL_MASK, fx, offset);
+        fy += __shfl_xor_sync(FULL_MASK, fy, offset);
+        fz += __shfl_xor_sync(FULL_MASK, fz, offset);
+        e_acc += __shfl_xor_sync(FULL_MASK, e_acc, offset);
+    }
+}
+
+// The sum over a block of WARPS warps of one value a warp (every lane of
+// warp w holding v_w), in warp order; valid in thread 0. Every thread of
+// the block calls it.
+template <int WARPS>
+__device__ __forceinline__ float block_sum(float v) {
+    __shared__ float s[WARPS];
+    if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float acc = 0.0f;
+    if (threadIdx.x == 0)
+        for (int w = 0; w < WARPS; ++w) acc += s[w];
+    __syncthreads();   // s may be written again by a later call
+    return acc;
+}
+
+// U = 0.5 * the sum of the m block partials (each unordered pair was counted
+// from both ends), by one block of WARPS warps in a fixed order: thread t
+// sums partials t, t + blockDim, ..., then the block sums the threads. The
+// partials were written by other blocks of the launch, so they are read
+// from L2 (__ldcg), the point where those writes meet.
+template <int WARPS>
+__device__ __forceinline__ void sum_partials(const float* u_partial, int m,
+                                             float* U) {
+    float acc = 0.0f;
+    for (int b = threadIdx.x; b < m; b += WARPS * 32)
+        acc += __ldcg(u_partial + b);
+    for (int offset = 16; offset > 0; offset >>= 1)
+        acc += __shfl_xor_sync(FULL_MASK, acc, offset);
+    const float total = block_sum<WARPS>(acc);
+    if (threadIdx.x == 0) U[0] = 0.5f * total;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11), the Random123 round function.

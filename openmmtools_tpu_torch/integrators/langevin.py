@@ -856,7 +856,8 @@ class BoundIntegrator:
                       ) -> IntegratorState:
         """Build the integrator state from a sampler state. Velocities are
         thermalized from ``generator`` if absent; forces and potentials are
-        precomputed so the first V substep is exact."""
+        precomputed so the first V substep is exact (on the fused path by
+        its force kernel)."""
         if thermodynamic_state is not None:
             temperature = thermodynamic_state.temperature
             global_params = dict(thermodynamic_state.global_params)
@@ -879,6 +880,9 @@ class BoundIntegrator:
             heat=zero, shadow_work=zero, protocol_work=zero,
             n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
             step_count=0, generator=generator)
+        if self._fused is not None:
+            u, f = self._fused_energy_forces(x, box)
+            return state.replace(forces=(f,), potentials=(u,))
         sw = None
         if self.sweep_mode:
             state = self._resort_sweep(state)
@@ -942,17 +946,31 @@ class BoundIntegrator:
         box = state.box if state.box is not None else self.system.default_box
         x, v, f, u = self._fused.run(state.positions, state.velocities, box,
                                      state.kT, state.generator, n_steps)
-        term = self._fused_term
-        if term.use_dispersion_correction:
-            from openmmtools_tpu_torch.ops.nonbonded import (
-                dispersion_correction_energy,
-            )
-
-            u = u + dispersion_correction_energy(
-                box, term.sigma, term.epsilon, term.cutoff)
         return state.replace(positions=x, velocities=v, forces=(f,),
-                             potentials=(u,),
+                             potentials=(self._fused_total(u, box),),
                              step_count=state.step_count + n_steps)
+
+    def _fused_total(self, u, box):
+        """The fused kernel's pair energy ``u`` plus the dispersion
+        correction where the term asks for it."""
+        term = self._fused_term
+        if not term.use_dispersion_correction:
+            return u
+        from openmmtools_tpu_torch.ops.nonbonded import (
+            dispersion_correction_energy,
+        )
+
+        return u + dispersion_correction_energy(
+            box, term.sigma, term.epsilon, term.cutoff)
+
+    def _fused_energy_forces(self, x, box):
+        """(U, F) of positions x (N, 3) by the fused path's force kernel
+        (one launch of K1's ``lj_forces_kernel``), float32 as ``run``
+        returns them."""
+        xT = x.detach().t().to(torch.float32).contiguous()
+        L = torch.diagonal(box).to(torch.float32).contiguous()
+        F, U = self._fused.forces(xT, L)
+        return self._fused_total(U[0], box), F.t().contiguous()
 
     def sampler_state_from(self, state: IntegratorState) -> SamplerState:
         return SamplerState(positions=state.positions,

@@ -33,19 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
 
 # argtypes of every C entry point; all return cudaError_t as an int
 SIGNATURES = {
     # (x, n, L, rc2, sig2, eps4, eps24, r_switch, inv_span, use_switch,
-    #  F, u_partial, U, stream)
+    #  F, u_partial, ticket, U, stream)
     "lj_forces_f32": (_P, _I, _P, _F, _F, _F, _F, _F, _F, _I,
-                      _P, _P, _P, _P),
-    # (x, v, F, n, L, kT, n_tok, tok_code, h_R, hv_inv_m, ou_a, ou_b, inv_m,
-    #  seed, step, o_base, wrap, stream)
-    "langevin_substep_f32": (_P, _P, _P, _I, _P, _P, _I, _U32, _F, _F, _F,
-                             _F, _F, _U64, _U32, _U32, _I, _P),
+                      _P, _P, _P, _P, _P),
+    # (x, v, xb, F, u_partial, U, L, kT, n, n_steps, table, n_items, rc2,
+    #  sig2, eps4, eps24, r_switch, inv_span, use_switch, h_R, hv_inv_m,
+    #  ou_a, ou_b, inv_m, seed, stream)
+    "lj_chunk_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
+                     _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64, _P),
     # (x, n, n_pad, L, w2, bs, rebuild, bound, partial, nblk, stream)
     "sweep_bound_f32": (_P, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P),
     # (x, par, excl, n, n_pad, mask_rows, bs, L, nblk, rc2, coulomb_rf,
@@ -58,14 +58,6 @@ SIGNATURES = {
     "sweep_forces_alch_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F,
                               _F, _F, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P,
                               _P, _P, _P),
-    # (out): co-resident blocks of K3's cooperative kernel
-    "dense_baoab_max_blocks": (_P,),
-    # (x, v, xb, F, u_partial, U, L, kT, n, n_steps, rc2, sig2, eps4, eps24,
-    #  r_switch, inv_span, use_switch, h_R, hv_inv_m, ou_a, ou_b, inv_m,
-    #  seed, stream)
-    "dense_baoab_chunk_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
-                              _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64,
-                              _P),
     # (x, occ, n_side, M, rows, L, rc2, sig2, eps4, eps24, r_switch,
     #  inv_span, use_switch, F, stream)
     "cell_forces_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I,

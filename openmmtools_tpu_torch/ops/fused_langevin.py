@@ -14,37 +14,39 @@ with x wrapped into [0, L), F and U those of the returned positions, box and
 kT read at run time, and the noise seed drawn from the caller's
 ``torch.Generator`` on each call.
 
-On a CUDA tensor it launches the hand-written kernels of
-``csrc/fused_langevin.cu`` (built at first use by ``ops/_build.py``) or
-raises; on a CPU tensor it runs their plain PyTorch versions,
-:func:`lj_forces_reference` and :func:`langevin_substep_reference`, in the
-same host loop. :func:`fused_langevin_reference` runs that plain loop on any
-device; it is the kernel's oracle on the card. The plain versions draw the
-same Philox4x32-10 noise as the kernel, so on one seed the two agree to
-float32 rounding even with noise.
+On a CUDA tensor a chunk is one launch of the persistent cooperative
+kernel of ``csrc/dense_baoab.cu`` (built at first use by ``ops/_build.py``)
+or raises: the step program of the splitting goes to the kernel as a small
+table, and the kernel walks it once a step. On a CPU tensor it runs the
+plain version, :func:`fused_langevin_reference`: a host loop over
+:func:`lj_forces_reference` and :func:`langevin_substep_reference` that
+walks the same program, on any device; it is the kernel's oracle on the
+card. The plain versions draw the same Philox4x32-10 noise as the kernel,
+so on one seed the two agree to float32 rounding even with noise.
+:meth:`FusedSortedLangevin.forces` is one force evaluation alone
+(``csrc/fused_langevin.cu``).
 
-The host loop follows the TPU kernel's lazy-sweep rule (pallas_baoab.py
+The step program follows the TPU kernel's lazy-sweep rule (pallas_baoab.py
 :712-741): one sweep at chunk start, one before the first V after any R,
-one at step end if positions moved, so every splitting costs one sweep per
+one at step end if positions moved, so most splittings cost one sweep per
 step. Substep sizes are dt/n_R, dt/n_V and dt/n_O.
 
 The TPU kernel's sorted ring, shell bound and Verlet-skin rebuild have no
 counterpart in this all-pairs design, so neither has its ``last_stats``
 (rebuild count, shell bound); only the TPU tuning scripts read those. The
 measurement-only knobs ``rsqrt_newton``/``bf16_mask`` are not ported.
-``launches`` counts kernel launches per kernel, on CUDA tensors only.
+``launches`` counts kernel launches per kernel, on CUDA tensors only:
+``lj_chunk`` a chunk, ``lj_forces`` a force evaluation.
 
 :class:`FusedDenseBAOAB` is the counterpart of the TPU kernel
 ``openmmtools_tpu.ops.pallas_baoab.FusedDenseBAOAB`` (K3): BAOAB ("V R O R
-V") over all pairs, a whole chunk in one launch of the cooperative kernel of
-``csrc/dense_baoab.cu``. Its plain version is :func:`fused_langevin_reference`
-of a "V R O R V" :class:`FusedSortedLangevin`, the same Philox stream
-included.
+V") over all pairs, a whole chunk in one launch of the same chunk kernel.
+Its plain version is :func:`fused_langevin_reference` of a "V R O R V"
+:class:`FusedSortedLangevin`, the same Philox stream included.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -63,6 +65,10 @@ __all__ = ["FusedSortedLangevin", "FusedSortedBAOAB", "FusedDenseBAOAB",
 
 _TOKEN_CODE = {"R": 0, "V": 1, "O": 2}
 _MAX_SEGMENT = 16  # 2 bits a token in a uint32
+# the chunk kernel's step-program table (csrc/dense_baoab.cu MAX_ITEMS,
+# SWEEP)
+_MAX_ITEMS = 16
+_SWEEP = 1
 
 # ---------------------------------------------------------------------------
 # Philox4x32-10 in plain PyTorch (bit-identical to the kernel's)
@@ -116,7 +122,7 @@ def philox_normals(n: int, seed: int, step: int, o_index: int, device):
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions of the two kernels (layout (3, n), float32)
+# plain PyTorch versions of the kernels' parts (layout (3, n), float32)
 # ---------------------------------------------------------------------------
 
 
@@ -146,7 +152,8 @@ def lj_pair_reference(r2, mask, *, cutoff, switch_width, sigma, epsilon):
 
 def lj_forces_reference(xT, L, *, cutoff, switch_width, sigma, epsilon):
     """Forces (3, n) and energy () of positions ``xT`` (3, n) in a box of
-    diagonal ``L`` (3,): the plain version of ``lj_forces_kernel``."""
+    diagonal ``L`` (3,): the plain version of ``lj_forces_kernel`` and of
+    the chunk kernel's sweep."""
     ds = []
     r2 = None
     for c in range(3):
@@ -165,7 +172,7 @@ def lj_forces_reference(xT, L, *, cutoff, switch_width, sigma, epsilon):
 def langevin_substep_reference(xT, vT, F, L, kT, tokens, *, h_R, hv_inv_m,
                                ou_a, ou_b, inv_m, seed, step, o_base, wrap):
     """One run of R/V/O ``tokens`` on (3, n) positions and velocities: the
-    plain version of ``langevin_substep_kernel``. Returns (x, v)."""
+    plain version of the chunk kernel's segment. Returns (x, v)."""
     x, v = xT, vT
     sig = ou_b * torch.sqrt(kT * inv_m)
     o_index = o_base
@@ -210,10 +217,43 @@ def _step_program(tokens):
     return program
 
 
+def _program_table(program):
+    """The step program as the chunk kernel's table (csrc/dense_baoab.cu):
+    5 uint32 words an item, (kind, n_tok, tok_code, o_base, wrap), kind 0 a
+    segment whose tokens take 2 bits each in tok_code and kind 1
+    (``_SWEEP``) a sweep with the other words 0. Raises past ``_MAX_ITEMS``
+    items."""
+    if len(program) > _MAX_ITEMS:
+        raise ValueError(f"a step program of {len(program)} items: the "
+                         f"chunk kernel takes at most {_MAX_ITEMS}")
+    words = []
+    for item in program:
+        if item[0] == "sweep":
+            words += [_SWEEP, 0, 0, 0, 0]
+        else:
+            _, toks, o_base, wrap = item
+            code = sum(_TOKEN_CODE[t] << (2 * k) for k, t in enumerate(toks))
+            words += [0, len(toks), code, o_base, int(wrap)]
+    return words
+
+
 def draw_seed(generator: torch.Generator) -> int:
     """A 63-bit seed from the caller's generator (one host read)."""
     return int(torch.randint(0, 2**63 - 1, (1,), generator=generator,
                              device=generator.device).item())
+
+
+def _device_inputs(n, x, v, box, kT, device):
+    """(N, 3) x and v as fresh contiguous (3, N) float32 buffers, the box
+    diagonal L (3,) and kT (1,), all on ``device``."""
+    xT = torch.empty((3, n), dtype=torch.float32, device=device)
+    vT = torch.empty_like(xT)
+    xT.copy_(torch.as_tensor(x).detach().t())
+    vT.copy_(torch.as_tensor(v).detach().t())
+    L = torch.diagonal(torch.as_tensor(box)).to(
+        device=device, dtype=torch.float32).contiguous()
+    kT = torch.as_tensor(kT).to(device=device, dtype=torch.float32).reshape(1)
+    return xT, vT, L, kT
 
 
 class FusedSortedLangevin:
@@ -248,137 +288,113 @@ class FusedSortedLangevin:
         self.ou_a = math.exp(-self.gamma * h_O)
         self.ou_b = math.sqrt(1.0 - math.exp(-2.0 * self.gamma * h_O))
         self.program = _step_program(self.tokens)
-        self.launches = {"lj_forces": 0, "langevin_substep": 0}
-
-    # -- the two kernels, dispatched on the tensors' device -----------------
+        self.table = _program_table(self.program)
+        self.launches = {"lj_forces": 0, "lj_chunk": 0}
+        self._tickets = {}   # device -> lj_forces_f32's ticket, kept at 0
 
     def _physics(self):
         return dict(cutoff=self.rc, switch_width=self.switch_width,
                     sigma=self.sigma, epsilon=self.epsilon)
+
+    def _pair_args(self):
+        """The pair term's arguments of the C entry points."""
+        sw = self.switch_width
+        return (self.rc * self.rc, self.sigma * self.sigma,
+                4.0 * self.epsilon, 24.0 * self.epsilon,
+                0.0 if sw is None else self.rc - sw,
+                0.0 if sw is None else 1.0 / sw, int(sw is not None))
 
     def _substep_args(self, seed, step, o_base, wrap):
         return dict(h_R=self.h_R, hv_inv_m=self.hv_inv_m, ou_a=self.ou_a,
                     ou_b=self.ou_b, inv_m=self.inv_m, seed=seed, step=step,
                     o_base=o_base, wrap=wrap)
 
-    def forces(self, xT, L, out=None):
-        """Forces (3, n) and energy (1,) of positions ``xT`` (3, n) float32;
-        ``out`` = (F, U, scratch) buffers for the kernel, else allocated."""
+    def forces(self, xT, L):
+        """Forces (3, n) and energy (1,) of positions ``xT`` (3, n) float32:
+        one launch of ``lj_forces_kernel`` on a CUDA tensor."""
         if not kernels_for(xT, "fused Langevin kernel"):
             F, U = lj_forces_reference(xT, L, **self._physics())
             return F, U.reshape(1)
         check_input(xT, torch.float32, (3, self.n))
         check_input(L, torch.float32, (3,))
-        if out is None:
-            out = (torch.empty_like(xT), xT.new_empty(1), xT.new_empty(self.n))
-        F, U, scratch = out
-        sw = self.switch_width
+        ticket = self._tickets.get(xT.device)
+        if ticket is None:
+            ticket = self._tickets[xT.device] = torch.zeros(
+                1, dtype=torch.int32, device=xT.device)
+        F, U = torch.empty_like(xT), xT.new_empty(1)
         err = load_library().lj_forces_f32(
-            xT.data_ptr(), self.n, L.data_ptr(), self.rc * self.rc,
-            self.sigma * self.sigma, 4.0 * self.epsilon, 24.0 * self.epsilon,
-            0.0 if sw is None else self.rc - sw,
-            0.0 if sw is None else 1.0 / sw, int(sw is not None),
-            F.data_ptr(), scratch.data_ptr(), U.data_ptr(),
-            torch.cuda.current_stream(xT.device).cuda_stream)
+            xT.data_ptr(), self.n, L.data_ptr(), *self._pair_args(),
+            F.data_ptr(), xT.new_empty(self.n).data_ptr(), ticket.data_ptr(),
+            U.data_ptr(), torch.cuda.current_stream(xT.device).cuda_stream)
         self.launches["lj_forces"] += 1
         check(err, "lj_forces_f32")
         return F, U
 
-    def substep(self, xT, vT, F, L, kT, tokens, *, seed, step, o_base, wrap):
-        """Apply a run of R/V/O ``tokens`` (then wrap x if ``wrap``) to (3, n)
-        float32 positions and velocities; the kernel updates them in place.
-        Returns (x, v)."""
-        args = self._substep_args(seed, step, o_base, wrap)
-        if not kernels_for(xT, "fused Langevin kernel"):
-            return langevin_substep_reference(xT, vT, F, L, kT, tokens, **args)
-        for t in (xT, vT, F):
-            check_input(t, torch.float32, (3, self.n))
-        check_input(L, torch.float32, (3,))
-        check_input(kT, torch.float32, (1,))
-        code = 0
-        for k, tok in enumerate(tokens):
-            code |= _TOKEN_CODE[tok] << (2 * k)
-        err = load_library().langevin_substep_f32(
-            xT.data_ptr(), vT.data_ptr(), F.data_ptr(), self.n, L.data_ptr(),
-            kT.data_ptr(), len(tokens), code, self.h_R, self.hv_inv_m,
-            self.ou_a, self.ou_b, self.inv_m, seed, step, o_base, int(wrap),
-            torch.cuda.current_stream(xT.device).cuda_stream)
-        self.launches["langevin_substep"] += 1
-        check(err, "langevin_substep_f32")
-        return xT, vT
-
-    # -- the chunk ----------------------------------------------------------
-
-    def _chunk(self, x, v, box, kT, seed, n_steps, forces, substep):
-        dev = x.device
-        # (N, 3) -> fresh (3, N) float32 buffers the kernels update in place
-        xT = torch.empty((3, self.n), dtype=torch.float32, device=dev)
-        vT = torch.empty_like(xT)
-        xT.copy_(x.detach().t())
-        vT.copy_(v.detach().t())
-        L = torch.diagonal(box).to(device=dev, dtype=torch.float32).contiguous()
-        kT = torch.as_tensor(kT).to(device=dev, dtype=torch.float32).reshape(1)
-        out = (torch.empty_like(xT), xT.new_empty(1), xT.new_empty(self.n))
-
-        # chunk start: wrap (no tokens, so the F argument is not read), sweep
-        xT, vT = substep(xT, vT, xT, L, kT, (), seed=seed, step=0, o_base=0,
-                         wrap=True)
-        F, U = forces(xT, L, out=out)
-        for step in range(n_steps):
-            for item in self.program:
-                if item[0] == "sweep":
-                    F, U = forces(xT, L, out=out)
-                else:
-                    _, toks, o_base, wrap = item
-                    xT, vT = substep(xT, vT, F, L, kT, toks, seed=seed,
-                                     step=step, o_base=o_base, wrap=wrap)
-        return (xT.t().contiguous(), vT.t().contiguous(), F.t().contiguous(),
-                U[0].clone())
-
     def run(self, x, v, box, kT, generator, n_steps):
         """Advance (x, v) (N, 3) by ``n_steps``; returns float32
-        (x, v, F, U), x wrapped into the box."""
-        kernels_for(x, "fused Langevin kernel")
-        seed = draw_seed(generator)
-        return self._chunk(x, v, box, kT, seed, int(n_steps), self.forces,
-                           self.substep)
+        (x, v, F, U), x wrapped into the box. The seed is drawn from
+        ``generator``, which advances."""
+        return self.chunk(x, v, box, kT, draw_seed(generator), n_steps)
+
+    def chunk(self, x, v, box, kT, seed, n_steps):
+        """:meth:`run` with an explicit 63-bit ``seed``: one launch of the
+        chunk kernel on a CUDA tensor, its plain version on a CPU tensor."""
+        if not kernels_for(x, "fused Langevin kernel"):
+            return fused_langevin_reference(self, x, v, box, kT, seed,
+                                            n_steps)
+        return self._launch_chunk(x, v, box, kT, seed, n_steps,
+                                  self.launches, "lj_chunk")
+
+    def _launch_chunk(self, x, v, box, kT, seed, n_steps, launches, key):
+        """One launch of ``lj_chunk_kernel`` (csrc/dense_baoab.cu) for
+        ``n_steps`` of this program, counted in ``launches[key]``."""
+        n = self.n
+        xT, vT, L, kT = _device_inputs(n, x, v, box, kT, x.device)
+        F, xb = torch.empty_like(xT), torch.empty_like(xT)
+        U, partial = xT.new_empty(1), xT.new_empty(n)
+        table = (ctypes.c_uint32 * len(self.table))(*self.table)
+        err = load_library().lj_chunk_f32(
+            xT.data_ptr(), vT.data_ptr(), xb.data_ptr(), F.data_ptr(),
+            partial.data_ptr(), U.data_ptr(), L.data_ptr(), kT.data_ptr(), n,
+            int(n_steps), table, len(self.program), *self._pair_args(),
+            self.h_R, self.hv_inv_m, self.ou_a, self.ou_b, self.inv_m, seed,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        launches[key] += 1
+        check(err, "lj_chunk_f32")
+        return xT.t().contiguous(), vT.t().contiguous(), F.t().contiguous(), U[0]
 
 
 def fused_langevin_reference(program: FusedSortedLangevin, x, v, box, kT,
                              seed, n_steps):
-    """The plain PyTorch version of the whole chunk, on any device: the host
-    loop of ``program.run`` over the plain kernels, with an explicit
-    ``seed`` in place of the generator draw."""
+    """The plain PyTorch version of the whole chunk, on any device: a host
+    loop over :func:`lj_forces_reference` and
+    :func:`langevin_substep_reference` that walks ``program``'s step
+    program, with an explicit ``seed`` in place of the generator draw.
+    Returns float32 (x, v, F, U) as :meth:`FusedSortedLangevin.run`."""
     physics = program._physics()
+    xT, vT, L, kT = _device_inputs(program.n, x, v, box, kT, x.device)
 
-    def forces(xT, L, out=None):
-        F, U = lj_forces_reference(xT, L, **physics)
-        return F, U.reshape(1)
-
-    def substep(xT, vT, F, L, kT, tokens, *, seed, step, o_base, wrap):
+    def substep(tokens, step, o_base, wrap):
         return langevin_substep_reference(
             xT, vT, F, L, kT, tokens,
             **program._substep_args(seed, step, o_base, wrap))
 
-    return program._chunk(x, v, box, kT, seed, int(n_steps), forces, substep)
+    # chunk start: wrap (no tokens, so F is not read), sweep
+    F = None
+    xT, vT = substep((), 0, 0, True)
+    F, U = lj_forces_reference(xT, L, **physics)
+    for step in range(int(n_steps)):
+        for item in program.program:
+            if item[0] == "sweep":
+                F, U = lj_forces_reference(xT, L, **physics)
+            else:
+                _, toks, o_base, wrap = item
+                xT, vT = substep(toks, step, o_base, wrap)
+    return xT.t().contiguous(), vT.t().contiguous(), F.t().contiguous(), U
 
 
 # backward-compatible name (tokens default to BAOAB)
 FusedSortedBAOAB = FusedSortedLangevin
-
-DENSE_BLOCK = 64   # threads a block of dense_baoab_kernel, one a particle
-
-
-@functools.lru_cache(maxsize=None)
-def _dense_max_blocks(device_index: int) -> int:
-    """The most blocks of dense_baoab_kernel that fit on a card at once
-    (occupancy x SM count; 0 where the card cannot launch cooperative
-    kernels)."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        check(load_library().dense_baoab_max_blocks(ctypes.addressof(out)),
-              "dense_baoab_max_blocks")
-    return out.value
 
 
 class FusedDenseBAOAB:
@@ -388,8 +404,9 @@ class FusedDenseBAOAB:
     Physics arguments as the TPU kernel's; box and kT are runtime inputs of
     :meth:`run`. The TPU kernel's ``shell_block`` (its shell tiling of the
     lane axis) and ``interpret`` (its CPU mode) have no counterpart: a CPU
-    tensor runs the plain chunk. ``launches`` counts the kernel's launches,
-    one a chunk, on CUDA tensors only.
+    tensor runs the plain chunk. On a CUDA tensor a chunk is one launch of
+    the chunk kernel K1's wrapper launches, with the tokens "V R O R V";
+    ``launches`` counts them, on CUDA tensors only.
     """
 
     def __init__(self, n_particles, cutoff, switch_width, sigma, epsilon,
@@ -400,15 +417,6 @@ class FusedDenseBAOAB:
         self.n = self.program.n
         self.device = torch.device(device)
         self.launches = {"dense_baoab": 0}
-
-    @property
-    def max_particles(self) -> int:
-        """The largest N whose grid (one thread a particle) fits on the card
-        at once; larger fluids raise."""
-        index = self.device.index
-        if index is None:
-            index = torch.cuda.current_device()
-        return DENSE_BLOCK * _dense_max_blocks(index)
 
     def run(self, x, v, box, kT, generator, n_steps):
         """Advance (x, v) (N, 3) by ``n_steps``; returns float32 (x, v, F, U)
@@ -424,33 +432,5 @@ class FusedDenseBAOAB:
         if not kernels_for(x, "dense BAOAB kernel"):
             return fused_langevin_reference(self.program, x, v, box, kT,
                                             seed, n_steps)
-        n, prog = self.n, self.program
-        blocks = -(-n // DENSE_BLOCK)
-        if n > self.max_particles:
-            raise ValueError(
-                f"the dense BAOAB grid of {blocks} blocks cannot be "
-                f"co-resident on {torch.cuda.get_device_name(x.device)}: at "
-                f"most {self.max_particles} particles")
-        xT = torch.empty((3, n), dtype=torch.float32, device=x.device)
-        vT = torch.empty_like(xT)
-        xT.copy_(x.detach().t())
-        vT.copy_(v.detach().t())
-        L = torch.diagonal(box).to(torch.float32).contiguous()
-        kT = torch.as_tensor(kT).to(device=x.device,
-                                    dtype=torch.float32).reshape(1)
-        check_input(L, torch.float32, (3,))
-        F, xb = torch.empty_like(xT), torch.empty_like(xT)
-        U, partial = xT.new_empty(1), xT.new_empty(blocks)
-        sw = prog.switch_width
-        err = load_library().dense_baoab_chunk_f32(
-            xT.data_ptr(), vT.data_ptr(), xb.data_ptr(), F.data_ptr(),
-            partial.data_ptr(), U.data_ptr(), L.data_ptr(), kT.data_ptr(), n,
-            int(n_steps), prog.rc * prog.rc, prog.sigma * prog.sigma,
-            4.0 * prog.epsilon, 24.0 * prog.epsilon,
-            0.0 if sw is None else prog.rc - sw,
-            0.0 if sw is None else 1.0 / sw, int(sw is not None), prog.h_R,
-            prog.hv_inv_m, prog.ou_a, prog.ou_b, prog.inv_m, seed,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        self.launches["dense_baoab"] += 1
-        check(err, "dense_baoab_chunk_f32")
-        return xT.t().contiguous(), vT.t().contiguous(), F.t().contiguous(), U[0]
+        return self.program._launch_chunk(x, v, box, kT, seed, n_steps,
+                                          self.launches, "dense_baoab")

@@ -27,8 +27,8 @@ from openmmtools_tpu_torch.models import LennardJonesFluid
 from openmmtools_tpu_torch.ops.fused_langevin import (
     FusedSortedLangevin,
     fused_langevin_reference,
-    langevin_substep_reference,
     lj_forces_reference,
+    lj_pair_reference,
 )
 from openmmtools_tpu_torch.states import SamplerState
 
@@ -43,18 +43,28 @@ def cuda():
     return torch.device("cuda")
 
 
+_CALM = {}
+
+
+def _calm(n):
+    """LJ fluid of N particles, FIRE-minimized on the card (once per N): the
+    raw Sobol start at a ragged N has a clash (forces ~2e6 kJ/mol/nm) that
+    turns float32 rounding into 0.05 nm of divergence within 40 steps."""
+    if n not in _CALM:
+        fluid = LennardJonesFluid(nparticles=n, device="cuda")
+        x, _ = fire_minimize(fluid.system, fluid.positions,
+                             fluid.system.default_box, max_steps=200)
+        fluid.positions = x
+        _CALM[n] = fluid
+    return _CALM[n]
+
+
 @pytest.fixture(scope="module")
 def calm_fluid():
-    """LJ fluid of N = 1000 (a ragged size), FIRE-minimized on the card: the
-    raw Sobol start has a clash (forces ~2e6 kJ/mol/nm) that turns float32
-    rounding into 0.05 nm of divergence within 40 steps."""
+    """The minimized fluid of N = 1000 (a ragged size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    fluid = LennardJonesFluid(nparticles=1000, device="cuda")
-    x, _ = fire_minimize(fluid.system, fluid.positions,
-                         fluid.system.default_box, max_steps=200)
-    fluid.positions = x
-    return fluid
+    return _calm(1000)
 
 
 def _program(fluid, tokens="V R O R V", collision_rate=1.0):
@@ -99,43 +109,97 @@ def test_cuda_forces_match_plain(cuda, n, switched):
 
 
 @pytest.mark.cuda
-def test_cuda_substep_matches_plain_with_noise(cuda):
-    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
-    prog = _program(fluid, "O V R V O")
-    xT = fluid.positions.t().contiguous()
-    vT = _thermal(2048, cuda).t().contiguous()
-    L = torch.diagonal(fluid.system.default_box).contiguous()
-    kT = torch.tensor([kB * 120.0], device=cuda)
-    F, _ = prog.forces(xT, L)
-    for toks, o_base in ((("O", "V", "R"), 0), (("V", "O"), 1)):
-        xs, vs = prog.substep(xT.clone(), vT.clone(), F, L, kT, toks,
-                              seed=2**62 + 5, step=11, o_base=o_base,
-                              wrap=True)
-        xr, vr = langevin_substep_reference(
-            xT, vT, F, L, kT, toks,
-            **prog._substep_args(2**62 + 5, 11, o_base, True))
-        torch.cuda.synchronize()
-        assert _rel(xs, xr) <= 1e-6 and _rel(vs, vr) <= REL
-    assert prog.launches["langevin_substep"] == 2
+@pytest.mark.parametrize("n", [2048, 1000, 200])
+@pytest.mark.parametrize("splitting", SPLITTINGS + ["R V R V"])
+def test_cuda_chunk_matches_plain_with_noise(cuda, splitting, n):
+    """Same seed, same Philox stream: the chunk kernel's 40-step chunk with
+    noise, one launch, matches the plain chunk ("R V R V" sweeps twice a
+    step; N = 1000 and 200 leave a ragged last block)."""
+    fluid = _calm(n)
+    prog = _program(fluid, splitting)
+    v0 = _thermal(n, cuda)
+    box = fluid.system.default_box
+    kT = kB * 120.0
+    out = prog.chunk(fluid.positions, v0, box, kT, 1234, 40)
+    ref = fused_langevin_reference(prog, fluid.positions, v0, box, kT, 1234,
+                                   40)
+    torch.cuda.synchronize()
+    assert prog.launches == {"lj_forces": 0, "lj_chunk": 1}
+    assert _wrapped_dx(out[0], ref[0], float(box[0, 0])) < 5e-4
+    assert float((out[1] - ref[1]).abs().max()) < 5e-3 * float(ref[1].abs().max())
+    assert abs(float(out[3] - ref[3])) <= REL * abs(float(ref[3]))
+    assert _rel(out[2], ref[2]) <= 10 * REL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("splitting", SPLITTINGS)
-def test_cuda_chunk_matches_plain_with_noise(cuda, calm_fluid, splitting):
-    """Same seed, same Philox stream: the kernels' 40-step chunk with noise
-    matches the plain chunk."""
+@pytest.mark.parametrize("splitting", ["V R O R V", "R V R V"])
+def test_cuda_chunk_is_deterministic(cuda, calm_fluid, splitting):
+    """Two launches on one seed give the same bits (sums in a fixed order,
+    no float atomics), on both wrappers."""
     fluid = calm_fluid
     prog = _program(fluid, splitting)
     v0 = _thermal(1000, cuda)
     box = fluid.system.default_box
-    kT = kB * 120.0
-    out = prog._chunk(fluid.positions, v0, box, kT, 1234, 40, prog.forces,
-                      prog.substep)
-    ref = fused_langevin_reference(prog, fluid.positions, v0, box, kT, 1234,
-                                   40)
-    assert _wrapped_dx(out[0], ref[0], float(box[0, 0])) < 5e-4
-    assert float((out[1] - ref[1]).abs().max()) < 5e-3 * float(ref[1].abs().max())
-    assert abs(float(out[3] - ref[3])) <= REL * abs(float(ref[3]))
+    a = prog.chunk(fluid.positions, v0, box, kB * 120.0, 99, 30)
+    b = prog.chunk(fluid.positions, v0, box, kB * 120.0, 99, 30)
+    for u, w in zip(a, b):
+        assert torch.equal(u, w)
+    assert prog.launches["lj_chunk"] == 2
+    if splitting == "V R O R V":
+        k = _dense(fluid, 1.0)
+        for u, w in zip(k.chunk(fluid.positions, v0, box, kB * 120.0, 99, 30),
+                        a):
+            assert torch.equal(u, w)
+        assert k.launches == {"dense_baoab": 1}
+
+
+def _plain_forces_by_rows(xT, L, prog, rows=2048):
+    """lj_forces_reference computed a block of rows at a time (its (N, N)
+    matrices do not fit at N = 32,768): F (3, N) and U in float64."""
+    n = xT.shape[1]
+    physics = prog._physics()
+    F, U = [], 0.0
+    for r0 in range(0, n, rows):
+        ds, r2 = [], 0.0
+        for c in range(3):
+            d = xT[c, r0:r0 + rows, None] - xT[c][None, :]
+            d = d - L[c] * torch.round(d * (1.0 / L[c]))
+            ds.append(d)
+            r2 = r2 + d * d
+        mask = (r2 < prog.rc ** 2) & (r2 > 1e-12)
+        w, e = lj_pair_reference(r2, mask, **physics)
+        F.append(torch.stack([torch.sum(w * d, dim=1) for d in ds]))
+        U += float(e.double().sum())
+    return torch.cat(F, dim=1), 0.5 * U
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, steps", [(16384, 3), (32768, 0)])
+def test_cuda_chunk_accepts_large_fluids(cuda, n, steps):
+    """The persistent grid refuses no N up to K1's 32,768: a noisy chunk at
+    N = 16,384 against the plain chunk, and F and U at N = 32,768 against
+    the plain forces summed a block of rows at a time."""
+    fluid = LennardJonesFluid(nparticles=n, device=cuda)
+    prog = _program(fluid)
+    v0 = _thermal(n, cuda)
+    box = fluid.system.default_box
+    out = prog.chunk(fluid.positions, v0, box, kB * 120.0, 7, steps)
+    assert prog.launches == {"lj_forces": 0, "lj_chunk": 1}
+    if steps:
+        ref = fused_langevin_reference(prog, fluid.positions, v0, box,
+                                       kB * 120.0, 7, steps)
+        torch.cuda.synchronize()
+        assert _wrapped_dx(out[0], ref[0], float(box[0, 0])) < 5e-4
+        assert float((out[1] - ref[1]).abs().max()) < 5e-3 * float(
+            ref[1].abs().max())
+        F_ref, U_ref = ref[2], float(ref[3])
+    else:
+        L = torch.diagonal(box).contiguous()
+        F_ref, U_ref = _plain_forces_by_rows(out[0].t().contiguous(), L, prog)
+        F_ref = F_ref.t()
+        assert torch.equal(out[1], v0)
+    assert _rel(out[2], F_ref) <= REL
+    assert abs(float(out[3]) - U_ref) <= REL * abs(U_ref)
 
 
 @pytest.mark.cuda
@@ -154,7 +218,8 @@ def test_cuda_fused_path_matches_generic_program(cuda, calm_fluid):
     assert fused._fused is not None and generic._fused is None
     a = fused.run(fused.initial_state(start, torch.Generator()), 40)
     b = generic.run(generic.initial_state(start, torch.Generator()), 40)
-    assert fused._fused.launches["lj_forces"] == 41
+    # the initial state's F and U by the force kernel, the run one chunk
+    assert fused._fused.launches == {"lj_forces": 1, "lj_chunk": 1}
     assert _wrapped_dx(a.positions, b.positions, float(fluid.box_edge)) < 5e-4
     assert float((a.velocities - b.velocities).abs().max()) < \
         5e-3 * float(b.velocities.abs().max())
@@ -444,7 +509,8 @@ def test_cuda_alchemical_path_engages_the_kernel(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K3: the dense BAOAB chunk (csrc/dense_baoab.cu)
+# K3: the dense BAOAB chunk (FusedDenseBAOAB: csrc/dense_baoab.cu's chunk
+# kernel with the tokens "V R O R V")
 # ---------------------------------------------------------------------------
 
 
@@ -496,20 +562,6 @@ def test_cuda_dense_baoab_chunk_matches_plain(cuda, calm_fluid, gamma):
     assert float((out[1] - ref[1]).abs().max()) < 5e-3 * float(ref[1].abs().max())
     assert _rel(out[2], ref[2]) <= 10 * REL
     assert abs(float(out[3] - ref[3])) <= REL * abs(float(ref[3]))
-
-
-@pytest.mark.cuda
-def test_cuda_dense_baoab_refuses_an_oversized_grid(cuda):
-    """A fluid one particle past the co-resident grid raises before any
-    launch."""
-    fluid = LennardJonesFluid(nparticles=64, device=cuda)
-    n = _dense(fluid, 1.0).max_particles + 1
-    assert n > 2048
-    big = _dense(fluid, 1.0, n=n)
-    x = torch.zeros((n, 3), device=cuda)
-    with pytest.raises(ValueError, match="co-resident"):
-        big.run(x, x, fluid.system.default_box, 1.0, torch.Generator(), 1)
-    assert big.launches == {"dense_baoab": 0}
 
 
 # ---------------------------------------------------------------------------
