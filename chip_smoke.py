@@ -25,19 +25,23 @@ nonzero exit. Phases:
 6. K2's kernels (the bounded sweep) against their plain versions at the
    explicit-solvent shapes (24,000 atoms, 24,064 slots): PME with the LJ
    switch, reaction field, and the Coulomb switch, each with the bound
-   re-measured and passed through;
+   re-measured and passed through, and each force launch repeated on the
+   same inputs to the same bits;
 7. the explicit-solvent main path: PMEWaterBox(box_edge=6.223) (8,000
    rigid TIP3P waters, PME) -> BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind
    (sweep mode, SETTLE) -> initial_state -> run, warmed up for 5,000 steps
    and timed in 1,000-step chunks that each end in a host fetch of the
    positions; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
-   K2 and PME times, and a profile of the step;
+   K2 and PME times (K2's beside its earlier kernel's), K2's queue drains
+   a slot and its time with no pair inside the cutoff, and a profile of the
+   step with K2's device ms a step;
 8. K2's alchemical variant against its plain version on the alchemical
    water box (AlchemicalWaterBox(box_edge=6.223), 24,064 slots) at a fresh
    sort: one region with the direct-space treatment at lambda 1, 0.5 and 0,
    the 'exact' and 'coulomb' treatments at 0.55, and two regions, with and
-   without their interaction; the bound, forces, energy and times of each;
+   without their interaction; the bound, forces, energy and times of each,
+   and two launches on the same inputs to the same bits;
 9. the alchemical main path (Path A): AlchemicalWaterBox(box_edge=6.223) ->
    a CompoundThermodynamicState of AlchemicalState(lambda_electrostatics=0,
    lambda_sterics=0.5) at 300 K -> BAOABIntegrator(300 K, 1/ps, 2 fs) ->
@@ -45,14 +49,15 @@ nonzero exit. Phases:
    run: 2,000 warm-up steps, then 1,000-step chunks that each end in a host
    fetch; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
-   K2-alchemical's times, a profile of the step, and on a 3,000-atom box the
-   sweep path against the dense alchemical term;
+   K2-alchemical's times (beside its earlier kernel's), a profile of the
+   step with K2's device ms a step, and on a 3,000-atom box the sweep path
+   against the dense alchemical term;
 10. the NCMC path (Path B) on the same box:
    AlchemicalNonequilibriumLangevinIntegrator(lambda_electrostatics = 1 -
    lambda, 500 steps, 'O { V R H R V } O') for one whole protocol, and a
    10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
    0.1) whose protocol work is held against the same energy differences
-   summed outside the integrator;
+   summed outside the integrator; steps/s and ns/day of the protocol;
 11. K3 (FusedDenseBAOAB: the chunk kernel with "V R O R V", one
    cooperative launch a chunk) on LJ-2048 against its plain version (K1's
    plain chunk for "V R O R V"): F and U at n_steps = 0, 40-step chunks at
@@ -122,6 +127,11 @@ OPS_PAIR = 60
 # scaling: 20 more
 OPS_PAIR_ALCH = OPS_PAIR + 20
 ALCH_LAMBDAS = dict(lambda_electrostatics=0.0, lambda_sterics=0.5)
+# K2's force kernels in their one-thread-a-slot design (the partner range in
+# 8 grid.y slices), timed by this script at the main paths' final states on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): printed beside
+# the times of this checkout's kernels
+K2_SLOT_A_THREAD_MS = {"sweep_forces": 1.2726, "sweep_forces_alch": 1.3896}
 ALCH_WARMUP = 2_000
 NCMC_STEPS = 500
 PERTURB_STEPS = 10
@@ -542,6 +552,28 @@ def sweep_pairs(xT, L, k, S):
     return tested, inside
 
 
+def queue_drains(xT, L, k, S):
+    """What K2's force kernel queues on these inputs: each real slot's window
+    partners i +- s, s <= S, inside the cutoff (exception pairs too: their
+    bits are read at the drain), drained 32 at a time. Returns the mean
+    pairs queued a slot, full drains a slot, and the share of slots that
+    end in a partial drain."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    o = torch.cat([torch.arange(-S, 0, device=xT.device),
+                   torch.arange(1, S + 1, device=xT.device)])
+    rows = max(1, (1 << 22) // max(1, o.shape[0]))
+    hits = []
+    for i0 in range(0, k.n, rows):
+        i = torch.arange(i0, min(i0 + rows, k.n), device=xT.device)[:, None]
+        j = (i + o[None, :]) % k.n_pad
+        _, r2 = tsw._pair_r2(xT, L, i, j)
+        hits.append(((j < k.n) & (r2 < k.rc * k.rc) & (r2 > 1e-12)).sum(1))
+    h = torch.cat(hits).double()
+    return (float(h.mean()), float(torch.floor(h / 32).mean()),
+            float((h % 32 > 0).double().mean()))
+
+
 def phase_sweep_kernels(dev):
     from openmmtools_tpu_torch.models import PMEWaterBox
     from openmmtools_tpu_torch.ops import sweep_nb as tsw
@@ -569,22 +601,26 @@ def phase_sweep_kernels(dev):
                 xT, L, flag, nb_in, n=k.n, cutoff=k.rc, skin=k.skin,
                 shell_block=k.bs)
             F, U = k.sweep(xT, par, excl, L, nb)
+            F2, U2 = k.sweep(xT, par, excl, L, nb)
             F_ref, U_ref = tsw.sweep_forces_reference(xT, par, excl, L,
                                                       nb_ref, **k.physics())
             torch.cuda.synchronize()
             f_err = float((F - F_ref).abs().max())
             f_rel, u_rel = max_rel(F, F_ref), abs(float(U - U_ref)) / abs(
                 float(U_ref))
+            same = torch.equal(F, F2) and torch.equal(U, U2)
             say(f"phase 6 sweep {label}, rebuild {rebuild}: bound "
                 f"{int(nb)} vs plain {int(nb_ref)}, max|dF| {f_err:.3e} "
                 f"(rel {f_rel:.2e}), U {float(U):.4f} vs plain "
-                f"{float(U_ref):.4f} (rel {u_rel:.2e})")
+                f"{float(U_ref):.4f} (rel {u_rel:.2e}); a second launch "
+                f"gives the same bits: {same}")
             assert int(nb) == int(nb_ref), (label, rebuild)
             assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
+            assert same, (label, rebuild)
             worst["f"] = max(worst["f"], f_err)
             worst["nb"] = max(worst["nb"], abs(int(nb) - int(nb_ref)))
             nb_in = nb.reshape(()).clone()   # pass the bound through next
-    assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+    assert k.launches == {"sweep_bound": 2, "sweep_forces": 4}
     return worst
 
 
@@ -839,7 +875,11 @@ def phase_water(dev, smi, k6):
                             ("plain_b", b_plain, 3), ("kernel_b", b_kernel, 20),
                             ("kernel_b2", b_kernel, 20), ("plain_b2", b_plain, 3),
                             ("pme", pme, 20), ("pme2", pme, 20)):
-        t[label] = cuda_ms(fn, reps=reps)
+        # the force kernel by its launch's device time (its wrapper's host
+        # work would show once the kernel is faster than it)
+        t[label] = (launch_ms(fn, "sweep_forces_f32", reps=reps)
+                    if label.startswith("kernel_f")
+                    else cuda_ms(fn, reps=reps))
     for key in k.launches:   # the comparisons' launches are not the path's
         k.launches[key] = before[key]
     f_ms, f_plain_ms = min(t["kernel_f"], t["kernel_f2"]), min(
@@ -858,16 +898,36 @@ def phase_water(dev, smi, k6):
                        tested * OPS_DIST + inside * OPS_PAIR)
     b_bound = bound_ms(4 * (3 * k.n_pad + 3 + 2 + 1), half_tested * OPS_DIST)
     say(f"phase 7 K2 at the final state (bound {int(nb)} blocks, S = {S} "
-        f"shells): sweep_forces kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} "
-        f"ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} ({tested:.0f} pair "
-        f"tests, {inside:.0f} pairs inside the cutoff); sweep_bound on a "
+        f"shells): sweep_forces kernel {f_ms:.4f} ms device (one thread a "
+        f"slot: {K2_SLOT_A_THREAD_MS['sweep_forces']} ms), plain "
+        f"{f_plain_ms:.4f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} "
+        f"({tested:.0f} pair tests, {inside:.0f} pairs inside the cutoff); "
+        f"sweep_bound on a "
         f"rebuild kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, bound "
         f"{b_bound[0]:.4f} ms by {b_bound[1]} ({half_tested:.0f} pair tests); "
         f"PME reciprocal energy + forces {pme_ms:.4f} ms a call back to back "
         f"(host-bound; its device time is in the profile below) ({smi})")
 
+    queued, drains, partial = queue_drains(xT, L, k, S)
+    # the same window at a cutoff that holds no pair: every distance test,
+    # ballot and queue write, and no drain; the rest of f_ms is the drains
+    no_pairs = tsw.SweepNonbonded(
+        k.n, k.method, 0.05, ewald_alpha=k.alpha, mask_shells=k.mask_shells)
+    tests_ms = launch_ms(lambda: no_pairs.sweep(xT, par, excl, L, nb),
+                         "sweep_forces_f32", reps=50)
+    say(f"phase 7 K2 force kernel's queue at the final state: {queued:.1f} "
+        f"pairs inside the cutoff queued a slot (of {2 * S} tested), "
+        f"{drains:.2f} full drains of 32 a slot, a last partial drain in "
+        f"{partial:.3f} of the slots; the same window with no pair inside "
+        f"the cutoff (tests, ballots and queue writes alone) "
+        f"{tests_ms:.4f} ms device, so the drains take {f_ms - tests_ms:.4f} "
+        f"of the kernel's {f_ms:.4f} ms")
+
     state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50)
     step_ms = 1e3 / median
+    say(f"phase 7 profile: K2 (bound + forces) device "
+        f"{parts['K2 sweep'][0]:.4f} ms/step, the device busy {busy_ms:.4f} "
+        f"ms/step ({smi})")
     say(f"phase 7 profile, 50 steps: {wall_ms:.3f} ms/step wall under the "
         f"profiler ({step_ms:.3f} without it), device busy {busy_ms:.3f} "
         f"ms/step: busy share {busy_ms / step_ms:.3f} of the unprofiled step "
@@ -888,7 +948,8 @@ def phase_water(dev, smi, k6):
              bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None),
     ], dict(steps_per_s_max=best, steps_per_s_median=median,
             ns_per_day=ns_day, step_ms_profiled=wall_ms,
-            device_busy_ms=busy_ms, pme_ms=pme_ms,
+            device_busy_ms=busy_ms, pme_ms=pme_ms, k2_queued_a_slot=queued,
+            k2_drains_a_slot=drains, k2_tests_alone_ms=tests_ms,
             device_ms_by_part={k_: v[0] for k_, v in parts.items()})
 
 
@@ -994,13 +1055,16 @@ def phase_alchemical_kernels(dev, smi):
         nb = k.measure_bound(xT, L, flag, zero)
         nb_ref = plain.measure_bound(xT, L, flag, zero)
         F, U = k.sweep(xT, par, excl, L, nb, lam)
+        F2, U2 = k.sweep(xT, par, excl, L, nb, lam)
         F_ref, U_ref = plain.sweep(xT, par, excl, L, nb_ref, lam)
         torch.cuda.synchronize()
         f_err = float((F - F_ref).abs().max())
         f_rel = max_rel(F, F_ref)
         u_rel = abs(float(U - U_ref)) / abs(float(U_ref))
-        assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 1}
-        k_ms = cuda_ms(lambda: k.sweep(xT, par, excl, L, nb, lam), reps=20)
+        same = torch.equal(F, F2) and torch.equal(U, U2)
+        assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 2}
+        k_ms = launch_ms(lambda: k.sweep(xT, par, excl, L, nb, lam),
+                         "sweep_forces_alch_f32", reps=20)
         p_ms = cuda_ms(lambda: plain.sweep(xT, par, excl, L, nb, lam),
                        reps=2)
         S = min(int(nb) * k.bs, k.n_pad // 2)
@@ -1009,11 +1073,13 @@ def phase_alchemical_kernels(dev, smi):
             f"region(s), {k.n_lam} class scalars): bound {int(nb)} vs plain "
             f"{int(nb_ref)}, max|dF| {f_err:.3e} (rel {f_rel:.2e}), U "
             f"{float(U):.4f} vs plain {float(U_ref):.4f} (rel {u_rel:.2e}); "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"a second launch gives the same bits: {same}; kernel "
+            f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by} ({tested:.0f} pair tests, {inside:.0f} inside) "
             f"({smi})")
         assert int(nb) == int(nb_ref), label
         assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
+        assert same, label
         worst = dict(f=max(worst["f"], f_err), f_rel=max(worst["f_rel"], f_rel),
                      u_rel=max(worst["u_rel"], u_rel))
     return worst
@@ -1095,7 +1161,8 @@ def phase_alchemical_path(dev, smi, k8):
             ("kernel", lambda: k.sweep(xT, par, excl, L, nb, lam), 50),
             ("kernel2", lambda: k.sweep(xT, par, excl, L, nb, lam), 50),
             ("plain2", lambda: plain.sweep(xT, par, excl, L, nb, lam), 3)):
-        t[label] = cuda_ms(fn, reps=reps)
+        t[label] = (launch_ms(fn, "sweep_forces_alch_f32", reps=reps)
+                    if label.startswith("kernel") else cuda_ms(fn, reps=reps))
     for key in k.launches:   # the comparisons' launches are not the path's
         k.launches[key] = before[key]
     f_ms = min(t["kernel"], t["kernel2"])
@@ -1103,13 +1170,17 @@ def phase_alchemical_path(dev, smi, k8):
     S = min(int(nb) * k.bs, k.n_pad // 2)
     (b_ms, b_by), tested, inside = alchemical_bound(xT, L, k, S)
     say(f"phase 9 K2-alchemical at the final state (bound {int(nb)} blocks, "
-        f"S = {S} shells): kernel {f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
+        f"S = {S} shells): kernel {f_ms:.4f} ms device (one thread a slot: "
+        f"{K2_SLOT_A_THREAD_MS['sweep_forces_alch']} ms), plain {f_plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms by {b_by} ({tested:.0f} pair tests, "
         f"{inside:.0f} pairs inside the cutoff) ({smi})")
 
     state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50,
                                                         phase="phase 9")
     step_ms = 1e3 / median
+    say(f"phase 9 profile: K2 (bound + forces) device "
+        f"{parts['K2 sweep'][0]:.4f} ms/step, the device busy {busy_ms:.4f} "
+        f"ms/step ({smi})")
     say(f"phase 9 profile, 50 steps: {wall_ms:.3f} ms/step wall under the "
         f"profiler ({step_ms:.3f} without it), device busy {busy_ms:.3f} "
         f"ms/step: busy share {busy_ms / step_ms:.3f} of the unprofiled step "
@@ -1191,8 +1262,9 @@ def phase_ncmc(dev, smi, state_a, system):
         f"protocol work {work:.4f} kJ/mol, {accepted} of "
         f"{int(state.n_proposed)} blocks accepted, final lambda "
         f"{float(state.lambda_):.6f} after {state.lambda_step} H steps, "
-        f"parameters {final}; {rate:.2f} steps/s; launches {launches} "
-        f"({smi})")
+        f"parameters {final}; {rate:.2f} steps/s ("
+        f"{rate * 0.002 * 86400 / 1e3:.2f} ns/day at 2 fs); launches "
+        f"{launches} ({smi})")
     for kernel, count in launches.items():
         assert count > 0, f"{kernel} never launched on the NCMC path"
     assert math.isfinite(work) and torch.isfinite(state.positions).all()

@@ -13,7 +13,7 @@
 // pad lanes (pad slots are masked by index), no split loop over the
 // exclusion coverage.
 //
-// Three C entry points, each a main kernel and a one-block finish:
+// Three C entry points:
 //
 //  * sweep_bound_f32: sweep_bound_kernel reads the rebuild flag from device
 //    memory and returns at once when it is clear; on rebuild each
@@ -23,19 +23,12 @@
 //    per-block maxima and writes the bound (1 + the last block) or, without a
 //    rebuild, the bound it was given. Nothing reads the flag on the
 //    host, so a step never waits on the device. Both variants share it.
-//  * sweep_forces_f32: sweep_forces_kernel<false> gives one thread to each
-//    sorted slot i and sums its FULL ring neighbourhood i +- s, s <= S =
-//    min(bound * shell_block, n_pad/2), without Newton's third law: no
-//    atomics, a deterministic result. The partner range -S..S is cut into
-//    SLICES contiguous pieces on grid.y so that enough blocks fill the card
-//    whatever S the device-side bound gives; each (block, slice) stages its
-//    window of the sorted positions and parameters in shared memory and
-//    writes partial forces and a partial energy. sweep_reduce_kernel adds
-//    the SLICES partial forces in a fixed order and, in its last block, the
-//    partial energies (U = 0.5 * the sum: each pair is met from both ends).
-//    The shell s = n_pad/2 reaches the same partner from both sides and
-//    counts half from each, and an exclusion bit is read only for
-//    s <= 32 * mask_rows, both as in the TPU kernel.
+//  * sweep_forces_f32: sweep_forces_kernel<false> sums each sorted slot i's
+//    FULL ring neighbourhood i +- s, s <= S = min(bound * shell_block,
+//    n_pad/2), without Newton's third law: no atomics, a deterministic
+//    result, F and U in one launch. The shell s = n_pad/2 reaches the same
+//    partner from both sides and counts half from each, and an exclusion
+//    bit is read only for s <= 32 * mask_rows, both as in the TPU kernel.
 //  * sweep_forces_alch_f32: sweep_forces_kernel<true>, the alchemical
 //    variant (replaces the TPU kernel's alchemical branches,
 //    sweep_nb.py:201-207, :295-326, :333-349, :367-378). par carries a 4th
@@ -55,22 +48,55 @@
 //    for pairs with an alchemical member. The standard instantiation
 //    compiles none of this.
 //
-// What bounds it on the H100: the sweep evaluates every slot pair of the
-// x-sorted window from both of its ends, about 2 S pairs a slot where the
-// function needs each pair once (S a slot, with Newton's third law): the
-// price of a sum without atomics. Only the pairs inside the
-// cutoff sphere (about 5 % of them for water at rc = 1.0 nm, skin 0.1 nm)
-// need the LJ/erfc arithmetic. It is bound by FP32 issue and by warp
-// divergence (a warp runs the pair arithmetic when any of its lanes has a
-// pair inside the cutoff), not by device memory: the inputs (positions,
-// parameters, the 6.2 MB bitfield at 24,064 slots) are read once per block
-// window from L2. The design answers correctness first: shared-memory tiles
-// keep the inner loop free of global loads except the exclusion word of a
-// pair inside the cutoff, and grid.y slices keep 1,504 blocks in flight at
-// 24,064 slots. A cell list in place of the 1D window would cut the pair
-// count about tenfold; that is later work. The alchemical variant adds
-// about 20 operations a pair inside the cutoff (the class index, the
-// softcore and the lam_e scaling) and one more shared-memory row.
+// The force kernel's design, and what bounds it on the H100. The sweep tests
+// every slot pair of the x-sorted window from both of its ends, about 2 S
+// tests a slot, and only the pairs inside the cutoff sphere need the
+// LJ/erfc arithmetic: about 5 % of the tests on water at rc = 1.0 nm, skin
+// 0.1 nm. With one thread a slot the warp's lanes would walk their partners
+// in lockstep, and the warp would run the whole pair body whenever any of
+// its 32 lanes had a pair inside the cutoff (about 79 % of its iterations
+// at 5 %, with 1-2 lanes live): divergence would waste most of its cycles.
+// Here:
+//
+//  * One warp a sorted slot, WARPS slots a block. The block's slots share
+//    almost one partner window, 2 S + WARPS slots of the ring (S ~ 4,800
+//    on water), which the block stages in shared memory in tiles of 2,048
+//    partners, double-buffered with cp.async: tile t + 1 is in flight while
+//    the warps test tile t. A partner is one 16-byte row (x, y, z, unused),
+//    one 128-bit shared load a test; a pad slot is staged as NaN, so its
+//    distance test fails (masked by index, not by its coordinates). Where the
+//    ring wraps, each partner's slot is taken modulo n_pad.
+//  * Test, compact, then compute. Lane l tests the partners l, l + 32, ... of
+//    the slot's window, UNROLL at a time; __ballot_sync marks the lanes
+//    whose partner lies inside the cutoff, and each appends the partner's
+//    ring offset o (j = i + o) to the warp's queue in shared memory at the
+//    position __popc of the lower lanes gives (a lane without a pair writes
+//    to a spare slot: no branch). An entry is the offset alone, not a tile
+//    index, so the queue outlives the tile it was filled from. Whenever it
+//    holds 32 pairs the warp drains them with every lane live: each lane
+//    reads the partner's position and parameters again (L1/L2; the
+//    displacement computed as the test computed it, to the bit), the
+//    pair's exclusion word where s <= 32 mask_rows, and runs the full pair
+//    body. One partial drain ends each slot. So the distance tests run at
+//    full warp width and the pair arithmetic at full width too: about
+//    inside / 32 drains a slot.
+//  * Fixed-order sums, no float atomics. Each lane sums F and U over the
+//    pairs it drained, a fixed xor-shuffle tree sums the lanes, lane 0
+//    writes the slot's F; the queue order follows the ballot order, so two
+//    launches give the same bits. U: the block sums its warps in warp order
+//    into a partial, and the last block to draw an integer ticket sums the
+//    partials (float for the standard variant, double for the alchemical
+//    one) and re-arms the ticket to 0.
+//
+// What bounds it now: the instruction rate of the distance tests, 2 S a slot.
+// A test is a shared load, three minimum images, r^2 rounded as the plain
+// version rounds it and the compare, then a ballot and a queue write, all at
+// full warp width; the drains come after them (PERF.md has the measured
+// split). Device memory is not the limit: positions are read once per
+// block window, parameters and the 6.2 MB bitfield only for pairs inside
+// the cutoff, all from L2. Newton's third law would halve the tests but
+// needs a deterministic scatter; a 2D slab or cell structure would cut them
+// about tenfold; both are later work.
 //
 // erfcf stands in for the Abramowitz-Stegun 7.1.26 rational of the TPU
 // kernel (|error| < 1.5e-7): both are within float32 rounding of the
@@ -86,18 +112,37 @@
 
 namespace {
 
-constexpr int BLOCK = 128;    // sorted slots a block (ops/sweep_nb.py _BLOCK)
-constexpr int SLICES = 8;     // pieces of the partner range (_SLICES)
+constexpr int BLOCK = 128;    // sorted slots a block of the bound kernel
+                              // (ops/sweep_nb.py _BOUND_BLOCK)
+constexpr int SLICES = 8;     // pieces of its shell range (_BOUND_SLICES)
 constexpr int FINISH_BLOCK = 256;
+// the force kernel: one warp a sorted slot, WARPS slots a block
+// (ops/sweep_nb.py _WARPS), two blocks an SM (64 registers a thread)
+constexpr int WARPS = 16;
+constexpr int FORCE_BLOCK = WARPS * 32;
+constexpr int MIN_BLOCKS = 2;
+constexpr int TILE = 2048;    // partners a staged tile, 4 a thread
+constexpr int UNROLL = 4;     // partners a lane tests before their ballots
+// a staged tile's rows, padded so that a lane past the window reads inside it
+constexpr int TILE_ROWS = TILE + UNROLL * 32;
+constexpr int QUEUE = 256;    // a warp's ring of queued offsets (< 32 + 32
+                              // UNROLL live), and one slot for the misses
+static_assert(QUEUE >= 32 * (UNROLL + 1), "the queue must hold a group");
+// dynamic shared memory a block: two tiles, then the warps' queues
+constexpr int FORCE_SMEM = 2 * TILE_ROWS * 16 + WARPS * (QUEUE + 1) * 4;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 // class scalars of the alchemical variant: at most 16 regions
 // (ops/sweep_nb.py _MAX_LAM)
 constexpr int MAX_LAM = 3 * (17 * 18 / 2 - 1);
 
 __device__ __forceinline__ float ring_delta(float d, float L, float hL) {
-    // one conditional shift: exact for coordinates wrapped into [0, L)
-    d += (d < -hL) ? L : 0.0f;
-    d -= (d > hL) ? L : 0.0f;
-    return d;
+    // one conditional shift: exact for coordinates wrapped into [0, L), so
+    // |d| < L; d + L where d < -hL, d - L where d > hL (copysign(L, -d)),
+    // else d + 0, which is the plain version's d + L, d - L and d + 0 - 0
+    // to the bit
+    const float shift = __uint_as_float(
+        __float_as_uint(L) | (~__float_as_uint(d) & 0x80000000u));
+    return d + (fabsf(d) > hL ? shift : 0.0f);
 }
 
 // r^2 = (dx dx + dy dy) + dz dz with every product and sum rounded on its
@@ -112,6 +157,13 @@ __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
 __device__ __forceinline__ int ring_slot(int p, int n_pad) {
     const int m = p % n_pad;
     return m < 0 ? m + n_pad : m;
+}
+
+// ring_slot for -n_pad <= p < 2 n_pad (the force kernel's window: i +- S,
+// S <= n_pad/2), without a division
+__device__ __forceinline__ int ring_near(int p, int n_pad) {
+    p += (p < 0) ? n_pad : 0;
+    return p - ((p >= n_pad) ? n_pad : 0);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -213,218 +265,359 @@ struct Alch {
     int coulomb_plain;    // 'coulomb' PME treatment: 1/r for involved pairs
 };
 
-template <bool ALCH>
-__global__ void __launch_bounds__(BLOCK)
-sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
-                    const int* __restrict__ excl, int n, int n_pad,
-                    int mask_rows, int bs, const float* __restrict__ L,
-                    const int* __restrict__ nblk, Physics ph, Alch al,
-                    float* __restrict__ f_part, float* __restrict__ e_part) {
-    __shared__ float sx[BLOCK];
-    __shared__ float sy[BLOCK];
-    __shared__ float sz[BLOCK];
-    __shared__ float ssig[BLOCK];
-    __shared__ float sse[BLOCK];
-    __shared__ float sq[BLOCK];
-    __shared__ int sj[BLOCK];
-    __shared__ float red[BLOCK];
-    __shared__ int sg[ALCH ? BLOCK : 1];          // partners' region codes
-    __shared__ float slam[ALCH ? MAX_LAM : 1];    // class scalars
+// What one slot brings to its pairs: its index, its parameters and what the
+// pair body needs of the launch.
+struct Slot {
+    int i, n_pad, half, cover;
+    float x, y, z;        // position
+    float Lx, Ly, Lz, hx, hy, hz;   // box and half box
+    float sig, se, kq;
+    int g;                // region code (alchemical variant)
+    int R1, n_cls;        // region count + 1, class count (alchemical)
+};
 
-    const int half = n_pad / 2;
-    const int S = min(max(nblk[0], 0) * bs, half);
-    const int tid = threadIdx.x;
-    const int i0 = blockIdx.x * BLOCK;
-    const int i = i0 + tid;
-    const bool active = i < n;
-    const float Lx = L[0], Ly = L[1], Lz = L[2];
-    const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
-    // this block's partner offsets: slice blockIdx.y of -S..S
-    const int per = (2 * S + 1 + gridDim.y - 1) / gridDim.y;
-    const int o_lo = -S + blockIdx.y * per;
-    const int o_hi = min(S, o_lo + per - 1);
-    const int cover = 32 * mask_rows;
-    const float two_over_sqrt_pi = 1.1283791670955126f;
+// cp.async of one 4-byte word from device memory to shared memory
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
 
-    float xi = 0.0f, yi = 0.0f, zi = 0.0f, sig_i = 0.0f, se_i = 0.0f, kq_i = 0.0f;
-    int g_i = 0;
-    if (active) {
-        xi = x[i];
-        yi = x[n_pad + i];
-        zi = x[2 * n_pad + i];
-        sig_i = par[i];
-        se_i = par[n_pad + i];
-        kq_i = ph.ke * par[2 * n_pad + i];
-        if (ALCH) g_i = __float2int_rn(par[3 * n_pad + i]);
-    }
-    const int R1 = al.n_regions + 1;
-    const int n_cls = R1 * (R1 + 1) / 2 - 1;
-    if (ALCH) {
-        for (int k = tid; k < 3 * n_cls; k += BLOCK) slam[k] = al.lam[k];
-        // (the first tile's barrier below orders these stores)
-    }
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f, e_acc = 0.0f;
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-    if (S > 0) {
-        for (int p0 = i0 + o_lo; p0 <= i0 + BLOCK - 1 + o_hi; p0 += BLOCK) {
-            const int jm = ring_slot(p0 + tid, n_pad);
-            sj[tid] = jm < n ? jm : -1;
-            sx[tid] = x[jm];
-            sy[tid] = x[n_pad + jm];
-            sz[tid] = x[2 * n_pad + jm];
-            ssig[tid] = par[jm];
-            sse[tid] = par[n_pad + jm];
-            sq[tid] = par[2 * n_pad + jm];
-            if (ALCH) sg[tid] = __float2int_rn(par[3 * n_pad + jm]);
-            __syncthreads();
-            if (active) {
-                for (int k = 0; k < BLOCK; ++k) {
-                    const int o = p0 + k - i;
-                    const int j = sj[k];
-                    if (o < o_lo || o > o_hi || o == 0 || j < 0) continue;
-                    const float dx = ring_delta(xi - sx[k], Lx, hx);
-                    const float dy = ring_delta(yi - sy[k], Ly, hy);
-                    const float dz = ring_delta(zi - sz[k], Lz, hz);
-                    const float r2 = dist2_rn(dx, dy, dz);
-                    if (!(r2 < ph.rc2 && r2 > 1e-12f)) continue;
-                    const int ao = o > 0 ? o : -o;
-                    if (ao <= cover) {
-                        // bit ao-1 of lane i for i + ao, of lane j for i - ao
-                        const int lane = o > 0 ? i : j;
-                        const unsigned word = static_cast<unsigned>(
-                            excl[((ao - 1) >> 5) * n_pad + lane]);
-                        if ((word >> ((ao - 1) & 31)) & 1u) continue;
-                    }
-                    const float wt = (ao == half) ? 0.5f : 1.0f;
-                    const float inv_r = rsqrtf(r2);
-                    const float inv_r2 = inv_r * inv_r;
-                    const float r = r2 * inv_r;
-                    const float sig = 0.5f * (sig_i + ssig[k]);
-                    const float eps = se_i * sse[k];
-                    const float s2 = sig * sig * inv_r2;
-                    float s6 = s2 * s2 * s2;
-                    float e_lj, w_lj;
-                    float lam_e = 1.0f;
-                    int g_j = 0;
-                    if (ALCH) {
-                        // the pair's region-pair class; env-env keeps the
-                        // identity scalars
-                        g_j = sg[k];
-                        const int a = min(g_i, g_j), b = max(g_i, g_j);
-                        float lam_s = 1.0f, asc = 0.0f;
-                        if (b > 0) {
-                            const int ci = a * R1 - a * (a - 1) / 2 + (b - a) - 1;
-                            lam_s = slam[ci];
-                            asc = slam[n_cls + ci];
-                            lam_e = slam[2 * n_cls + ci];
-                        }
-                        // softcore (beta = 0, c = 6); the clamp keeps
-                        // asc s6 + 1 finite at deep overlap
-                        s6 = fminf(s6, 1e18f);
-                        const float inv_den = 1.0f / (asc * s6 + 1.0f);
-                        const float xsc = s6 * inv_den;
-                        const float el4 = (4.0f * eps) * lam_s;
-                        e_lj = el4 * (xsc * xsc - xsc);
-                        w_lj = (6.0f * el4) * (2.0f * xsc - 1.0f) * xsc *
-                               inv_den * inv_r2;
-                    } else {
-                        const float s12 = s6 * s6;
-                        e_lj = 4.0f * eps * (s12 - s6);
-                        w_lj = eps * (48.0f * s12 - 24.0f * s6) * inv_r2;
-                    }
-                    const float qq = kq_i * sq[k];
-                    float e_c, w_c;
-                    if (ph.coulomb_rf) {
-                        e_c = qq * (inv_r + ph.k_rf * r2 - ph.c_rf);
-                        w_c = qq * (inv_r2 * inv_r - 2.0f * ph.k_rf);
-                    } else if (ALCH && al.coulomb_plain && (g_i > 0 || g_j > 0)) {
-                        // 'coulomb' PME treatment: plain 1/r for a pair
-                        // with an alchemical member
-                        e_c = qq * inv_r;
-                        w_c = qq * inv_r2 * inv_r;
-                    } else {
-                        const float z = ph.alpha * r;
-                        const float erfc_z = erfcf(z);
-                        e_c = qq * erfc_z * inv_r;
-                        w_c = qq * inv_r2 * (erfc_z * inv_r +
-                                             two_over_sqrt_pi * ph.alpha *
-                                                 expf(-z * z));
-                    }
-                    if (ALCH) {
-                        e_c *= lam_e;
-                        w_c *= lam_e;
-                    }
-                    float e, w;
-                    if (ph.use_switch) {
-                        const float t = fminf(
-                            fmaxf((r - ph.r_switch) * ph.inv_span, 0.0f), 1.0f);
-                        const float Sw =
-                            1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
-                        const float omt = 1.0f - t;
-                        const float dS = (-30.0f * ph.inv_span) * (t * t) * (omt * omt);
-                        if (ph.switch_coulomb) {
-                            w = (w_lj + w_c) * Sw - (e_lj + e_c) * dS * inv_r;
-                            e = (e_lj + e_c) * Sw;
-                        } else {
-                            w = w_lj * Sw - e_lj * dS * inv_r + w_c;
-                            e = e_lj * Sw + e_c;
-                        }
-                    } else {
-                        e = e_lj + e_c;
-                        w = w_lj + w_c;
-                    }
-                    w *= wt;
-                    fx += w * dx;
-                    fy += w * dy;
-                    fz += w * dz;
-                    e_acc += e * wt;
-                }
-            }
-            __syncthreads();
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage the ring positions p = t0 .. t0 + m - 1 of the sorted order into one
+// tile, thread k the partners k, k + FORCE_BLOCK, ...: x, y, z of slot
+// p mod n_pad by cp.async, a pad slot as NaN (its every distance test then
+// fails). One commit group a call in every thread.
+__device__ __forceinline__ void stage_tile(float4* tile, const float* x,
+                                           int t0, int m, int n, int n_pad) {
+    for (int k = threadIdx.x; k < m; k += FORCE_BLOCK) {
+        const int jm = ring_near(t0 + k, n_pad);
+        float* dst = reinterpret_cast<float*>(tile + k);
+        if (jm < n) {
+            cp_async4(dst, x + jm);
+            cp_async4(dst + 1, x + n_pad + jm);
+            cp_async4(dst + 2, x + 2 * n_pad + jm);
+        } else {
+            dst[0] = dst[1] = dst[2] = __int_as_float(0x7fc00000);
         }
     }
+    cp_async_commit();
+}
 
-    const size_t base = static_cast<size_t>(blockIdx.y) * 3 * n_pad;
-    f_part[base + i] = fx;
-    f_part[base + n_pad + i] = fy;
-    f_part[base + 2 * n_pad + i] = fz;
-    red[tid] = e_acc;
-    __syncthreads();
-    for (int stride = BLOCK / 2; stride > 0; stride >>= 1) {
-        if (tid < stride) red[tid] += red[tid + stride];
-        __syncthreads();
+// The pair (i, j = i + o) of slot a, queued inside the cutoff: nothing for
+// an exception pair, else its force and energy, weighted half on the shell
+// s = n_pad/2, added to the lane's sums. The partner's position is read
+// again from device memory and its displacement computed as the distance
+// test computed it, to the same bits.
+template <bool ALCH>
+__device__ __forceinline__ void add_pair(
+        int o, const Slot& a, const float* __restrict__ x,
+        const int* __restrict__ excl, const float* __restrict__ par,
+        const Physics& ph, const Alch& al, const float* slam, float& fx,
+        float& fy, float& fz, float& e_acc) {
+    const float two_over_sqrt_pi = 1.1283791670955126f;
+    const int j = ring_near(a.i + o, a.n_pad);
+    const int ao = o > 0 ? o : -o;
+    if (ao <= a.cover) {
+        // bit ao-1 of lane i for i + ao, of lane j for i - ao
+        const int lane = o > 0 ? a.i : j;
+        const unsigned word = static_cast<unsigned>(
+            __ldg(excl + ((ao - 1) >> 5) * a.n_pad + lane));
+        if ((word >> ((ao - 1) & 31)) & 1u) return;
     }
-    if (tid == 0) e_part[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+    const float dx = ring_delta(a.x - __ldg(x + j), a.Lx, a.hx);
+    const float dy = ring_delta(a.y - __ldg(x + a.n_pad + j), a.Ly, a.hy);
+    const float dz = ring_delta(a.z - __ldg(x + 2 * a.n_pad + j), a.Lz, a.hz);
+    const float r2 = dist2_rn(dx, dy, dz);
+    const float wt = (ao == a.half) ? 0.5f : 1.0f;
+    const float inv_r = rsqrtf(r2);
+    const float inv_r2 = inv_r * inv_r;
+    const float r = r2 * inv_r;
+    const float sig = 0.5f * (a.sig + __ldg(par + j));
+    const float eps = a.se * __ldg(par + a.n_pad + j);
+    const float s2 = sig * sig * inv_r2;
+    float s6 = s2 * s2 * s2;
+    float e_lj, w_lj;
+    float lam_e = 1.0f;
+    int g_j = 0;
+    if (ALCH) {
+        // the pair's region-pair class; env-env keeps the identity scalars
+        g_j = __float2int_rn(__ldg(par + 3 * a.n_pad + j));
+        const int lo = min(a.g, g_j), hi = max(a.g, g_j);
+        float lam_s = 1.0f, asc = 0.0f;
+        if (hi > 0) {
+            const int ci = lo * a.R1 - lo * (lo - 1) / 2 + (hi - lo) - 1;
+            lam_s = slam[ci];
+            asc = slam[a.n_cls + ci];
+            lam_e = slam[2 * a.n_cls + ci];
+        }
+        // softcore (beta = 0, c = 6); the clamp keeps asc s6 + 1 finite at
+        // deep overlap
+        s6 = fminf(s6, 1e18f);
+        const float inv_den = 1.0f / (asc * s6 + 1.0f);
+        const float xsc = s6 * inv_den;
+        const float el4 = (4.0f * eps) * lam_s;
+        e_lj = el4 * (xsc * xsc - xsc);
+        w_lj = (6.0f * el4) * (2.0f * xsc - 1.0f) * xsc * inv_den * inv_r2;
+    } else {
+        const float s12 = s6 * s6;
+        e_lj = 4.0f * eps * (s12 - s6);
+        w_lj = eps * (48.0f * s12 - 24.0f * s6) * inv_r2;
+    }
+    const float qq = a.kq * __ldg(par + 2 * a.n_pad + j);
+    float e_c, w_c;
+    if (ph.coulomb_rf) {
+        e_c = qq * (inv_r + ph.k_rf * r2 - ph.c_rf);
+        w_c = qq * (inv_r2 * inv_r - 2.0f * ph.k_rf);
+    } else if (ALCH && al.coulomb_plain && (a.g > 0 || g_j > 0)) {
+        // 'coulomb' PME treatment: plain 1/r for a pair with an alchemical
+        // member
+        e_c = qq * inv_r;
+        w_c = qq * inv_r2 * inv_r;
+    } else {
+        const float z = ph.alpha * r;
+        const float erfc_z = erfcf(z);
+        e_c = qq * erfc_z * inv_r;
+        w_c = qq * inv_r2 *
+              (erfc_z * inv_r + two_over_sqrt_pi * ph.alpha * expf(-z * z));
+    }
+    if (ALCH) {
+        e_c *= lam_e;
+        w_c *= lam_e;
+    }
+    float e, w;
+    if (ph.use_switch) {
+        const float t =
+            fminf(fmaxf((r - ph.r_switch) * ph.inv_span, 0.0f), 1.0f);
+        const float Sw = 1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
+        const float omt = 1.0f - t;
+        const float dS = (-30.0f * ph.inv_span) * (t * t) * (omt * omt);
+        if (ph.switch_coulomb) {
+            w = (w_lj + w_c) * Sw - (e_lj + e_c) * dS * inv_r;
+            e = (e_lj + e_c) * Sw;
+        } else {
+            w = w_lj * Sw - e_lj * dS * inv_r + w_c;
+            e = e_lj * Sw + e_c;
+        }
+    } else {
+        e = e_lj + e_c;
+        w = w_lj + w_c;
+    }
+    w *= wt;
+    fx += w * dx;
+    fy += w * dy;
+    fz += w * dz;
+    e_acc += e * wt;
 }
 
 // Real is the energy total's type: float for the standard variant, double
 // for the alchemical one (whose work sums differences of totals)
-template <typename Real>
-__global__ void __launch_bounds__(FINISH_BLOCK)
-sweep_reduce_kernel(const float* __restrict__ f_part,
-                    const float* __restrict__ e_part, int slices, int n_pad,
-                    int m, float* __restrict__ F, Real* __restrict__ U) {
-    __shared__ Real red[FINISH_BLOCK];
-    const int tid = threadIdx.x;
-    if (blockIdx.x == gridDim.x - 1) {
-        // the last block sums the energy partials
-        Real acc = 0;
-        for (int k = tid; k < m; k += FINISH_BLOCK) acc += e_part[k];
-        red[tid] = acc;
-        __syncthreads();
-        for (int stride = FINISH_BLOCK / 2; stride > 0; stride >>= 1) {
-            if (tid < stride) red[tid] += red[tid + stride];
-            __syncthreads();
-        }
-        // every pair was met from both of its ends
-        if (tid == 0) U[0] = Real(0.5) * red[0];
-        return;
+template <bool ALCH, typename Real>
+__global__ void __launch_bounds__(FORCE_BLOCK, MIN_BLOCKS)
+sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
+                    const int* __restrict__ excl, int n, int n_pad,
+                    int mask_rows, int bs, const float* __restrict__ L,
+                    const int* __restrict__ nblk, Physics ph, Alch al,
+                    float* __restrict__ F, float* e_part,
+                    unsigned int* __restrict__ ticket, Real* __restrict__ U) {
+    // two tiles of TILE_ROWS partners, then a queue of QUEUE + 1 ints a
+    // warp (launched with FORCE_SMEM bytes)
+    extern __shared__ __align__(16) float4 smem[];
+    __shared__ float slam[ALCH ? MAX_LAM : 1];    // class scalars
+    __shared__ float warp_e[WARPS];
+    __shared__ Real red[WARPS];
+    __shared__ bool last;
+
+    const int half = n_pad / 2;
+    const int S = min(max(nblk[0], 0) * bs, half);
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const unsigned lower = (1u << lane) - 1u;
+    const int i0 = blockIdx.x * WARPS;
+    const int i = i0 + warp;
+    const bool real = i < n;
+    const float Lx = L[0], Ly = L[1], Lz = L[2];
+    const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
+
+    Slot a;
+    a.i = i;
+    a.Lx = Lx;
+    a.Ly = Ly;
+    a.Lz = Lz;
+    a.hx = hx;
+    a.hy = hy;
+    a.hz = hz;
+    a.n_pad = n_pad;
+    a.half = half;
+    a.cover = 32 * mask_rows;
+    a.R1 = al.n_regions + 1;
+    a.n_cls = a.R1 * (a.R1 + 1) / 2 - 1;
+    a.sig = a.se = a.kq = 0.0f;
+    a.g = 0;
+    float xi = 0.0f, yi = 0.0f, zi = 0.0f;
+    if (real) {
+        xi = x[i];
+        yi = x[n_pad + i];
+        zi = x[2 * n_pad + i];
+        a.sig = par[i];
+        a.se = par[n_pad + i];
+        a.kq = ph.ke * par[2 * n_pad + i];
+        if (ALCH) a.g = __float2int_rn(par[3 * n_pad + i]);
     }
-    const int idx = blockIdx.x * FINISH_BLOCK + tid;
-    if (idx >= 3 * n_pad) return;
-    float acc = 0.0f;
-    for (int p = 0; p < slices; ++p) acc += f_part[static_cast<size_t>(p) * 3 * n_pad + idx];
-    F[idx] = acc;
+    a.x = xi;
+    a.y = yi;
+    a.z = zi;
+    if (ALCH) {
+        for (int k = threadIdx.x; k < 3 * a.n_cls; k += FORCE_BLOCK)
+            slam[k] = al.lam[k];
+        // (the first tile's barrier below orders these stores)
+    }
+
+    // the block's partner window, ring positions p_lo .. p_lo + count - 1;
+    // slot i's own window is w_lo .. w_hi - 1 (i - S .. i + S)
+    const int p_lo = i0 - S;
+    const int count = 2 * S + WARPS;
+    const int n_tiles = (count + TILE - 1) / TILE;
+    const int w_lo = i - S, w_hi = i + S + 1;
+    int* const queue = reinterpret_cast<int*>(smem + 2 * TILE_ROWS) +
+                       warp * (QUEUE + 1);
+    unsigned head = 0, tail = 0;   // pairs drained and queued so far
+    float fx = 0.0f, fy = 0.0f, fz = 0.0f, e_acc = 0.0f;
+
+    // the pairs head .. head + cnt - 1 of the queue, one a lane
+    auto drain = [&](unsigned cnt) {
+        if (static_cast<unsigned>(lane) < cnt) {
+            add_pair<ALCH>(queue[(head + lane) & (QUEUE - 1)], a, x, excl,
+                           par, ph, al, slam, fx, fy, fz, e_acc);
+        }
+        head += cnt;
+    };
+
+    // tile t lives at smem + (t & 1) * TILE_ROWS
+    stage_tile(smem, x, p_lo, min(TILE, count), n, n_pad);
+    for (int t = 0; t < n_tiles; ++t) {
+        const int t0 = p_lo + t * TILE;
+        if (t + 1 < n_tiles) {
+            stage_tile(smem + ((t + 1) & 1) * TILE_ROWS, x, t0 + TILE,
+                       min(TILE, count - (t + 1) * TILE), n, n_pad);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();   // tile t has landed in every thread's copies
+        if (real) {
+            const float4* tile = smem + (t & 1) * TILE_ROWS;
+            const int k_lo = max(w_lo - t0, 0);
+            const int k_hi = min(w_hi - t0, min(TILE, count - t * TILE));
+            for (int k0 = k_lo; k0 < k_hi; k0 += UNROLL * 32) {
+                // the distances of UNROLL partners first, so that their
+                // shared loads overlap
+                bool hit[UNROLL];
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    const int k = k0 + 32 * u + lane;
+                    const float4 p = tile[k];
+                    const float r2 = dist2_rn(ring_delta(xi - p.x, Lx, hx),
+                                              ring_delta(yi - p.y, Ly, hy),
+                                              ring_delta(zi - p.z, Lz, hz));
+                    hit[u] = k < k_hi && r2 < ph.rc2 && r2 > 1e-12f;
+                }
+                // each hit to the queue at tail + the hits of the lower
+                // lanes; a miss writes to the spare slot QUEUE (no branch)
+                const int o = t0 + k0 + lane - i;
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    const unsigned m = __ballot_sync(FULL_MASK, hit[u]);
+                    const unsigned slot =
+                        (tail + __popc(m & lower)) & (QUEUE - 1);
+                    queue[hit[u] ? slot : QUEUE] = o + 32 * u;
+                    tail += __popc(m);
+                }
+                if (tail - head >= 32u) {
+                    __syncwarp();   // the queued pairs are visible
+                    do {
+                        drain(32u);
+                    } while (tail - head >= 32u);
+                    __syncwarp();   // read before they are overwritten
+                }
+            }
+        }
+        __syncthreads();   // every warp is done with tile t's buffer
+    }
+    __syncwarp();
+    drain(tail - head);    // the slot's last, partial drain
+
+    // the lanes' sums, by a fixed xor tree: every lane ends with the totals
+    for (int offset = 16; offset > 0; offset >>= 1) {
+        fx += __shfl_xor_sync(FULL_MASK, fx, offset);
+        fy += __shfl_xor_sync(FULL_MASK, fy, offset);
+        fz += __shfl_xor_sync(FULL_MASK, fz, offset);
+        e_acc += __shfl_xor_sync(FULL_MASK, e_acc, offset);
+    }
+    if (lane == 0) {
+        // a pad slot writes 0
+        F[i] = fx;
+        F[n_pad + i] = fy;
+        F[2 * n_pad + i] = fz;
+        warp_e[warp] = e_acc;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float part = 0.0f;
+        for (int w = 0; w < WARPS; ++w) part += warp_e[w];
+        e_part[blockIdx.x] = part;
+        __threadfence();   // the partial lands before the ticket is drawn
+        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // the last block: U = 0.5 * the sum of the block partials (each pair
+    // was met from both of its ends), in a fixed order; the partials are
+    // read from L2, where the other blocks' writes meet
+    Real acc = 0;
+    for (int b = threadIdx.x; b < gridDim.x; b += FORCE_BLOCK)
+        acc += static_cast<Real>(__ldcg(e_part + b));
+    for (int offset = 16; offset > 0; offset >>= 1)
+        acc += __shfl_xor_sync(FULL_MASK, acc, offset);
+    if (lane == 0) red[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        Real total = 0;
+        for (int w = 0; w < WARPS; ++w) total += red[w];
+        U[0] = Real(0.5) * total;
+        *ticket = 0u;   // armed for the next launch
+    }
+}
+
+template <bool ALCH, typename Real>
+int launch_forces(const float* x, const float* par, const int* excl, int n,
+                  int n_pad, int mask_rows, int bs, const float* L,
+                  const int* nblk, const Physics& ph, const Alch& al,
+                  float* e_part, unsigned int* ticket, float* F, Real* U,
+                  void* stream) {
+    if (n_pad <= 0 || n_pad % BLOCK != 0 || n > n_pad)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // past the 48 KB a block gets without asking
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_forces_kernel<ALCH, Real>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FORCE_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sweep_forces_kernel<ALCH, Real><<<n_pad / WARPS, FORCE_BLOCK, FORCE_SMEM,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        x, par, excl, n, n_pad, mask_rows, bs, L, nblk, ph, al, F, e_part,
+        ticket, U);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -449,48 +642,22 @@ int sweep_bound_f32(const float* x, int n, int n_pad, const float* L, float w2,
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // extern "C"
-
-namespace {
-
-template <bool ALCH, typename Real>
-int launch_forces(const float* x, const float* par, const int* excl, int n,
-                  int n_pad, int mask_rows, int bs, const float* L,
-                  const int* nblk, const Physics& ph, const Alch& al,
-                  float* f_part, float* e_part, float* F, Real* U,
-                  void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_pad / BLOCK, SLICES);
-    sweep_forces_kernel<ALCH><<<grid, BLOCK, 0, s>>>(
-        x, par, excl, n, n_pad, mask_rows, bs, L, nblk, ph, al, f_part,
-        e_part);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int reduce_blocks = (3 * n_pad + FINISH_BLOCK - 1) / FINISH_BLOCK + 1;
-    sweep_reduce_kernel<Real><<<reduce_blocks, FINISH_BLOCK, 0, s>>>(
-        f_part, e_part, SLICES, n_pad, grid.x * grid.y, F, U);
-    return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" {
-
 // Forces F (3, n_pad) and energy U (1,) of the bounded sweep at the bound
-// nblk (1,) int read on the device. x, par (3, n_pad) sorted positions and
-// [sigma, sqrt(eps), charge]; excl (mask_rows, n_pad) the exception
-// bitfield; f_part (8, 3, n_pad) and e_part ((n_pad / 128) * 8) scratch.
+// nblk (1,) int read on the device, in one launch. x, par (3, n_pad) sorted
+// positions and [sigma, sqrt(eps), charge]; excl (mask_rows, n_pad) the
+// exception bitfield; e_part holds n_pad / 16 floats of scratch, and ticket
+// is an unsigned int that is 0 on entry and is 0 again on exit.
 int sweep_forces_f32(const float* x, const float* par, const int* excl, int n,
                      int n_pad, int mask_rows, int bs, const float* L,
                      const int* nblk, float rc2, int coulomb_rf, float alpha,
                      float k_rf, float c_rf, int use_switch, int switch_coulomb,
-                     float r_switch, float inv_span, float ke, float* f_part,
-                     float* e_part, float* F, float* U, void* stream) {
+                     float r_switch, float inv_span, float ke, float* e_part,
+                     unsigned int* ticket, float* F, float* U, void* stream) {
     const Physics ph{rc2, coulomb_rf, alpha, k_rf, c_rf, use_switch,
                      switch_coulomb, r_switch, inv_span, ke};
     const Alch al{nullptr, 0, 0};
     return launch_forces<false>(x, par, excl, n, n_pad, mask_rows, bs, L,
-                                nblk, ph, al, f_part, e_part, F, U, stream);
+                                nblk, ph, al, e_part, ticket, F, U, stream);
 }
 
 // The alchemical variant: as sweep_forces_f32, with par (4, n_pad) [sigma,
@@ -506,8 +673,9 @@ int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
                           int coulomb_rf, float alpha, float k_rf, float c_rf,
                           int use_switch, int switch_coulomb, float r_switch,
                           float inv_span, float ke, const float* lam,
-                          int n_regions, int coulomb_plain, float* f_part,
-                          float* e_part, float* F, double* U, void* stream) {
+                          int n_regions, int coulomb_plain, float* e_part,
+                          unsigned int* ticket, float* F, double* U,
+                          void* stream) {
     const int n_cls = (n_regions + 1) * (n_regions + 2) / 2 - 1;
     if (n_regions < 1 || 3 * n_cls > MAX_LAM)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -515,7 +683,7 @@ int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
                      switch_coulomb, r_switch, inv_span, ke};
     const Alch al{lam, n_regions, coulomb_plain};
     return launch_forces<true>(x, par, excl, n, n_pad, mask_rows, bs, L,
-                               nblk, ph, al, f_part, e_part, F, U, stream);
+                               nblk, ph, al, e_part, ticket, F, U, stream);
 }
 
 }  // extern "C"

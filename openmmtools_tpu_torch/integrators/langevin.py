@@ -585,7 +585,10 @@ class BoundIntegrator:
         R/V/O splitting of a monodisperse uncharged periodic LJ fluid with no
         constraints, on a CUDA device. Same rules as the JAX package's TPU
         path, with "the system lives on a CUDA device" in place of "the
-        backend is a TPU"; everything else takes the generic program."""
+        backend is a TPU", and one more: the splitting's step program must
+        fit the chunk kernel's table (``fits_chunk_table``), where the TPU
+        kernel unrolls any token string. Everything else takes the generic
+        program."""
         integ = self.integrator
         if integ.neighborlist is None:
             return
@@ -618,7 +621,13 @@ class BoundIntegrator:
             return
         if float(term.cutoff) > 0.5 * float(diag.min()):
             return  # minimum image invalid
-        from openmmtools_tpu_torch.ops.fused_langevin import FusedSortedBAOAB
+        from openmmtools_tpu_torch.ops.fused_langevin import (
+            FusedSortedBAOAB,
+            fits_chunk_table,
+        )
+
+        if not fits_chunk_table(self.tokens):
+            return   # the chunk kernel's step-program table cannot hold it
 
         self.sweep_mode = False   # the fused kernel supersedes the sweep
         self._fused_term = term

@@ -50,11 +50,11 @@ SIGNATURES = {
     "sweep_bound_f32": (_P, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P),
     # (x, par, excl, n, n_pad, mask_rows, bs, L, nblk, rc2, coulomb_rf,
     #  alpha, k_rf, c_rf, use_switch, switch_coulomb, r_switch, inv_span, ke,
-    #  f_part, e_part, F, U, stream)
+    #  e_part, ticket, F, U, stream)
     "sweep_forces_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F, _F,
                          _F, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
     # (the same arguments up to ke, then lam, n_regions, coulomb_plain,
-    #  f_part, e_part, F, U, stream)
+    #  e_part, ticket, F, U, stream)
     "sweep_forces_alch_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _F,
                               _F, _F, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P,
                               _P, _P, _P),

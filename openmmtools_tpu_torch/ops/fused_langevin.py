@@ -59,7 +59,7 @@ from openmmtools_tpu_torch.ops._build import (
 )
 
 __all__ = ["FusedSortedLangevin", "FusedSortedBAOAB", "FusedDenseBAOAB",
-           "fused_langevin_reference", "lj_forces_reference",
+           "fits_chunk_table", "fused_langevin_reference", "lj_forces_reference",
            "lj_pair_reference", "langevin_substep_reference",
            "philox_normals"]
 
@@ -210,11 +210,22 @@ def _step_program(tokens):
         program.append(("sub", tuple(seg), seg_o_base, stale))
     if stale:
         program.append(("sweep",))
-    for item in program:
-        if item[0] == "sub" and len(item[1]) > _MAX_SEGMENT:
-            raise ValueError(
-                f"more than {_MAX_SEGMENT} tokens between force sweeps")
     return program
+
+
+def _longest_segment(program):
+    return max((len(item[1]) for item in program if item[0] == "sub"),
+               default=0)
+
+
+def fits_chunk_table(tokens) -> bool:
+    """Whether the chunk kernel's table holds the step program of
+    ``tokens``: at most ``_MAX_ITEMS`` items and at most ``_MAX_SEGMENT``
+    tokens between force sweeps. A splitting that does not fit takes the
+    generic step program."""
+    program = _step_program(tuple(tokens))
+    return (len(program) <= _MAX_ITEMS
+            and _longest_segment(program) <= _MAX_SEGMENT)
 
 
 def _program_table(program):
@@ -222,7 +233,10 @@ def _program_table(program):
     5 uint32 words an item, (kind, n_tok, tok_code, o_base, wrap), kind 0 a
     segment whose tokens take 2 bits each in tok_code and kind 1
     (``_SWEEP``) a sweep with the other words 0. Raises past ``_MAX_ITEMS``
-    items."""
+    items or ``_MAX_SEGMENT`` tokens a segment."""
+    if _longest_segment(program) > _MAX_SEGMENT:
+        raise ValueError(
+            f"more than {_MAX_SEGMENT} tokens between force sweeps")
     if len(program) > _MAX_ITEMS:
         raise ValueError(f"a step program of {len(program)} items: the "
                          f"chunk kernel takes at most {_MAX_ITEMS}")

@@ -39,6 +39,17 @@ which are also the kernels' oracle on the card. The rebuild flag, the bound
 and the alchemical scalars stay device tensors that the kernels read, so a
 step never waits on the host.
 
+Launch shapes (``csrc/sweep_nb.cu`` says why): the bound kernel takes 128
+sorted slots a block, its shell range cut into 8 slices, and a one-block
+finish. The force kernel, both variants, gives one warp to a sorted slot and
+16 slots to a block (n_pad / 16 blocks, 1,504 at 24,064 slots), in one
+launch: the block stages its shared partner window in shared memory, the
+lanes test 32 partners at once, and the pairs inside the cutoff are
+compacted into a per-warp queue (``__ballot_sync``) and evaluated 32 at a
+time, so both the distance tests and the pair arithmetic run at full warp
+width. Its scratch is one energy partial a block and an integer ticket kept
+at 0 (the last block sums the partials in a fixed order).
+
 Semantics kept from the TPU kernel: pad slots (``n <= i < n_pad``) take no
 part; the minimum image is one conditional shift per axis (exact for wrapped
 coordinates); the shell ``s = n_pad/2`` reaches the same partner from both
@@ -309,6 +320,7 @@ class SweepNonbonded:
         self.forces_kernel = ("sweep_forces_alch" if self.alchemical
                               else "sweep_forces")
         self.launches = {"sweep_bound": 0, self.forces_kernel: 0}
+        self._tickets = {}   # device -> the force kernel's ticket, kept at 0
 
     def physics(self):
         """Keyword arguments of :func:`sweep_forces_reference` (``lam``
@@ -335,8 +347,9 @@ class SweepNonbonded:
         check_input(L, torch.float32, (3,))
         check_input(rebuild.reshape(-1), torch.bool, (1,))
         check_input(bound.reshape(-1), torch.int32, (1,))
-        grid = self.n_pad // _BLOCK
-        partial = torch.empty((_SLICES * grid,), dtype=torch.int32, device=dev)
+        grid = self.n_pad // _BOUND_BLOCK
+        partial = torch.empty((_BOUND_SLICES * grid,), dtype=torch.int32,
+                              device=dev)
         nblk = torch.empty((1,), dtype=torch.int32, device=dev)
         err = load_library().sweep_bound_f32(
             xT.data_ptr(), self.n, self.n_pad, L.data_ptr(),
@@ -363,11 +376,12 @@ class SweepNonbonded:
         check_input(L, torch.float32, (3,))
         check_input(nblk, torch.int32, (1,))
         dev = xT.device
-        grid = self.n_pad // _BLOCK
-        f_part = torch.empty((_SLICES, 3, self.n_pad), dtype=torch.float32,
+        e_part = torch.empty((self.n_pad // _WARPS,), dtype=torch.float32,
                              device=dev)
-        e_part = torch.empty((_SLICES * grid,), dtype=torch.float32,
-                             device=dev)
+        ticket = self._tickets.get(dev)
+        if ticket is None:
+            ticket = self._tickets[dev] = torch.zeros(1, dtype=torch.int32,
+                                                      device=dev)
         F = torch.empty((3, self.n_pad), dtype=torch.float32, device=dev)
         # the alchemical variant's energy total is a double (its differences
         # are nonequilibrium work)
@@ -400,7 +414,7 @@ class SweepNonbonded:
                      int(self.coulomb_pme_treatment)]
         else:
             fn, name = lib.sweep_forces_f32, "sweep_forces_f32"
-        err = fn(*args, f_part.data_ptr(), e_part.data_ptr(), F.data_ptr(),
+        err = fn(*args, e_part.data_ptr(), ticket.data_ptr(), F.data_ptr(),
                  U.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         self.launches[self.forces_kernel] += 1
         check(err, name)
@@ -471,10 +485,13 @@ class PlainSweepNonbonded(SweepNonbonded):
         return t.dtype
 
 
-# kernel launch shape, mirrored in csrc/sweep_nb.cu: 128 sorted slots a
-# block, the partner range cut into 8 slices (grid.y)
-_BLOCK = 128
-_SLICES = 8
+# kernel launch shapes, mirrored in csrc/sweep_nb.cu: the bound kernel takes
+# 128 sorted slots a block with its shell range cut into 8 slices (grid.y);
+# the force kernel one warp a sorted slot, 16 slots a block, n_pad / 16
+# blocks, each writing one energy partial
+_BOUND_BLOCK = 128
+_BOUND_SLICES = 8
+_WARPS = 16
 # the alchemical kernel stages its class scalars in shared memory: at most
 # 16 regions, 3 * (17 * 18 / 2 - 1) = 456 scalars
 _MAX_REGIONS = 16

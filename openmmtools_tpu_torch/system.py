@@ -36,10 +36,14 @@ def _param(params: Optional[GlobalParams], name: Optional[str], default):
 
 
 def value_and_grad(fn, x):
-    """``(fn(x), d fn / dx)`` by autograd, detached from the caller's graph."""
+    """``(fn(x), d fn / dx)`` by autograd, detached from the caller's graph;
+    a zero gradient where ``fn`` does not depend on ``x`` (as ``jax.grad``
+    gives), e.g. the remainder around the sweep kernel of a bare LJ fluid."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
         u = fn(xx)
+        if not u.requires_grad:
+            return u.detach(), torch.zeros_like(x)
         (g,) = torch.autograd.grad(u, xx)
     return u.detach(), g
 

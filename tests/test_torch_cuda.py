@@ -229,6 +229,40 @@ def test_cuda_fused_path_matches_generic_program(cuda, calm_fluid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splitting", ["R V " * 9, "V R " + "O " * 15])
+def test_cuda_long_splitting_takes_the_generic_program(cuda, splitting,
+                                                        monkeypatch):
+    """A splitting whose step program the chunk kernel's table cannot hold
+    (19 items; 17 tokens before the sweep) binds on LJ-2048 without the
+    fused kernel, as the JAX package runs it, and steps through the generic
+    program: no chunk is launched."""
+    def no_chunk(*args, **kwargs):
+        raise AssertionError("the chunk kernel was launched")
+
+    monkeypatch.setattr(FusedSortedLangevin, "chunk", no_chunk)
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    bound = LangevinIntegrator(temperature=120.0, collision_rate=1.0,
+                               timestep=0.002, splitting=splitting.strip()
+                               ).bind(fluid.system)
+    assert bound._fused is None
+    start = SamplerState(positions=fluid.positions,
+                         velocities=_thermal(2048, cuda),
+                         box_vectors=fluid.system.default_box)
+    first = bound.initial_state(start,
+                                torch.Generator(device=cuda).manual_seed(0))
+    fused = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
+                            timestep=0.002).bind(fluid.system)
+    assert fused._fused is not None
+    u_fused = fused.initial_state(start, torch.Generator()).potentials[0]
+    assert abs(float(first.potentials[0] - u_fused)) <= REL * abs(
+        float(u_fused))
+    state = bound.run(first, 5)
+    assert state.step_count == 5
+    assert torch.isfinite(state.positions).all()
+    assert torch.isfinite(state.potentials[0]).all()
+
+
+@pytest.mark.cuda
 def test_cuda_generic_program_keeps_the_device(cuda):
     """Systems the fused kernel does not serve take the generic program on
     the card: the harmonic oscillator, with noise from a CPU generator."""
@@ -263,11 +297,11 @@ def test_cuda_wrapper_refuses_bad_kernel_inputs(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _sweep_case(box_edge, method, switch_coulomb, device):
+def _sweep_case(box_edge, method, switch_coulomb, device, cutoff=0.9):
     from openmmtools_tpu_torch.models import PMEWaterBox
     from openmmtools_tpu_torch.ops import sweep_nb as tsw
 
-    w = PMEWaterBox(box_edge=box_edge, cutoff=0.9, device=device)
+    w = PMEWaterBox(box_edge=box_edge, cutoff=cutoff, device=device)
     term = w.system.terms[0]
     n = w.system.n_particles
     n_pad = -(-n // 128) * 128
@@ -310,6 +344,58 @@ def test_cuda_sweep_matches_plain(cuda, box_edge, method, switch_coulomb):
         assert not torch.any(F[:, k.n:])
         bound = nb.reshape(()).clone()
     assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pme", "cutoff_periodic"])
+def test_cuda_sweep_matches_plain_at_a_long_cutoff(cuda, method):
+    """rc = 1.2 nm on the 3.1 nm box (3,000 atoms): each slot queues several
+    hundred pairs inside the cutoff, so its warp fills and drains the queue
+    many times, across tile edges, before its last partial drain."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k, xT, par, excl, L = _sweep_case(3.1, method, False, cuda, cutoff=1.2)
+    flag = torch.tensor(True, device=cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, flag, zero)
+    F, U = k.sweep(xT, par, excl, L, nb)
+    F_ref, U_ref = tsw.PlainSweepNonbonded.like(k).sweep(xT, par, excl, L, nb)
+    torch.cuda.synchronize()
+    assert int(nb) == int(tsw.measure_bound_reference(
+        xT, L, flag, zero, n=k.n, cutoff=k.rc, skin=k.skin,
+        shell_block=k.bs)) > 0
+    assert _rel(F, F_ref) <= REL
+    assert abs(float(U - U_ref)) <= REL * abs(float(U_ref))
+    assert not torch.any(F[:, k.n:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alchemical", [False, True])
+def test_cuda_sweep_gives_the_same_bits_twice(cuda, alchemical):
+    """Two launches on the same inputs give identical F and U: each lane
+    sums its drained pairs in queue order (the ballot's), a fixed xor tree
+    sums the lanes and the last block sums the energy partials in block
+    order; no float atomics."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    lam = None
+    if alchemical:
+        w, system, term, k = _alchemical_case("direct-space", 1, cuda)
+        xT, par, excl, L, _ = tsw.sorted_inputs(term, w.positions,
+                                                system.default_box, k)
+        names = term.lambda_sterics_names + term.lambda_electrostatics_names
+        lam, _, _ = term.sweep_lambdas(
+            {name: torch.tensor(0.5, device=cuda) for name in names}, xT)
+        lam = lam.contiguous()
+    else:
+        k, xT, par, excl, L = _sweep_case(3.1, "pme", False, cuda)
+    nb = k.measure_bound(xT, L, torch.tensor(True, device=cuda),
+                         torch.zeros((), dtype=torch.int32, device=cuda))
+    F1, U1 = k.sweep(xT, par, excl, L, nb, lam)
+    F2, U2 = k.sweep(xT, par, excl, L, nb, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(F1, F2) and torch.equal(U1, U2)
+    assert k.launches[k.forces_kernel] == 2
 
 
 @pytest.mark.cuda

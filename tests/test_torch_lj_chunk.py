@@ -5,7 +5,9 @@ wrapper passes as a table of uint32 words in the launch arguments. Here a
 plain interpreter of that table, written from the kernel's word layout,
 decodes what ``FusedSortedLangevin`` builds and holds it against
 ``_step_program``; the wrapper refuses a program past the table's size or
-a segment past 16 tokens; and on CPU tensors both wrappers run the plain
+a segment past 16 tokens, and ``fits_chunk_table`` (which keeps such a
+splitting on the integrator's generic program) says which fit; and on CPU
+tensors both wrappers run the plain
 chunk, ``fused_langevin_reference``, bit for bit with noise on. A two-sweep
 splitting's plain chunk is held against the JAX package's
 ``FusedSortedLangevin`` in interpret mode at collision_rate 0, with the
@@ -19,13 +21,17 @@ import pytest
 import torch
 
 from openmmtools_tpu.ops.pallas_baoab import FusedSortedLangevin as JaxK1
+from openmmtools_tpu_torch.integrators import LangevinIntegrator
+from openmmtools_tpu_torch.models import LennardJonesFluid
 from openmmtools_tpu_torch.ops.fused_langevin import (
     FusedDenseBAOAB,
     FusedSortedLangevin,
     _step_program,
     draw_seed,
+    fits_chunk_table,
     fused_langevin_reference,
 )
+from openmmtools_tpu_torch.states import SamplerState
 
 from test_torch_support import minimized_fluid, np64, wrapped_distance
 
@@ -78,6 +84,48 @@ def test_table_decodes_to_the_step_program(splitting):
 def test_wrapper_refuses_what_the_table_cannot_hold(splitting, match):
     with pytest.raises(ValueError, match=match):
         _program(256, splitting)
+
+
+@pytest.mark.parametrize("splitting, fits", [
+    ("V R O R V", True),
+    (LONG, True),                        # 16 tokens before the sweep
+    ("R V " * 9, False),                 # 19 items
+    ("V R " + "O " * 15, False),         # 17 tokens before the sweep
+])
+def test_fit_predicate_matches_what_the_wrapper_takes(splitting, fits):
+    """``fits_chunk_table`` is True exactly where the wrapper builds its
+    table, so ``_fused_setup`` never reaches a refusal."""
+    assert fits_chunk_table(splitting.split()) is fits
+    if fits:
+        _program(256, splitting)
+    else:
+        with pytest.raises(ValueError):
+            _program(256, splitting)
+
+
+def test_long_splitting_runs_the_generic_program_in_sweep_mode():
+    """What a CUDA LJ fluid does with a splitting the table cannot hold,
+    here on the CPU: the generic program, in sweep mode, whose remainder
+    (no bonded terms, exceptions or reciprocal space) does not depend on the
+    positions (a zero gradient); 3 steps at gamma 0 follow the dense
+    program."""
+    fluid = LennardJonesFluid(nparticles=256, device="cpu")
+    splitting = ("R V " * 9).strip()
+    kw = dict(temperature=120.0, collision_rate=0.0, timestep=0.002,
+              splitting=splitting)
+    sweep = LangevinIntegrator(sweep="force", **kw).bind(fluid.system)
+    dense = LangevinIntegrator(sweep=None, **kw).bind(fluid.system)
+    assert sweep.sweep_mode and sweep._fused is None
+    assert not dense.sweep_mode
+    start = SamplerState(positions=fluid.positions,
+                         velocities=torch.zeros_like(fluid.positions),
+                         box_vectors=fluid.system.default_box)
+    a = sweep.run(sweep.initial_state(start, torch.Generator()), 3)
+    b = dense.run(dense.initial_state(start, torch.Generator()), 3)
+    L = float(fluid.system.default_box[0, 0])
+    assert wrapped_distance(a.positions, b.positions, L) < 1e-5
+    assert abs(float(a.potentials[0] - b.potentials[0])) <= 2e-4 * abs(
+        float(b.potentials[0]))
 
 
 @pytest.mark.parametrize("splitting", ["V R O R V", "R V R V", "O V R V O"])
