@@ -34,8 +34,9 @@ nonzero exit. Phases:
    positions; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
    K2 and PME times (K2's beside its earlier kernel's), K2's queue drains
-   a slot and its time with no pair inside the cutoff, and a profile of the
-   step with K2's device ms a step;
+   a slot and its time with no pair inside the cutoff, how many of
+   ``sweep_bound``'s launches rebuild over 1,000 untimed steps and its time
+   without a rebuild, and a profile of the step with K2's device ms a step;
 8. K2's alchemical variant against its plain version on the alchemical
    water box (AlchemicalWaterBox(box_edge=6.223), 24,064 slots) at a fresh
    sort: one region with the direct-space treatment at lambda 1, 0.5 and 0,
@@ -72,8 +73,13 @@ nonzero exit. Phases:
    100-step run (rebin every 25 steps) from a FIRE-minimized start against
    K3's kernel, the kinetic temperature, ``run`` in 50,000-step chunks from
    that start with capacity and occupancy a chunk, the final forces against
-   the dense sum, the kernels', rebin's and plain versions' times and
-   bounds, and K4's forces beside K1's on LennardJonesFluid(16384).
+   the dense sum; at the main path's fullest bin the forces and a noisy
+   40-step chunk against the plain versions, both kernels launched twice to
+   the same bits, the kernels', rebin's and plain versions' times and
+   bounds, the split of a step (the grid barrier and the forces' launch,
+   each measured on an empty bin, against the staging, the pairs and the
+   update) and of one chunk of ``run`` (the kernels' device time against
+   the rest); and K4's forces beside K1's on LennardJonesFluid(16384).
 
 Times of the chunk kernels of K1, K3 and K4 (``ms``, ``plain_ms``,
 ``bound_ms`` of their entries, marked ``"per": "step"``) are per step of a
@@ -111,6 +117,7 @@ WATER_EDGE = 6.223       # the JAC DHFR box: 20^3 TIP3P waters, 24,000 atoms
 WATER_T = 300.0
 WARMUP = 5_000
 WATER_CHUNK = 1_000
+REBUILD_STEPS = 1_000    # untimed water steps counting K2's rebuilds
 # the H100 SXM's published peaks (NVIDIA's data sheet): 3.35 TB/s of HBM,
 # 67 TFLOP/s of FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -773,6 +780,26 @@ def run_timed(bound, state, warmup, system, dof, label,
     return state, rates, warmup + 20 * 50 + WATER_CHUNK * len(rates)
 
 
+def count_rebuilds(bound, state, k, n_steps):
+    """``n_steps`` untimed steps of ``bound`` with each call of K2's
+    ``measure_bound`` recording its rebuild flag on the device; returns the
+    state, the launches with the flag set and all launches."""
+    measure = k.measure_bound
+    flags = []
+
+    def recording(xT, L, rebuild, nblk):
+        flags.append(torch.as_tensor(rebuild, device=xT.device).reshape(()))
+        return measure(xT, L, rebuild, nblk)
+
+    before = k.launches["sweep_bound"]
+    k.measure_bound = recording
+    state = bound.run(state, n_steps)
+    del k.measure_bound
+    calls = k.launches["sweep_bound"] - before
+    assert calls == len(flags) > 0, (calls, len(flags))
+    return state, int(torch.stack(flags).sum()), calls
+
+
 def check_final_state(bound, state, label):
     """The output is right: finite, rigid, and the run's own final energy
     and forces agree with the plain sweep plus the remainder at the same
@@ -923,6 +950,21 @@ def phase_water(dev, smi, k6):
         f"{tests_ms:.4f} ms device, so the drains take {f_ms - tests_ms:.4f} "
         f"of the kernel's {f_ms:.4f} ms")
 
+    # how often sweep_bound re-measures: the rebuild flag of each of its
+    # launches over untimed steps, summed on the device and read once;
+    # and its launch without a rebuild
+    state, rebuilds, bound_calls = count_rebuilds(bound, state, k,
+                                                  REBUILD_STEPS)
+    idle_ms = launch_ms(lambda: k.measure_bound(xT, L, ~flag, nb),
+                        "sweep_bound_f32", reps=50)
+    say(f"phase 7 K2 rebuilds: {rebuilds} of {bound_calls} sweep_bound "
+        f"launches over {REBUILD_STEPS} untimed steps ran with the rebuild "
+        f"flag set (one every {REBUILD_STEPS / max(rebuilds, 1):.2f} steps); "
+        f"a launch without a rebuild {idle_ms:.5f} ms device, with one "
+        f"{b_ms:.4f} ms ({smi})")
+    for key in k.launches:
+        k.launches[key] = launches[key]
+
     state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50)
     step_ms = 1e3 / median
     say(f"phase 7 profile: K2 (bound + forces) device "
@@ -948,6 +990,8 @@ def phase_water(dev, smi, k6):
              bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None),
     ], dict(steps_per_s_max=best, steps_per_s_median=median,
             ns_per_day=ns_day, step_ms_profiled=wall_ms,
+            k2_rebuilds=rebuilds, k2_bound_launches=bound_calls,
+            k2_rebuild_steps=REBUILD_STEPS, k2_bound_idle_ms=idle_ms,
             device_busy_ms=busy_ms, pme_ms=pme_ms, k2_queued_a_slot=queued,
             k2_drains_a_slot=drains, k2_tests_alone_ms=tests_ms,
             device_ms_by_part={k_: v[0] for k_, v in parts.items()})
@@ -1683,15 +1727,28 @@ def phase_cell(dev, smi):
         f"{dv / v_scale:.2e} against plain")
     assert chunk_dx < 5e-4 and dv < 5e-3 * v_scale, (chunk_dx, dv)
 
+    # no float atomics and a fixed summation order: the forces and a
+    # 175-step chunk (an odd count: the final positions are copied back),
+    # each launched twice on the same inputs, give the same bits
+    steps = km.rebuild_interval
+    same_f = torch.equal(km.forces(xs, valid, rows=mo),
+                         km.forces(xs, valid, rows=mo))
+    twice = [km.chunk(xs.clone(), vs.clone(), valid, kT_t, 8, steps, rows=mo)
+             for _ in range(2)]
+    same_c = all(torch.equal(a, b) for a, b in zip(*twice))
+    say(f"phase 12 the same bits twice at the fullest bin: cell_forces "
+        f"{same_f}, cell_chunk ({steps} steps, gamma=1) {same_c}")
+    assert same_f and same_c
+
     # times at the fullest bin, in turns with the plain versions: the
     # kernels' device time (a wrapper call is host-bound: it makes the
     # occupancy and the forces buffer with small torch operations first),
     # the wrapper call and the plain versions by CUDA events
-    steps = km.rebuild_interval
     forces = lambda: km.forces(xs, valid, rows=mo)  # noqa: E731
     chunk = lambda: km.chunk(xs.clone(), vs.clone(), valid, kT_t, 5,  # noqa: E731
                              steps, rows=mo)
     xf, vf = fullest["x"], fullest["v"]
+    empty = torch.zeros_like(valid)
     t = {}
     for label, fn, reps, per in (
             ("plain_f", lambda: tmd.cell_forces_reference(xs, valid, km.spec,
@@ -1710,7 +1767,20 @@ def phase_cell(dev, smi):
             ("rebin", lambda: tmd.unbin_particles(*km.bin(xf, vf)[:2], sp, N),
              20, 1),
             ("rebin2", lambda: tmd.unbin_particles(*km.bin(xf, vf)[:2], sp,
-                                                   N), 20, 1)):
+                                                   N), 20, 1),
+            # the force kernel's launch on a bin with no particle: every
+            # block reads one occupancy and returns
+            ("empty_f", (lambda: km.forces(xs, empty, rows=mo),
+                         "cell_forces_f32"), 50, 1),
+            # a chunk on it: each step one occupancy read a cell and the
+            # grid barrier
+            ("empty_c", (lambda: km.chunk(xs.clone(), vs.clone(), empty,
+                                          kT_t, 5, steps, rows=mo),
+                         "cell_chunk_f32"), 10, steps),
+            # one chunk of run as the main path drives it (bin with its host
+            # read, forces, chunk, unbin), wall time by CUDA events
+            ("run", lambda: km.run(xf, vf, kT_t, gen, steps), 20, 1),
+            ("run2", lambda: km.run(xf, vf, kT_t, gen, steps), 20, 1)):
         t[label] = (launch_ms(*fn, reps=reps) if isinstance(fn, tuple)
                     else cuda_ms(fn, reps=reps)) / per
     f_ms, f_plain = (min(t["kernel_f"], t["kernel_f2"]),
@@ -1718,6 +1788,9 @@ def phase_cell(dev, smi):
     c_ms, c_plain = (min(t["kernel_c"], t["kernel_c2"]),
                      min(t["plain_c"], t["plain_c2"]))
     rebin_ms = min(t["rebin"], t["rebin2"])
+    run_ms = min(t["run"], t["run2"])
+    for key in km.launches:   # the timings' launches are not the path's
+        km.launches[key] = launches[key]
     M, G = km.spec.capacity, km.spec.g_cells
     tested, inside = cell_pair_counts(xs, valid, km.spec, mo)
     pair_ops = tested * OPS_DIST + inside * OPS_PAIR
@@ -1738,6 +1811,29 @@ def phase_cell(dev, smi):
         f"chunk, device) kernel {c_ms:.5f} ms, plain {c_plain:.4f} ms (5-step "
         f"chunk), bound {c_bound[0]:.6f} ms by {c_bound[1]}; torch rebin (bin "
         f"with its host read + unbin) {rebin_ms:.4f} ms a chunk ({smi})")
+    # where a step goes: the chunk's step less its step on an empty bin
+    # (the grid barrier) is the staging, the pairs and the update; the
+    # forces launch less its launch on an empty bin is the staging and the
+    # pairs
+    barrier = t["empty_c"]
+    work_f = f_ms - t["empty_f"]
+    say(f"phase 12 split of a step at the fullest bin: cell_chunk "
+        f"{c_ms:.5f} ms a step, of which {barrier:.5f} ms the grid barrier "
+        f"with one occupancy read a cell (a chunk on an empty bin), so "
+        f"{c_ms - barrier:.5f} ms staging, pairs and update; cell_forces "
+        f"{f_ms:.5f} ms a launch, of which {t['empty_f']:.5f} ms the launch "
+        f"on an empty bin, so {work_f:.5f} ms staging and pairs ({smi})")
+    # the host queues a chunk's unbin and the next bin while the chunk's
+    # kernels run, so the rebin timed alone overlaps them in run
+    kernels_ms = f_ms + steps * c_ms
+    rest_ms = run_ms - kernels_ms
+    say(f"phase 12 split of one {steps}-step chunk of run at the fullest "
+        f"bin: wall {run_ms:.4f} ms ({steps / run_ms * 1e3:.1f} steps/s); "
+        f"the kernels' device time {kernels_ms:.4f} ms "
+        f"({kernels_ms / run_ms:.3f}); the rest {rest_ms:.4f} ms "
+        f"({rest_ms / run_ms:.3f}): the part of the rebin (timed alone back "
+        f"to back {rebin_ms:.4f} ms) and of the wrappers' host work that the "
+        f"kernels do not hide ({smi})")
 
     # the cell-list question at two sizes: K4's forces beside K1's on the
     # same positions (printed, not asserted); at N the main path's program
@@ -1777,7 +1873,9 @@ def phase_cell(dev, smi):
              per="step"),
     ], dict(steps_per_s_max=best, steps_per_s_median=median,
             capacity=km.spec.capacity, capacity_bumps=km.capacity_bumps,
-            fullest_occupancy=mo, rebin_ms=rebin_ms, cell_list_question=sizes)
+            fullest_occupancy=mo, rebin_ms=rebin_ms, chunk_wall_ms=run_ms,
+            empty_forces_ms=t["empty_f"], empty_chunk_step_ms=barrier,
+            cell_list_question=sizes)
 
 
 def main():

@@ -213,10 +213,12 @@ __device__ __forceinline__ void normal3(uint32_t c0, uint32_t c1, uint32_t c2,
     z2 = rad23 * cosf(two_pi * u3);
 }
 
-// Co-resident blocks of a cooperative kernel on the current device (0 when
-// the device cannot launch cooperative kernels).
+// Co-resident blocks of a cooperative kernel of `block` threads and `smem`
+// bytes of dynamic shared memory a block on the current device (0 when the
+// device cannot launch cooperative kernels).
 template <typename Kernel>
-inline cudaError_t max_coresident_blocks(Kernel kernel, int block, int* out) {
+inline cudaError_t max_coresident_blocks(Kernel kernel, int block, int* out,
+                                         size_t smem = 0) {
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -225,7 +227,7 @@ inline cudaError_t max_coresident_blocks(Kernel kernel, int block, int* out) {
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, block, 0);
+            &per_sm, kernel, block, smem);
     *out = (err == cudaSuccess && coop) ? per_sm * sms : 0;
     return err;
 }

@@ -772,3 +772,106 @@ def test_cuda_cell_kernels_past_capacity_16(cuda):
     assert float(((xa - xb) * occupied).abs().max()) < 5e-4
     assert float(((va - vb) * occupied).abs().max()) < 5e-3 * float(
         vb.abs().max())
+
+
+def _cell_kernels_match_plain(k, xs, vs, valid, mo, seed, steps=40):
+    """K4's forces (nothing written to an empty slot) and a noisy chunk of
+    ``steps`` on the bin (xs, vs, valid) of ``k`` at rows ``mo`` against the
+    plain versions."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    F = k.forces(xs, valid, rows=mo)
+    assert _rel(F, tmd.cell_forces_reference(xs, valid, k.spec, mo)) <= REL
+    assert not torch.any(F * (1.0 - valid))
+    kT = torch.tensor([kB * 120.0], device=xs.device)
+    xa, va = k.chunk(xs.clone(), vs.clone(), valid, kT, seed, steps, rows=mo)
+    xb, vb = tmd.cell_chunk_reference(xs, vs, valid, kT, seed, steps, k.spec,
+                                      mo)
+    torch.cuda.synchronize()
+    occupied = valid[None] > 0
+    assert float(((xa - xb) * occupied).abs().max()) < 5e-4
+    assert float(((va - vb) * occupied).abs().max()) < 5e-3 * float(
+        vb.abs().max())
+    assert torch.equal(xa * ~occupied, xs * ~occupied)
+    assert not torch.any(va * ~occupied)
+
+
+@pytest.mark.cuda
+def test_cuda_cell_kernels_past_occupancy_32(cuda):
+    """A simple cubic lattice of spacing 0.37 nm (about the LJ minimum,
+    jittered by 0.01 nm) bins about 64 particles into a cell, more than a
+    warp's lanes, with no clash: forces and a noisy 40-step chunk against
+    the plain versions. (A fluid squeezed further than 0.5 of its box keeps
+    clashes through FIRE, and the plain chunk then overflows.)"""
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    side = 13   # 13^3 >= 2048 lattice sites
+    i = torch.arange(2048, device=cuda)
+    sites = torch.stack([i % side, (i // side) % side, i // side ** 2], 1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = 0.5 + 0.37 * sites.float() + 0.01 * torch.randn(
+        (2048, 3), device=cuda, generator=gen)
+    k = _cell_program(fluid)
+    xs, vs, valid, _, mo = k.bin(x, _thermal(2048, cuda))
+    assert mo > 32 and k.spec.capacity >= mo
+    _cell_kernels_match_plain(k, xs, vs, valid, mo, seed=11)
+    assert k.launches == {"cell_forces": 2, "cell_chunk": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_cell_kernels_at_n_side_3(cuda):
+    """The smallest grid, LennardJonesFluid(nparticles=100): three cells a
+    side, so every cell's neighbourhood wraps on both sides of each axis.
+    Forces against the plain version and the dense sum, and a noisy 40-step
+    chunk against the plain chunk, from a FIRE-minimized start."""
+    from openmmtools_tpu_torch.ops import fused_md as tmd
+
+    fluid = LennardJonesFluid(nparticles=100, device=cuda)
+    x, _ = fire_minimize(fluid.system, fluid.positions,
+                         fluid.system.default_box, max_steps=200)
+    k = _cell_program(fluid)
+    assert k.spec.n_side == 3 and k.spec.g_cells == 125
+    xs, vs, valid, sp, mo = k.bin(x, _thermal(100, cuda))
+    _cell_kernels_match_plain(k, xs, vs, valid, mo, seed=12)
+    F = k.forces(xs, valid, rows=mo)
+    Fp, _ = tmd.unbin_particles(F, F, sp, 100)
+    xw, _ = tmd.unbin_particles(xs, xs, sp, 100)
+    L = torch.full((3,), k.spec.box_edge, device=cuda)
+    F_dense, _ = lj_forces_reference(xw.t().contiguous(), L,
+                                     cutoff=k.spec.cutoff,
+                                     switch_width=k.spec.switch_width,
+                                     sigma=k.spec.sigma,
+                                     epsilon=k.spec.epsilon)
+    assert _rel(Fp, F_dense.t()) <= REL
+
+
+@pytest.mark.cuda
+def test_cuda_cell_kernels_give_the_same_bits_twice(cuda, calm_fluid):
+    """No float atomics and a fixed summation order: the forces and a noisy
+    175-step chunk, each launched twice on the same inputs, to the same
+    bits."""
+    fluid = calm_fluid
+    k = _cell_program(fluid)
+    x = fluid.positions
+    xs, vs, valid, _, mo = k.bin(x, _thermal(1000, cuda))
+    F1 = k.forces(xs, valid, rows=mo)
+    F2 = k.forces(xs, valid, rows=mo)
+    assert torch.equal(F1, F2)
+    kT = torch.tensor([kB * 120.0], device=cuda)
+    a = k.chunk(xs.clone(), vs.clone(), valid, kT, 13, 175, rows=mo)
+    b = k.chunk(xs.clone(), vs.clone(), valid, kT, 13, 175, rows=mo)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert k.launches == {"cell_forces": 4, "cell_chunk": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_cell_chunk_strides_past_the_coresident_blocks(cuda):
+    """N = 16,384: 4,913 interior cells, more than the chunk kernel's
+    co-resident blocks, so each block takes several cells in turn. A noisy
+    3-step chunk against the plain chunk."""
+    fluid = LennardJonesFluid(nparticles=16384, device=cuda)
+    k = _cell_program(fluid)
+    assert k.spec.n_side ** 3 == 4913
+    x = fluid.positions
+    xs, vs, valid, _, mo = k.bin(x, _thermal(16384, cuda))
+    _cell_kernels_match_plain(k, xs, vs, valid, mo, seed=14, steps=3)
