@@ -25,24 +25,30 @@ nonzero exit. Phases:
 6. K2's kernels (the bounded sweep) against their plain versions at the
    explicit-solvent shapes (24,000 atoms, 24,064 slots): PME with the LJ
    switch, reaction field, and the Coulomb switch, each with the bound
-   re-measured and passed through, and each force launch repeated on the
-   same inputs to the same bits;
+   re-measured and passed through, and each launch repeated on the same
+   inputs to the same bits (the bound's to the same int);
 7. the explicit-solvent main path: PMEWaterBox(box_edge=6.223) (8,000
    rigid TIP3P waters, PME) -> BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind
    (sweep mode, SETTLE) -> initial_state -> run, warmed up for 5,000 steps
    and timed in 1,000-step chunks that each end in a host fetch of the
    positions; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
-   K2 and PME times (K2's beside its earlier kernel's), K2's queue drains
+   K2 and PME times (K2's beside its earlier kernels'), K2's queue drains
    a slot and its time with no pair inside the cutoff, how many of
    ``sweep_bound``'s launches rebuild over 1,000 untimed steps and its time
-   without a rebuild, and a profile of the step with K2's device ms a step;
+   without a rebuild; ``sweep_bound`` on a rebuild, by its launches'
+   device time, on the final state's fresh sort and on the path's own stale
+   ring (its last rebuild before a re-sort, the ring its ``kernels`` entry
+   reports), each launched twice to the same int as the plain version, with
+   its floor there (the tile tests that no order of its scan can skip)
+   beside the pairs within w in x and the whole ring's; and a profile of
+   the step with K2's device ms a step;
 8. K2's alchemical variant against its plain version on the alchemical
    water box (AlchemicalWaterBox(box_edge=6.223), 24,064 slots) at a fresh
    sort: one region with the direct-space treatment at lambda 1, 0.5 and 0,
    the 'exact' and 'coulomb' treatments at 0.55, and two regions, with and
    without their interaction; the bound, forces, energy and times of each,
-   and two launches on the same inputs to the same bits;
+   and two launches of each kernel on the same inputs to the same bits;
 9. the alchemical main path (Path A): AlchemicalWaterBox(box_edge=6.223) ->
    a CompoundThermodynamicState of AlchemicalState(lambda_electrostatics=0,
    lambda_sterics=0.5) at 300 K -> BAOABIntegrator(300 K, 1/ps, 2 fs) ->
@@ -50,15 +56,18 @@ nonzero exit. Phases:
    run: 2,000 warm-up steps, then 1,000-step chunks that each end in a host
    fetch; launch counts, steps/s and ns/day, the kinetic temperature, the
    rigid geometry, the final energy and forces against the plain versions,
-   K2-alchemical's times (beside its earlier kernel's), a profile of the
-   step with K2's device ms a step, and on a 3,000-atom box the sweep path
-   against the dense alchemical term;
+   the bound on the path's own ring and on a fresh sort against the plain
+   version, K2-alchemical's times (beside its earlier kernel's), a profile
+   of the step with K2's device ms a step, and on a 3,000-atom box the
+   sweep path against the dense alchemical term;
 10. the NCMC path (Path B) on the same box:
    AlchemicalNonequilibriumLangevinIntegrator(lambda_electrostatics = 1 -
    lambda, 500 steps, 'O { V R H R V } O') for one whole protocol, and a
    10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
    0.1) whose protocol work is held against the same energy differences
-   summed outside the integrator; steps/s and ns/day of the protocol;
+   summed outside the integrator; steps/s and ns/day of the protocol, and
+   the bound on the protocol's own ring at its end against the plain
+   version;
 11. K3 (FusedDenseBAOAB: the chunk kernel with "V R O R V", one
    cooperative launch a chunk) on LJ-2048 against its plain version (K1's
    plain chunk for "V R O R V"): F and U at n_steps = 0, 40-step chunks at
@@ -88,6 +97,7 @@ chunk.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import json
 import math
 import pathlib
@@ -134,11 +144,13 @@ OPS_PAIR = 60
 # scaling: 20 more
 OPS_PAIR_ALCH = OPS_PAIR + 20
 ALCH_LAMBDAS = dict(lambda_electrostatics=0.0, lambda_sterics=0.5)
-# K2's force kernels in their one-thread-a-slot design (the partner range in
-# 8 grid.y slices), timed by this script at the main paths' final states on
-# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): printed beside
-# the times of this checkout's kernels
-K2_SLOT_A_THREAD_MS = {"sweep_forces": 1.2726, "sweep_forces_alch": 1.3896}
+# K2's kernels in their one-thread-a-slot design (the partner or shell range
+# in 8 grid.y slices), timed by this script at the main paths' final states
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table; the bound
+# pass on a rebuild, on a fresh ring): printed beside the times of this
+# checkout's kernels
+K2_SLOT_A_THREAD_MS = {"sweep_forces": 1.2726, "sweep_forces_alch": 1.3896,
+                       "sweep_bound": 0.6138}
 ALCH_WARMUP = 2_000
 NCMC_STEPS = 500
 PERTURB_STEPS = 10
@@ -604,6 +616,7 @@ def phase_sweep_kernels(dev):
         for rebuild in (True, False):
             flag = torch.tensor(rebuild, device=dev)
             nb = k.measure_bound(xT, L, flag, nb_in)
+            nb2 = k.measure_bound(xT, L, flag, nb_in)
             nb_ref = tsw.measure_bound_reference(
                 xT, L, flag, nb_in, n=k.n, cutoff=k.rc, skin=k.skin,
                 shell_block=k.bs)
@@ -617,17 +630,18 @@ def phase_sweep_kernels(dev):
                 float(U_ref))
             same = torch.equal(F, F2) and torch.equal(U, U2)
             say(f"phase 6 sweep {label}, rebuild {rebuild}: bound "
-                f"{int(nb)} vs plain {int(nb_ref)}, max|dF| {f_err:.3e} "
+                f"{int(nb)} (a second launch {int(nb2)}) vs plain "
+                f"{int(nb_ref)}, max|dF| {f_err:.3e} "
                 f"(rel {f_rel:.2e}), U {float(U):.4f} vs plain "
                 f"{float(U_ref):.4f} (rel {u_rel:.2e}); a second launch "
                 f"gives the same bits: {same}")
-            assert int(nb) == int(nb_ref), (label, rebuild)
+            assert int(nb) == int(nb2) == int(nb_ref), (label, rebuild)
             assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
             assert same, (label, rebuild)
             worst["f"] = max(worst["f"], f_err)
             worst["nb"] = max(worst["nb"], abs(int(nb) - int(nb_ref)))
             nb_in = nb.reshape(()).clone()   # pass the bound through next
-    assert k.launches == {"sweep_bound": 2, "sweep_forces": 4}
+    assert k.launches == {"sweep_bound": 4, "sweep_forces": 4}
     return worst
 
 
@@ -782,13 +796,19 @@ def run_timed(bound, state, warmup, system, dof, label,
 
 def count_rebuilds(bound, state, k, n_steps):
     """``n_steps`` untimed steps of ``bound`` with each call of K2's
-    ``measure_bound`` recording its rebuild flag on the device; returns the
-    state, the launches with the flag set and all launches."""
+    ``measure_bound`` recording its rebuild flag on the device and the ring
+    it was given; returns the state, the launches with the flag set, all
+    launches, and the path's own ring at its last rebuild before a re-sort
+    (``n_steps`` is a multiple of the sort interval) with the steps since
+    the sort that made it."""
     measure = k.measure_bound
+    interval = bound.sweep_sort_interval
     flags = []
+    rings = collections.deque(maxlen=interval)
 
     def recording(xT, L, rebuild, nblk):
         flags.append(torch.as_tensor(rebuild, device=xT.device).reshape(()))
+        rings.append(xT)
         return measure(xT, L, rebuild, nblk)
 
     before = k.launches["sweep_bound"]
@@ -796,8 +816,82 @@ def count_rebuilds(bound, state, k, n_steps):
     state = bound.run(state, n_steps)
     del k.measure_bound
     calls = k.launches["sweep_bound"] - before
-    assert calls == len(flags) > 0, (calls, len(flags))
-    return state, int(torch.stack(flags).sum()), calls
+    assert calls == len(flags) == n_steps and n_steps % interval == 0, (
+        calls, len(flags))
+    flags = torch.stack(flags)
+    # the last sort interval's last evaluation with the flag set
+    last = int(torch.nonzero(flags[-interval:]).max())
+    return state, int(flags.sum()), calls, rings[last], last + 1
+
+
+def path_ring(bound, state):
+    """The ring that the path's evaluations read at ``state``: its positions
+    wrapped and gathered through the state's sweep order (made at the last
+    re-sort), (3, n_pad) float32, with the box's edges."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k = bound._sweep_kernel
+    box = state.box if state.box is not None else bound.system.default_box
+    _, xT = tsw.sorted_positions(state.positions, box,
+                                 state.sweep_perm.long(), k.n_pad,
+                                 torch.float32)
+    return xT, torch.diagonal(box).to(torch.float32).contiguous()
+
+
+def same_bound(k, plain, xT, L, label):
+    """K2's bound on a rebuild at ``xT``, launched twice, against the plain
+    version: the same int (these launches are not the path's)."""
+    before = dict(k.launches)
+    flag = torch.tensor(True, device=xT.device)
+    zero = torch.zeros((), dtype=torch.int32, device=xT.device)
+    got = [int(k.measure_bound(xT, L, flag, zero)) for _ in range(2)]
+    want = int(plain.measure_bound(xT, L, flag, zero))
+    k.launches.update(before)
+    say(f"{label}: sweep_bound {got[0]} (a second launch {got[1]}) vs plain "
+        f"{want} blocks of {k.n_blocks}")
+    assert got[0] == got[1] == want, (label, got, want)
+    return want
+
+
+def x_window_pairs(xT, L, k):
+    """The pairs (i, i + s), s = 1..n_pad/2, of real slots within w = rc +
+    skin of each other in x (minimum image), each once (the shell n_pad/2
+    meets its pairs from both ends and counts half): the distance tests
+    that the bound needs on this ring, since no pair farther apart in x can
+    lie within w."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    half = k.n_pad // 2
+    s = torch.arange(1, half + 1, device=xT.device)
+    weight = torch.where(s == half, 0.5, 1.0)
+    w = k.rc + k.skin
+    count = 0.0
+    rows = max(1, (1 << 22) // half)
+    for i0 in range(0, k.n, rows):
+        i = torch.arange(i0, min(i0 + rows, k.n), device=xT.device)[:, None]
+        j = (i + s[None, :]) % k.n_pad
+        dx = tsw._ring_delta(xT[0][i] - xT[0][j], L[0])
+        count += float((((j < k.n) & (dx.abs() <= w)) * weight).sum())
+    return count
+
+
+def bound_floor_tests(xT, L, k, nb):
+    """The distance tests that K2's bound kernel cannot skip on this ring,
+    whose bound is ``nb``: each group of 32 slots tests every partner tile
+    that its cull (``far_tiles``) keeps and whose largest shell lies in a
+    block above the bound's last one, since no best found in any order of
+    the warps reaches that block; 32 x 32 tests a tile. The tile that finds
+    the best hit and the cull's own decisions are left out, so the count is
+    a floor for any order of the scan."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    far = tsw.far_tiles(xT, L, k.n, k.rc, k.skin)
+    tiles, half = far.shape[0], k.n_pad // 2
+    kk = torch.arange(half // 32 + 1, device=far.device)
+    top = (torch.clamp(32 * kk + 31, max=half) - 1) // k.bs
+    g = torch.arange(tiles, device=far.device)[:, None]
+    keep = ~far[g, (g + kk[None, :]) % tiles] & (top > nb - 1)[None, :]
+    return 32 * 32 * int(keep.sum())
 
 
 def check_final_state(bound, state, label):
@@ -885,12 +979,12 @@ def phase_water(dev, smi, k6):
                                             system.default_box, k)
     flag = torch.tensor(True, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    same_bound(k, plain, xT, L, "phase 7 the final state, fresh ring")
     nb = k.measure_bound(xT, L, flag, zero)
     S = min(int(nb) * k.bs, k.n_pad // 2)
     f_kernel = lambda: k.sweep(xT, par, excl, L, nb)  # noqa: E731
     f_plain = lambda: plain.sweep(xT, par, excl, L, nb)  # noqa: E731
     b_kernel = lambda: k.measure_bound(xT, L, flag, zero)  # noqa: E731
-    b_plain = lambda: plain.measure_bound(xT, L, flag, zero)  # noqa: E731
     recip = system.terms[1]
     box = system.default_box
     pme = lambda: value_and_grad(  # noqa: E731
@@ -899,39 +993,50 @@ def phase_water(dev, smi, k6):
     t = {}
     for label, fn, reps in (("plain_f", f_plain, 5), ("kernel_f", f_kernel, 50),
                             ("kernel_f2", f_kernel, 50), ("plain_f2", f_plain, 5),
-                            ("plain_b", b_plain, 3), ("kernel_b", b_kernel, 20),
-                            ("kernel_b2", b_kernel, 20), ("plain_b2", b_plain, 3),
+                            ("kernel_b", b_kernel, 20),
+                            ("kernel_b2", b_kernel, 20),
                             ("pme", pme, 20), ("pme2", pme, 20)):
-        # the force kernel by its launch's device time (its wrapper's host
-        # work would show once the kernel is faster than it)
-        t[label] = (launch_ms(fn, "sweep_forces_f32", reps=reps)
-                    if label.startswith("kernel_f")
+        # the kernels by their launches' device time (their wrappers' host
+        # work would show once a kernel is faster than it)
+        entry = {"kernel_f": "sweep_forces_f32",
+                 "kernel_b": "sweep_bound_f32"}.get(label[:8])
+        t[label] = (launch_ms(fn, entry, reps=reps) if entry
                     else cuda_ms(fn, reps=reps))
     for key in k.launches:   # the comparisons' launches are not the path's
         k.launches[key] = before[key]
     f_ms, f_plain_ms = min(t["kernel_f"], t["kernel_f2"]), min(
         t["plain_f"], t["plain_f2"])
-    b_ms, b_plain_ms = min(t["kernel_b"], t["kernel_b2"]), min(
-        t["plain_b"], t["plain_b2"])
+    b_ms = min(t["kernel_b"], t["kernel_b2"])
     pme_ms = min(t["pme"], t["pme2"])
     # bounds from this run's inputs, each pair of the window once (the
     # kernel meets each pair of the force sweep from both ends): the force
     # sweep tests the pairs within S shells and evaluates those inside the
-    # cutoff; the bound pass tests the pairs of the whole ring
+    # cutoff; the bound pass needs the tile tests that its scan cannot skip
+    # (the pairs within w in x, and the whole ring's, the first design's
+    # work, beside them)
     tested, inside = sweep_pairs(xT, L, k, S)
     half_tested, _ = sweep_pairs(xT, L, k, k.n_pad // 2)
+    window = x_window_pairs(xT, L, k)
+    floor = bound_floor_tests(xT, L, k, int(nb))
     in_bytes = 4 * (3 * k.n_pad + 3 * k.n_pad + k.mask_rows * k.n_pad + 3 + 1)
     f_bound = bound_ms(in_bytes + 4 * (3 * k.n_pad + 1),
                        tested * OPS_DIST + inside * OPS_PAIR)
-    b_bound = bound_ms(4 * (3 * k.n_pad + 3 + 2 + 1), half_tested * OPS_DIST)
+    b_bytes = 4 * (3 * k.n_pad + 3 + 2 + 1)
+    b_bound = bound_ms(b_bytes, floor * OPS_DIST)
+    b_window = bound_ms(b_bytes, window * OPS_DIST)
+    b_whole = bound_ms(b_bytes, half_tested * OPS_DIST)
+    assert b_ms >= b_bound[0], (b_ms, b_bound)
     say(f"phase 7 K2 at the final state (bound {int(nb)} blocks, S = {S} "
         f"shells): sweep_forces kernel {f_ms:.4f} ms device (one thread a "
         f"slot: {K2_SLOT_A_THREAD_MS['sweep_forces']} ms), plain "
         f"{f_plain_ms:.4f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} "
         f"({tested:.0f} pair tests, {inside:.0f} pairs inside the cutoff); "
-        f"sweep_bound on a "
-        f"rebuild kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, bound "
-        f"{b_bound[0]:.4f} ms by {b_bound[1]} ({half_tested:.0f} pair tests); "
+        f"sweep_bound on a rebuild, fresh ring: kernel {b_ms:.5f} ms device "
+        f"(one thread a slot: {K2_SLOT_A_THREAD_MS['sweep_bound']} ms), "
+        f"bound {b_bound[0]:.6f} ms by {b_bound[1]} ({floor} tile tests "
+        f"its scan cannot skip; the {window:.0f} pairs within w in x "
+        f"{b_window[0]:.5f} ms, the whole ring's {half_tested:.0f} "
+        f"{b_whole[0]:.4f} ms); "
         f"PME reciprocal energy + forces {pme_ms:.4f} ms a call back to back "
         f"(host-bound; its device time is in the profile below) ({smi})")
 
@@ -953,15 +1058,44 @@ def phase_water(dev, smi, k6):
     # how often sweep_bound re-measures: the rebuild flag of each of its
     # launches over untimed steps, summed on the device and read once;
     # and its launch without a rebuild
-    state, rebuilds, bound_calls = count_rebuilds(bound, state, k,
-                                                  REBUILD_STEPS)
+    state, rebuilds, bound_calls, stale, age = count_rebuilds(
+        bound, state, k, REBUILD_STEPS)
     idle_ms = launch_ms(lambda: k.measure_bound(xT, L, ~flag, nb),
                         "sweep_bound_f32", reps=50)
     say(f"phase 7 K2 rebuilds: {rebuilds} of {bound_calls} sweep_bound "
         f"launches over {REBUILD_STEPS} untimed steps ran with the rebuild "
         f"flag set (one every {REBUILD_STEPS / max(rebuilds, 1):.2f} steps); "
         f"a launch without a rebuild {idle_ms:.5f} ms device, with one "
-        f"{b_ms:.4f} ms ({smi})")
+        f"{b_ms:.5f} ms ({smi})")
+    # the bound on the path's own stale ring: its last rebuild before a
+    # re-sort, the current positions gathered through the old order
+    stale_nb = same_bound(k, plain, stale, L,
+                          f"phase 7 the path's ring {age} steps after its "
+                          f"sort")
+    # the path's work: the kernel, its plain version and its floor there
+    s_kernel = lambda: k.measure_bound(stale, L, flag, zero)  # noqa: E731
+    s_plain = lambda: plain.measure_bound(stale, L, flag, zero)  # noqa: E731
+    t = {}
+    for label, fn, reps in (("plain", s_plain, 3), ("kernel", s_kernel, 20),
+                            ("kernel2", s_kernel, 20), ("plain2", s_plain, 3)):
+        t[label] = (launch_ms(fn, "sweep_bound_f32", reps=reps)
+                    if label.startswith("kernel") else cuda_ms(fn, reps=reps))
+    stale_ms = min(t["kernel"], t["kernel2"])
+    stale_plain_ms = min(t["plain"], t["plain2"])
+    stale_floor = bound_floor_tests(stale, L, k, stale_nb)
+    stale_bound = bound_ms(b_bytes, stale_floor * OPS_DIST)
+    stale_window = x_window_pairs(stale, L, k)
+    stale_by_window = bound_ms(b_bytes, stale_window * OPS_DIST)
+    assert stale_ms >= stale_bound[0], (stale_ms, stale_bound)
+    say(f"phase 7 K2 sweep_bound on a rebuild, the path's stale ring ({age} "
+        f"steps after its sort; bound {stale_nb} blocks against {int(nb)} "
+        f"on the fresh ring): kernel {stale_ms:.5f} ms device, fresh ring "
+        f"{b_ms:.5f} ms, one thread a slot "
+        f"{K2_SLOT_A_THREAD_MS['sweep_bound']} ms; plain "
+        f"{stale_plain_ms:.4f} ms; bound {stale_bound[0]:.6f} ms by "
+        f"{stale_bound[1]} ({stale_floor} tile tests its scan cannot skip; "
+        f"the {stale_window:.0f} pairs within w in x {stale_by_window[0]:.5f} "
+        f"ms) ({smi})")
     for key in k.launches:
         k.launches[key] = launches[key]
 
@@ -984,14 +1118,21 @@ def phase_water(dev, smi, k6):
              replaces=SWEEP_REPLACES, launches=launches["sweep_forces"],
              max_abs_err=k6["f"], ms=f_ms, plain_ms=f_plain_ms,
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
+        # on the path's stale ring, the ring most of its rebuilds see
         dict(name="sweep_bound", route="cuda", source=SWEEP_SOURCE,
              replaces=SWEEP_REPLACES, launches=launches["sweep_bound"],
-             max_abs_err=float(k6["nb"]), ms=b_ms, plain_ms=b_plain_ms,
-             bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None),
+             max_abs_err=float(k6["nb"]), ms=stale_ms,
+             plain_ms=stale_plain_ms, bound_ms=stale_bound[0],
+             bound_by=stale_bound[1], library_ms=None),
     ], dict(steps_per_s_max=best, steps_per_s_median=median,
             ns_per_day=ns_day, step_ms_profiled=wall_ms,
             k2_rebuilds=rebuilds, k2_bound_launches=bound_calls,
             k2_rebuild_steps=REBUILD_STEPS, k2_bound_idle_ms=idle_ms,
+            k2_bound_fresh_ms=b_ms, k2_bound_fresh_bound_ms=b_bound[0],
+            k2_bound_stale_age=age,
+            k2_bound_stale_x_window_ms=stale_by_window[0],
+            k2_bound_fresh_x_window_ms=b_window[0],
+            k2_bound_whole_ring_ms=b_whole[0],
             device_busy_ms=busy_ms, pme_ms=pme_ms, k2_queued_a_slot=queued,
             k2_drains_a_slot=drains, k2_tests_alone_ms=tests_ms,
             device_ms_by_part={k_: v[0] for k_, v in parts.items()})
@@ -1097,6 +1238,7 @@ def phase_alchemical_kernels(dev, smi):
         xT, par, excl, L, lam = alchemical_inputs(
             term, w.positions, box, k, device_params(values, dev))
         nb = k.measure_bound(xT, L, flag, zero)
+        nb2 = k.measure_bound(xT, L, flag, zero)
         nb_ref = plain.measure_bound(xT, L, flag, zero)
         F, U = k.sweep(xT, par, excl, L, nb, lam)
         F2, U2 = k.sweep(xT, par, excl, L, nb, lam)
@@ -1106,7 +1248,7 @@ def phase_alchemical_kernels(dev, smi):
         f_rel = max_rel(F, F_ref)
         u_rel = abs(float(U - U_ref)) / abs(float(U_ref))
         same = torch.equal(F, F2) and torch.equal(U, U2)
-        assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 2}
+        assert k.launches == {"sweep_bound": 2, "sweep_forces_alch": 2}
         k_ms = launch_ms(lambda: k.sweep(xT, par, excl, L, nb, lam),
                          "sweep_forces_alch_f32", reps=20)
         p_ms = cuda_ms(lambda: plain.sweep(xT, par, excl, L, nb, lam),
@@ -1114,14 +1256,15 @@ def phase_alchemical_kernels(dev, smi):
         S = min(int(nb) * k.bs, k.n_pad // 2)
         (b_ms, b_by), tested, inside = alchemical_bound(xT, L, k, S)
         say(f"phase 8 alchemical sweep, {label} ({term.n_regions} "
-            f"region(s), {k.n_lam} class scalars): bound {int(nb)} vs plain "
-            f"{int(nb_ref)}, max|dF| {f_err:.3e} (rel {f_rel:.2e}), U "
+            f"region(s), {k.n_lam} class scalars): bound {int(nb)} (a "
+            f"second launch {int(nb2)}) vs plain {int(nb_ref)}, max|dF| "
+            f"{f_err:.3e} (rel {f_rel:.2e}), U "
             f"{float(U):.4f} vs plain {float(U_ref):.4f} (rel {u_rel:.2e}); "
             f"a second launch gives the same bits: {same}; kernel "
             f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by} ({tested:.0f} pair tests, {inside:.0f} inside) "
             f"({smi})")
-        assert int(nb) == int(nb_ref), label
+        assert int(nb) == int(nb2) == int(nb_ref), label
         assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
         assert same, label
         worst = dict(f=max(worst["f"], f_err), f_rel=max(worst["f_rel"], f_rel),
@@ -1191,12 +1334,15 @@ def phase_alchemical_path(dev, smi, k8):
         f"({len(rates)} timed chunks of {WATER_CHUNK}), {ns_day:.2f} ns/day "
         f"at 2 fs, on {smi}")
     plain = check_final_state(bound, state, "phase 9")
+    same_bound(k, plain, *path_ring(bound, state),
+               "phase 9 the path's own ring at the final state")
 
     # K2-alchemical at the final state, in turns with the plain version
     xT, par, excl, L, lam = alchemical_inputs(
         term, state.positions, system.default_box, k, state.global_params)
     flag = torch.tensor(True, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    same_bound(k, plain, xT, L, "phase 9 the final state, fresh ring")
     nb = k.measure_bound(xT, L, flag, zero)
     before = dict(k.launches)
     t = {}
@@ -1314,6 +1460,8 @@ def phase_ncmc(dev, smi, state_a, system):
     assert math.isfinite(work) and torch.isfinite(state.positions).all()
     assert float(state.lambda_) == 1.0 and final["lambda_electrostatics"] == 0.0
     assert int(state.n_proposed) == NCMC_STEPS
+    same_bound(k, tsw.PlainSweepNonbonded.like(k), *path_ring(bound, state),
+               "phase 10 the protocol's own ring at its end")
 
     # external perturbation: lambda_electrostatics 1 -> 0 between steps
     ext = ExternalPerturbationLangevinIntegrator(

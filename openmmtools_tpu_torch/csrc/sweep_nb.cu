@@ -15,14 +15,13 @@
 //
 // Three C entry points:
 //
-//  * sweep_bound_f32: sweep_bound_kernel reads the rebuild flag from device
-//    memory and returns at once when it is clear; on rebuild each
-//    thread scans its slot's shells 1..n_pad/2 through shared-memory tiles of
-//    the sorted window and keeps the last block of shell_block shells with a
-//    pair of real slots within (rc + skin)^2. bound_finish_kernel reduces the
-//    per-block maxima and writes the bound (1 + the last block) or, without a
-//    rebuild, the bound it was given. Nothing reads the flag on the
-//    host, so a step never waits on the device. Both variants share it.
+//  * sweep_bound_f32: sweep_bound_kernel, one cooperative launch a call. It
+//    reads the rebuild flag from device memory; without a rebuild one thread
+//    passes the bound it was given on and every block returns. On a rebuild
+//    it writes 1 + the last block of shell_block shells that holds a pair of
+//    real slots within w = rc + skin (0 without one). Nothing reads the flag
+//    on the host, so a step never waits on the device. Both variants share
+//    it; its design is set out below the force kernel's.
 //  * sweep_forces_f32: sweep_forces_kernel<false> sums each sorted slot i's
 //    FULL ring neighbourhood i +- s, s <= S = min(bound * shell_block,
 //    n_pad/2), without Newton's third law: no atomics, a deterministic
@@ -98,6 +97,66 @@
 // needs a deterministic scatter; a 2D slab or cell structure would cut them
 // about tenfold; both are later work.
 //
+// The bound kernel's design, and what bounds it. The bound is a maximum, of
+// (s - 1) / shell_block over the pairs (i, i + s), 1 <= s <= n_pad/2, of
+// real slots within w = rc + skin. One thread a slot over all n_pad/2
+// shells (the first design) tests every pair of the ring, although on
+// water only the partners within w in x, about a third of the ring, can
+// hold a hit, and only the farthest hit counts. The ring is sorted by x
+// only at a re-sort (every sweep_sort_interval steps); in between, the path
+// gathers the current positions through the old order, so the ring it
+// rebuilds on is only roughly sorted, and an atom that crossed the box's x
+// face since the sort sits at the wrong end of it, with x near the other
+// face. So nothing may assume that x grows along the ring: a binary search
+// for a slot's x window, or a stop at the first shell past w in x, would
+// skip pairs within w without any error. Here sortedness only makes the
+// work small; whatever is skipped is proven out of range:
+//
+//  * Tiles and their x-arcs (phase 1). The ring is cut into tiles of GROUP
+//    = 32 consecutive slots. A warp takes a tile and writes its periodic
+//    x-arc (start, width): the offsets of its real slots from one of them
+//    by the minimum image, their min and max over the warp. Measured from a
+//    member, an atom that crossed the x face lands beside its neighbours
+//    and does not widen the arc to the box. Pad slots stay out of it, as do
+//    slots of non-finite x (they can hold no hit); a tile without a member
+//    gets width -1. One grid barrier, then each block copies the arcs (8
+//    bytes a tile) into its shared memory where they fit in the 48 KB a
+//    block gets without asking (STAGE_MAX: up to about 188,000 slots);
+//    past that every read of an arc goes to L2 (__ldcg), so no ring size is
+//    refused.
+//  * Groups scan far to near (phase 2). A warp takes a group, the tile g of
+//    slots, one slot a lane, and walks its partner tiles g + k from k =
+//    n_pad/64 down to 0, 32 at a time: lane l decides for k = k0 - l whether
+//    the tile can raise the maximum (its largest shell, 32 k + 31, lies in
+//    a block above the best found so far, by this warp or by any, read from
+//    a device-wide int) and whether the two arcs come within W = w (1 +
+//    1e-5) + 1e-5 L of each other on the periodic x-circle; a ballot
+//    gathers the tiles to test. W's margin is hundreds of ulps of L, more
+//    than the rounding of the arcs and of r^2, so a tile is skipped only
+//    where every pair's r^2, rounded as the plain version rounds it, lies
+//    above w^2. A tile to test is staged in shared memory (a float4 a
+//    partner, NaN for a pad slot), each lane tests its slot against the 32
+//    partners and keeps its last hit, and __reduce_max_sync gives the
+//    tile's block; the next tile's partners and the device-wide best are
+//    loaded while it is tested. The first tile with a hit ends the scan as
+//    soon as no nearer tile's largest shell lies above it. Each new best
+//    goes to the device-wide int by atomicMax, so the other warps skip what
+//    cannot beat it. A maximum does not depend on the order in which it is
+//    found, so every launch gives the same int.
+//  * One launch. The last block to draw an integer ticket writes nblk = 1 +
+//    the best block, re-arming the best to -1 (atomicExch) and the ticket
+//    to 0; the arcs need no re-arming. The wrapper keeps these two words
+//    and the arcs on its object across calls.
+//
+// What bounds it: on a fresh water ring a group's arc lies within W of
+// about a third of its partner tiles, and its scan stops within a few
+// tiles of the far edge of that window, so the pair tests are few; the
+// launch, the grid barrier and the chain of the cull's rounds (a shared
+// load and a dozen operations a lane, n_pad/2048 rounds a group) are most
+// of the time: latency, not operations. On a stale ring the arcs widen by
+// how far the atoms moved since the sort, and a group tests a few more
+// tiles before its first hit.
+//
 // erfcf stands in for the Abramowitz-Stegun 7.1.26 rational of the TPU
 // kernel (|error| < 1.5e-7): both are within float32 rounding of the
 // tolerance the port holds the kernel to (2e-4 of the force scale).
@@ -106,16 +165,29 @@
 // Python wrapper (openmmtools_tpu_torch/ops/sweep_nb.py) raises if it is not
 // 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "lj_common.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BLOCK = 128;    // sorted slots a block of the bound kernel
-                              // (ops/sweep_nb.py _BOUND_BLOCK)
-constexpr int SLICES = 8;     // pieces of its shell range (_BOUND_SLICES)
-constexpr int FINISH_BLOCK = 256;
+// n_pad is a multiple of PAD (ops/sweep_nb.py pads the ring so)
+constexpr int PAD = 128;
+// the bound kernel: tiles of GROUP ring slots, one warp a tile, BOUND_WARPS
+// warps a block (ops/sweep_nb.py _GROUP)
+constexpr int GROUP = 32;
+constexpr int BOUND_WARPS = 4;
+constexpr int BOUND_BLOCK = BOUND_WARPS * 32;
+// the most bytes of arcs a block stages in shared memory: the 48 KB a block
+// gets without asking, less the kernel's static shared memory
+constexpr size_t STAGE_MAX = 48 * 1024 - sizeof(float4) * BOUND_WARPS * GROUP
+                             - 16;
 // the force kernel: one warp a sorted slot, WARPS slots a block
 // (ops/sweep_nb.py _WARPS), two blocks an SM (64 registers a thread)
 constexpr int WARPS = 16;
@@ -154,98 +226,201 @@ __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
                      __fmul_rn(dz, dz));
 }
 
-__device__ __forceinline__ int ring_slot(int p, int n_pad) {
-    const int m = p % n_pad;
-    return m < 0 ? m + n_pad : m;
-}
-
-// ring_slot for -n_pad <= p < 2 n_pad (the force kernel's window: i +- S,
-// S <= n_pad/2), without a division
+// p modulo n_pad for -n_pad <= p < 2 n_pad (the force kernel's window:
+// i +- S, S <= n_pad/2), without a division
 __device__ __forceinline__ int ring_near(int p, int n_pad) {
     p += (p < 0) ? n_pad : 0;
     return p - ((p >= n_pad) ? n_pad : 0);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// The periodic x-arc of the ring's tile t, the same in every lane: (start,
+// width) with the tile's members in [start, start + width] modulo Lx; a
+// member is a real slot of finite x, and a tile without one gets width -1.
+__device__ __forceinline__ float2 tile_arc(const float* __restrict__ x,
+                                           int t, int n, float Lx, float hx) {
+    const int j = t * GROUP + (threadIdx.x & 31);
+    const float xj = j < n ? x[j] : 0.0f;
+    const bool member = j < n && isfinite(xj);
+    const unsigned m = __ballot_sync(FULL_MASK, member);
+    if (m == 0u) return make_float2(0.0f, -1.0f);
+    const float ref = __shfl_sync(FULL_MASK, xj, __ffs(m) - 1);
+    const float d = ring_delta(xj - ref, Lx, hx);
+    float lo = member ? d : FLT_MAX;
+    float hi = member ? d : -FLT_MAX;
+    for (int offset = 16; offset > 0; offset >>= 1) {
+        lo = fminf(lo, __shfl_xor_sync(FULL_MASK, lo, offset));
+        hi = fmaxf(hi, __shfl_xor_sync(FULL_MASK, hi, offset));
+    }
+    return make_float2(ref + lo, hi - lo);
+}
+
+// True when no point of arc t lies within W of arc a on the periodic
+// x-circle of length Lx (an empty t included): with a's start at 0, t must
+// start past a's end by more than W and end more than W before Lx. Rounding
+// that puts t's start at -0 or at Lx keeps the pair (it never culls more).
+__device__ __forceinline__ bool far_apart(float2 a, float2 t, float Lx,
+                                          float inv_Lx, float W) {
+    if (t.y < 0.0f) return true;
+    float u = t.x - a.x;
+    u -= Lx * floorf(u * inv_Lx);
+    return u > a.y + W && u + t.y < Lx - W;
+}
+
+// The largest block of shell_block shells that a partner tile g + k can
+// hold for the slots of group g: its shells are 32 k - 31 .. 32 k + 31,
+// at most n_pad/2
+__device__ __forceinline__ int tile_top(int k, int half, int bs) {
+    return (min(GROUP * k + GROUP - 1, half) - 1) / bs;
+}
+
+// Tile t modulo n_tiles for 0 <= t < 2 n_tiles
+__device__ __forceinline__ int ring_tile(int t, int n_tiles) {
+    return t - ((t >= n_tiles) ? n_tiles : 0);
+}
+
+// The position of ring slot j as a staged partner: NaN for a pad slot, so
+// that its every distance test fails
+__device__ __forceinline__ float4 partner(const float* __restrict__ x, int j,
+                                          int n, int n_pad) {
+    const float nan = __int_as_float(0x7fc00000);
+    return j < n ? make_float4(x[j], x[n_pad + j], x[2 * n_pad + j], 0.0f)
+                 : make_float4(nan, nan, nan, 0.0f);
+}
+
+// words[0]: the best block found so far (-1 between launches); words[1]:
+// the blocks' ticket (0 between launches). arcs: n_pad / GROUP float2 of
+// scratch. Launched cooperatively; STAGED: with n_pad / GROUP float2 of
+// dynamic shared memory a block, into which every block copies the arcs
+// (else each arc is read from L2 where it is needed).
+template <bool STAGED>
+__global__ void __launch_bounds__(BOUND_BLOCK)
 sweep_bound_kernel(const float* __restrict__ x, int n, int n_pad,
                    const float* __restrict__ L, float w2, int bs,
                    const unsigned char* __restrict__ rebuild,
-                   int* __restrict__ partial) {
-    __shared__ float sx[BLOCK];
-    __shared__ float sy[BLOCK];
-    __shared__ float sz[BLOCK];
-    __shared__ int sv[BLOCK];
-    __shared__ int red[BLOCK];
-    if (rebuild[0] == 0) return;  // the finish kernel passes the bound on
-
-    const int half = n_pad / 2;
-    const int tid = threadIdx.x;
-    const int i0 = blockIdx.x * BLOCK;
-    const int i = i0 + tid;
-    const bool active = i < n;
-    const float Lx = L[0], Ly = L[1], Lz = L[2];
-    const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
-    // this block's shells: slice blockIdx.y of 1..half
-    const int per = (half + gridDim.y - 1) / gridDim.y;
-    const int s_lo = 1 + blockIdx.y * per;
-    const int s_hi = min(half, s_lo + per - 1);
-
-    float xi = 0.0f, yi = 0.0f, zi = 0.0f;
-    if (active) {
-        xi = x[i];
-        yi = x[n_pad + i];
-        zi = x[2 * n_pad + i];
-    }
-    int last = -1;
-    for (int p0 = i0 + s_lo; p0 <= i0 + BLOCK - 1 + s_hi; p0 += BLOCK) {
-        const int jm = ring_slot(p0 + tid, n_pad);
-        sv[tid] = jm < n;
-        sx[tid] = x[jm];
-        sy[tid] = x[n_pad + jm];
-        sz[tid] = x[2 * n_pad + jm];
-        __syncthreads();
-        if (active) {
-            for (int k = 0; k < BLOCK; ++k) {
-                const int s = p0 + k - i;
-                if (s < s_lo || s > s_hi || !sv[k]) continue;
-                const float dx = ring_delta(xi - sx[k], Lx, hx);
-                const float dy = ring_delta(yi - sy[k], Ly, hy);
-                const float dz = ring_delta(zi - sz[k], Lz, hz);
-                const float r2 = dist2_rn(dx, dy, dz);
-                if (r2 <= w2 && r2 > 1e-12f) last = max(last, (s - 1) / bs);
-            }
-        }
-        __syncthreads();
-    }
-    red[tid] = last;
-    __syncthreads();
-    for (int stride = BLOCK / 2; stride > 0; stride >>= 1) {
-        if (tid < stride) red[tid] = max(red[tid], red[tid + stride]);
-        __syncthreads();
-    }
-    if (tid == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
-}
-
-__global__ void __launch_bounds__(FINISH_BLOCK)
-bound_finish_kernel(const unsigned char* __restrict__ rebuild,
-                    const int* __restrict__ bound,
-                    const int* __restrict__ partial, int m,
-                    int* __restrict__ nblk) {
-    __shared__ int red[FINISH_BLOCK];
-    const int tid = threadIdx.x;
-    if (rebuild[0] == 0) {
-        if (tid == 0) nblk[0] = bound[0];
+                   const int* __restrict__ bound, float2* arcs, int* words,
+                   int* __restrict__ nblk) {
+    extern __shared__ float2 s_arcs[];            // every tile's arc
+    __shared__ float4 staged[BOUND_WARPS][GROUP]; // a warp's partner tile
+    __shared__ bool last;
+    if (rebuild[0] == 0) {   // every block returns, none at the barrier
+        if (blockIdx.x == 0 && threadIdx.x == 0) nblk[0] = bound[0];
         return;
     }
-    int acc = -1;
-    for (int k = tid; k < m; k += FINISH_BLOCK) acc = max(acc, partial[k]);
-    red[tid] = acc;
-    __syncthreads();
-    for (int stride = FINISH_BLOCK / 2; stride > 0; stride >>= 1) {
-        if (tid < stride) red[tid] = max(red[tid], red[tid + stride]);
+    const int lane = threadIdx.x & 31;
+    const int n_tiles = n_pad / GROUP;
+    const int half = n_pad / 2;
+    const int reach = half / GROUP;   // partner tiles g + 0 .. g + reach
+    const float Lx = L[0], Ly = L[1], Lz = L[2];
+    const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
+    const int warp0 = blockIdx.x * BOUND_WARPS + (threadIdx.x >> 5);
+    const int n_warps = gridDim.x * BOUND_WARPS;
+
+    // phase 1: the tiles' arcs, then one grid barrier
+    for (int t = warp0; t < n_tiles; t += n_warps) {
+        const float2 arc = tile_arc(x, t, n, Lx, hx);
+        if (lane == 0) arcs[t] = arc;
+    }
+    cg::this_grid().sync();
+    // written in this launch by other blocks: read from L2
+    auto arc_of = [&](int t) {
+        return STAGED ? s_arcs[t] : __ldcg(arcs + t);
+    };
+    if (STAGED) {
+        for (int t = threadIdx.x; t < n_tiles; t += BOUND_BLOCK)
+            s_arcs[t] = __ldcg(arcs + t);
         __syncthreads();
     }
-    if (tid == 0) nblk[0] = red[0] + 1;
+
+    // phase 2: each group scans its partner tiles far to near
+    const float W = sqrtf(w2) * (1.0f + 1e-5f) + 1e-5f * Lx;
+    const float inv_Lx = 1.0f / Lx;
+    const float nan = __int_as_float(0x7fc00000);
+    float4* const tile = staged[threadIdx.x >> 5];
+    volatile int* const best = words;
+    int top = -1;   // the best block this warp found
+    for (int g = warp0; g < n_tiles; g += n_warps) {
+        const float2 ga = arc_of(g);
+        if (ga.y < 0.0f) continue;   // no member: no hit
+        // this lane's slot (a pad slot, NaN, tests nothing)
+        const float4 me = partner(x, g * GROUP + lane, n, n_pad);
+        const float xi = me.x, yi = me.y, zi = me.z;
+        bool done = false;
+        for (int k0 = reach; k0 >= 0 && !done; k0 -= GROUP) {
+            // the best so far, the same in every lane (another warp may
+            // raise it between two lanes' reads)
+            int seen = 0;
+            if (lane == 0) seen = *best;
+            int floor_blk = max(top, __shfl_sync(FULL_MASK, seen, 0));
+            if (tile_top(k0, half, bs) <= floor_blk) break;
+            const int k = k0 - lane;
+            const bool test = k >= 0 && tile_top(k, half, bs) > floor_blk &&
+                              !far_apart(ga, arc_of(k >= 0 ? ring_tile(
+                                             g + k, n_tiles) : g),
+                                         Lx, inv_Lx, W);
+            unsigned todo = __ballot_sync(FULL_MASK, test);
+            // this lane's partner in the farthest tile to test, loaded one
+            // tile ahead of its test
+            float4 next = make_float4(nan, nan, nan, 0.0f);
+            if (todo != 0u)
+                next = partner(x, ring_tile(g + k0 - (__ffs(todo) - 1),
+                                            n_tiles) * GROUP + lane,
+                               n, n_pad);
+            while (todo != 0u) {
+                // the farthest tile left (the lowest lane)
+                const int kq = k0 - (__ffs(todo) - 1);
+                todo &= todo - 1u;
+                floor_blk = max(floor_blk,
+                                max(top, __shfl_sync(FULL_MASK, seen, 0)));
+                if (tile_top(kq, half, bs) <= floor_blk) {
+                    done = true;   // no nearer tile can raise the best
+                    break;
+                }
+                __syncwarp();   // the previous tile's reads are done
+                tile[lane] = next;
+                __syncwarp();
+                // the next tile's partners and the best so far, in flight
+                // while this tile is tested
+                if (todo != 0u)
+                    next = partner(x, ring_tile(g + k0 - (__ffs(todo) - 1),
+                                                n_tiles) * GROUP + lane,
+                                   n, n_pad);
+                if (lane == 0) seen = *best;
+                // the shell of partner q is s0 + q; the last hit is the
+                // farthest
+                const int s0 = GROUP * kq - lane;
+                int s_hit = 0;
+#pragma unroll 8
+                for (int q = 0; q < GROUP; ++q) {
+                    const float4 p = tile[q];
+                    const float r2 = dist2_rn(ring_delta(xi - p.x, Lx, hx),
+                                              ring_delta(yi - p.y, Ly, hy),
+                                              ring_delta(zi - p.z, Lz, hz));
+                    const int s = s0 + q;
+                    const bool hit = s >= 1 && s <= half && r2 <= w2 &&
+                                     r2 > 1e-12f;
+                    s_hit = hit ? s : s_hit;
+                }
+                const int blk = __reduce_max_sync(
+                    FULL_MASK, s_hit > 0 ? (s_hit - 1) / bs : -1);
+                if (blk > top) {
+                    top = blk;
+                    if (lane == 0) atomicMax(words, top);
+                }
+            }
+        }
+    }
+
+    // the last block to finish writes the bound and re-arms the words
+    __threadfence();   // this warp's atomicMax lands before the ticket
+    __syncthreads();
+    if (threadIdx.x == 0)
+        last = atomicAdd(words + 1, 1) == static_cast<int>(gridDim.x) - 1;
+    __syncthreads();
+    if (last && threadIdx.x == 0) {
+        __threadfence();
+        nblk[0] = atomicExch(words, -1) + 1;
+        atomicExch(words + 1, 0);
+    }
 }
 
 struct Physics {
@@ -606,7 +781,7 @@ int launch_forces(const float* x, const float* par, const int* excl, int n,
                   const int* nblk, const Physics& ph, const Alch& al,
                   float* e_part, unsigned int* ticket, float* F, Real* U,
                   void* stream) {
-    if (n_pad <= 0 || n_pad % BLOCK != 0 || n > n_pad)
+    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad)
         return static_cast<int>(cudaErrorInvalidValue);
     // past the 48 KB a block gets without asking
     const cudaError_t err = cudaFuncSetAttribute(
@@ -626,19 +801,38 @@ extern "C" {
 
 // The block bound nblk (1,) int: on rebuild (the bool rebuild[0] set) 1 +
 // the last block of bs shells with a pair of real slots within sqrt(w2),
-// else bound[0]. x (3, n_pad) sorted positions; partial holds
-// (n_pad / 128) * 8 ints of scratch.
+// else bound[0]; one cooperative launch either way. x (3, n_pad) sorted
+// positions wrapped into the box; arcs holds n_pad / 32 float2 of scratch,
+// words 2 ints that are (-1, 0) on entry and again on exit. Any n_pad: the
+// arcs are staged in shared memory up to STAGE_MAX bytes, else read from L2.
 int sweep_bound_f32(const float* x, int n, int n_pad, const float* L, float w2,
                     int bs, const unsigned char* rebuild, const int* bound,
-                    int* partial, int* nblk, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_pad / BLOCK, SLICES);
-    sweep_bound_kernel<<<grid, BLOCK, 0, s>>>(x, n, n_pad, L, w2, bs, rebuild,
-                                              partial);
-    cudaError_t err = cudaGetLastError();
+                    float2* arcs, int* words, int* nblk, void* stream) {
+    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || bs <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int n_tiles = n_pad / GROUP;
+    const bool staged = sizeof(float2) * n_tiles <= STAGE_MAX;
+    const size_t smem = staged ? sizeof(float2) * n_tiles : 0;
+    const void* kernel =
+        staged ? reinterpret_cast<const void*>(sweep_bound_kernel<true>)
+               : reinterpret_cast<const void*>(sweep_bound_kernel<false>);
+    int max_blocks = 0;
+    cudaError_t err =
+        staged ? lj::max_coresident_blocks(sweep_bound_kernel<true>,
+                                           BOUND_BLOCK, &max_blocks, smem)
+               : lj::max_coresident_blocks(sweep_bound_kernel<false>,
+                                           BOUND_BLOCK, &max_blocks, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    bound_finish_kernel<<<1, FINISH_BLOCK, 0, s>>>(rebuild, bound, partial,
-                                                  grid.x * grid.y, nblk);
+    if (max_blocks == 0)
+        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const int wanted = (n_tiles + BOUND_WARPS - 1) / BOUND_WARPS;
+    const int blocks = wanted < max_blocks ? wanted : max_blocks;
+    void* args[] = {&x, &n, &n_pad, &L, &w2, &bs, &rebuild, &bound,
+                    &arcs, &words, &nblk};
+    err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(BOUND_BLOCK),
+                                      args, smem,
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 

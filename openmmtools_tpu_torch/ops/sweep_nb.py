@@ -17,8 +17,10 @@ partners ``i +- s`` of the sorted order for ``s`` up to ``bound * shell_block``
   :func:`build_exclusion_bitfield` (bit ``s-1`` of lane ``i`` marks the pair
   (i, i+s)); the caller adds their own interaction back;
 * a distance-only pass that re-measures the block bound on rebuild:
-  1 + the last block of ``shell_block`` shells holding a pair within
-  (cutoff + skin)^2;
+  1 + the last block of ``shell_block`` shells holding a pair of real slots
+  within (cutoff + skin)^2, exactly, on any ring (the path re-sorts only
+  every ``sweep_sort_interval`` steps, so the ring it rebuilds on is
+  usually stale: only roughly sorted);
 * the alchemical variant (``alchemical=True``, ``n_regions``): a 4th
   parameter row carries each slot's region code g = region_id + 1 (0 =
   environment), and every pair takes the scalars (lam_s, asc, lam_e) of its
@@ -39,16 +41,31 @@ which are also the kernels' oracle on the card. The rebuild flag, the bound
 and the alchemical scalars stay device tensors that the kernels read, so a
 step never waits on the host.
 
-Launch shapes (``csrc/sweep_nb.cu`` says why): the bound kernel takes 128
-sorted slots a block, its shell range cut into 8 slices, and a one-block
-finish. The force kernel, both variants, gives one warp to a sorted slot and
-16 slots to a block (n_pad / 16 blocks, 1,504 at 24,064 slots), in one
-launch: the block stages its shared partner window in shared memory, the
-lanes test 32 partners at once, and the pairs inside the cutoff are
-compacted into a per-warp queue (``__ballot_sync``) and evaluated 32 at a
-time, so both the distance tests and the pair arithmetic run at full warp
-width. Its scratch is one energy partial a block and an integer ticket kept
-at 0 (the last block sums the partials in a fixed order).
+Launch shapes (``csrc/sweep_nb.cu`` says why): the bound kernel is one
+cooperative launch of at most the co-resident blocks of 4 warps. Its first
+phase gives each tile of 32 ring slots its periodic x-arc, measured from one
+of its members so that an atom that crossed the x face since the sort does
+not widen it; after one grid barrier a warp takes a tile's slots as a group
+and scans its partner tiles from the farthest shell inward, skipping a tile
+whose arc lies beyond (cutoff + skin) (1 + 1e-5) + 1e-5 L of the group's or
+whose shells cannot beat the best block found so far (a device-wide int),
+and stops at its first hit. It never trusts the ring to be sorted: a stale
+ring only makes it test more tiles. Its scratch, the arcs and two ints (the
+best block and a ticket, re-armed by the last block), lives on the wrapper
+across calls. Its arcs are staged in shared memory up to about 188,000
+slots and read from L2 past that, so no ring size is refused.
+:func:`tile_arcs` and :func:`far_tiles` are plain versions of its cull, kept
+beside the plain bound and used by no path (the tests hold the kernel's scan
+against the plain bound with them, and ``chip_smoke.py`` counts the tile
+tests that the scan cannot skip). The force kernel, both variants, gives
+one warp to a sorted slot and 16 slots to a block (n_pad / 16 blocks, 1,504
+at 24,064 slots), in one launch: the block stages its shared partner window
+in shared memory, the lanes test 32 partners at once, and the pairs inside
+the cutoff are compacted into a per-warp queue (``__ballot_sync``) and
+evaluated 32 at a time, so both the distance tests and the pair arithmetic
+run at full warp width. Its scratch is one energy partial a block and an
+integer ticket kept at 0 (the last block sums the partials in a fixed
+order).
 
 Semantics kept from the TPU kernel: pad slots (``n <= i < n_pad``) take no
 part; the minimum image is one conditional shift per axis (exact for wrapped
@@ -125,6 +142,46 @@ def measure_bound_reference(xT, L, rebuild, bound, *, n, cutoff, skin,
         active = (r2 <= w2) & (r2 > 1e-12) & (j < n)
         last = torch.maximum(last, torch.max(torch.where(active, blk, -1)))
     return (last + 1).to(torch.int32).reshape(1)
+
+
+def tile_arcs(xT, L, n):
+    """The periodic x-arcs of the ring's tiles of 32 slots, as the bound
+    kernel's first phase computes them, float32: (start (T,), width (T,)),
+    a tile's members in [start, start + width] modulo L[0]. A member is a
+    real slot (index < ``n``) of finite x; a tile without one has width -1.
+    The offsets are taken from the tile's first member by the minimum image,
+    so an atom that crossed the x face lies beside its neighbours."""
+    x = xT[0].to(torch.float32)
+    Lx = L[0].to(torch.float32)
+    tiles = x.reshape(-1, _GROUP)
+    real = (torch.arange(x.shape[0], device=x.device) < n).reshape(-1, _GROUP)
+    member = real & torch.isfinite(tiles)
+    first = torch.argmax(member.to(torch.int8), dim=1)
+    ref = torch.gather(tiles, 1, first[:, None])
+    d = _ring_delta(tiles - ref, Lx)
+    lo = torch.where(member, d, math.inf).amin(dim=1)
+    hi = torch.where(member, d, -math.inf).amax(dim=1)
+    empty = ~member.any(dim=1)
+    start = torch.where(empty, 0.0, ref[:, 0] + lo)
+    width = torch.where(empty, -1.0, hi - lo)
+    return start, width
+
+
+def far_tiles(xT, L, n, cutoff, skin):
+    """(T, T) bool, [g, t] set where the bound kernel skips the partner tile
+    t for the slots of tile g: g or t has no member, or their x-arcs lie more
+    than W = w (1 + 1e-5) + 1e-5 L apart on the periodic circle, w = cutoff
+    + skin. The plain version of the kernel's cull, used by no path: no pair
+    within w may fall in a skipped (g, t)."""
+    start, width = tile_arcs(xT, L, n)
+    Lx = L[0].to(torch.float32)
+    w = torch.sqrt(torch.tensor((cutoff + skin) ** 2, dtype=torch.float32,
+                                device=start.device))
+    W = w * (1.0 + 1e-5) + 1e-5 * Lx
+    u = start[None, :] - start[:, None]
+    u = u - Lx * torch.floor(u * (1.0 / Lx))
+    apart = (u > width[:, None] + W) & (u + width[None, :] < Lx - W)
+    return apart | (width[None, :] < 0) | (width[:, None] < 0)
 
 
 def _excluded(excl, o, i, j):
@@ -321,6 +378,7 @@ class SweepNonbonded:
                               else "sweep_forces")
         self.launches = {"sweep_bound": 0, self.forces_kernel: 0}
         self._tickets = {}   # device -> the force kernel's ticket, kept at 0
+        self._bound_scratch = {}   # device -> the bound kernel's scratch
 
     def physics(self):
         """Keyword arguments of :func:`sweep_forces_reference` (``lam``
@@ -347,15 +405,20 @@ class SweepNonbonded:
         check_input(L, torch.float32, (3,))
         check_input(rebuild.reshape(-1), torch.bool, (1,))
         check_input(bound.reshape(-1), torch.int32, (1,))
-        grid = self.n_pad // _BOUND_BLOCK
-        partial = torch.empty((_BOUND_SLICES * grid,), dtype=torch.int32,
-                              device=dev)
+        scratch = self._bound_scratch.get(dev)
+        if scratch is None:
+            # the tiles' arcs, and (best block, ticket) armed at (-1, 0)
+            scratch = self._bound_scratch[dev] = (
+                torch.empty((2 * self.n_pad // _GROUP,), dtype=torch.float32,
+                            device=dev),
+                torch.tensor([-1, 0], dtype=torch.int32, device=dev))
+        arcs, words = scratch
         nblk = torch.empty((1,), dtype=torch.int32, device=dev)
         err = load_library().sweep_bound_f32(
             xT.data_ptr(), self.n, self.n_pad, L.data_ptr(),
             (self.rc + self.skin) ** 2, self.bs, rebuild.data_ptr(),
-            bound.data_ptr(), partial.data_ptr(), nblk.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            bound.data_ptr(), arcs.data_ptr(), words.data_ptr(),
+            nblk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         self.launches["sweep_bound"] += 1
         check(err, "sweep_bound_f32")
         return nblk
@@ -485,12 +548,12 @@ class PlainSweepNonbonded(SweepNonbonded):
         return t.dtype
 
 
-# kernel launch shapes, mirrored in csrc/sweep_nb.cu: the bound kernel takes
-# 128 sorted slots a block with its shell range cut into 8 slices (grid.y);
-# the force kernel one warp a sorted slot, 16 slots a block, n_pad / 16
-# blocks, each writing one energy partial
-_BOUND_BLOCK = 128
-_BOUND_SLICES = 8
+# kernel launch shapes, mirrored in csrc/sweep_nb.cu: the bound kernel cuts
+# the ring into tiles of 32 slots (_GROUP), one warp a tile, 4 warps a block
+# (its block count is set in C, from the co-resident blocks); the force
+# kernel one warp a sorted slot, 16 slots a block, n_pad / 16 blocks, each
+# writing one energy partial
+_GROUP = 32
 _WARPS = 16
 # the alchemical kernel stages its class scalars in shared memory: at most
 # 16 regions, 3 * (17 * 18 / 2 - 1) = 456 scalars

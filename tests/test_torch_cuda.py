@@ -462,6 +462,172 @@ def test_cuda_sweep_wrapper_refuses_bad_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K2's bound kernel (csrc/sweep_nb.cu sweep_bound_kernel) on the rings the
+# path rebuilds on: stale, with atoms across the x face, small, elongated,
+# ragged; its int must equal the plain version's exactly
+# ---------------------------------------------------------------------------
+
+
+def _bound_ring(kind, device):
+    """(k, xT, L) of one ring: water positions (made on the CPU, moved with
+    a numpy seed) sorted by x, then, for a stale ring, moved by normal steps
+    of 0.06 nm a coordinate and gathered through the old order, the atoms
+    nearest the upper x face carried across it."""
+    import numpy as np
+
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    edge = {"small": 1.9, "stale-6.223": 6.223, "large-staged": 12.2,
+            "large": 12.5}.get(kind, 3.1)
+    w = PMEWaterBox(box_edge=edge, cutoff=0.9, device="cpu")
+    x = w.positions.to(torch.float64).numpy()
+    box = w.system.default_box.to(torch.float64).numpy().copy()
+    if kind == "elongated":
+        # the box twice along y: (3.1, 6.2, 3.1) nm, 6,000 atoms
+        x = np.concatenate([x, x + np.array([0.0, box[1, 1], 0.0])])
+        box[1, 1] *= 2
+    if kind == "ragged":
+        # 2,900 atoms in 2,944 slots: a tile of 20 real slots, then one of
+        # pad slots alone
+        x = x[:2900]
+    L = np.diagonal(box).copy()
+    n = x.shape[0]
+    n_pad = -(-n // 128) * 128
+    perm, _ = tsw.sort_for_sweep(torch.as_tensor(x), torch.as_tensor(box),
+                                 n_pad)
+    rng = np.random.default_rng(5)
+    if kind != "fresh":
+        x = x + rng.normal(scale=0.06, size=x.shape)
+        xw = x - L * np.floor(x / L)
+        crossing = 300 if kind == "outliers" else 30
+        x[np.argsort(-xw[:, 0])[:crossing], 0] += 0.3
+    _, xT = tsw.sorted_positions(torch.as_tensor(x), torch.as_tensor(box),
+                                 perm.long(), n_pad, torch.float32)
+    k = tsw.SweepNonbonded(n, "pme", 0.9, ewald_alpha=3.0,
+                           mask_shells=min(2048, max(32, n_pad // 64 * 32)))
+    return k, xT.to(device), torch.as_tensor(L, dtype=torch.float32,
+                                             device=device)
+
+
+def _plain_bound(k, xT, L, flag, bound):
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    return int(tsw.measure_bound_reference(xT, L, flag, bound, n=k.n,
+                                           cutoff=k.rc, skin=k.skin,
+                                           shell_block=k.bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fresh", "stale", "stale-6.223",
+                                  "outliers", "small", "elongated",
+                                  "ragged", "large-staged", "large"])
+def test_cuda_bound_matches_plain_on_any_ring(cuda, kind):
+    """The same int as the plain version, and on a second launch, on a
+    fresh ring, stale rings at 3.1 nm and at the 6.223 nm water box, a ring
+    with 300 atoms across the x face, the 1.9 nm box (the bound spans the
+    ring), a box elongated in y, a ragged last tile, and the two sides of
+    the arcs' staging limit (47,088 bytes of shared memory, about 188,000
+    slots): a stale 12.2 nm box (177,957 atoms, 44,512 bytes of arcs,
+    staged; the groups outnumber the co-resident warps, so each warp takes
+    several) and a stale 12.5 nm box (192,000 atoms, 48,000 bytes: every
+    arc read from L2)."""
+    k, xT, L = _bound_ring(kind, cuda)
+    flag = torch.tensor(True, device=cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, flag, zero)
+    nb2 = k.measure_bound(xT, L, flag, zero)
+    ref = _plain_bound(k, xT, L, flag, zero)
+    assert int(nb) == int(nb2) == ref > 0
+    if kind == "small":
+        assert ref == k.n_blocks
+    elif kind in ("fresh", "stale-6.223", "large-staged", "large"):
+        assert ref < k.n_blocks
+    assert k.launches["sweep_bound"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,expected", [("at w", 13), ("above w", 0),
+                                           ("coincident", 0)])
+def test_cuda_bound_decides_the_edge_like_plain(cuda, case, expected):
+    """One pair (slots 10 and 110, shell 100, block 12) among 300 atoms on
+    a 3 nm lattice in a 30 nm box, in no order: at r^2 equal to w^2 in
+    float32 it counts (bound 13), one ulp of x farther it does not, and a
+    coincident pair (r^2 = 0) does not."""
+    import numpy as np
+
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    rng = np.random.default_rng(9)
+    sites = np.stack(np.meshgrid(*[np.arange(10)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    sites = sites[(sites[:, 0] != 0) | (sites[:, 1] != 0) | (sites[:, 2] != 0)]
+    x = 1.5 + 3.0 * sites[rng.choice(len(sites), 300, replace=False)]
+    x = x.astype(np.float32)
+    a = np.float32(0.5)
+    d = np.float32(1.1)          # float32 (1.1)^2 rounds to float32 1.21
+    b = {"at w": a + d, "above w": np.nextafter(a + d, np.float32(2)),
+         "coincident": a}[case]
+    x[10] = (a, 1.5, 1.5)
+    x[110] = (b, 1.5, 1.5)
+    xT = torch.full((3, 384), 1e6, dtype=torch.float32)
+    xT[:, :300] = torch.as_tensor(x.T.copy())
+    xT = xT.to(cuda)
+    L = torch.full((3,), 30.0, dtype=torch.float32, device=cuda)
+    k = tsw.SweepNonbonded(300, "cutoff_periodic", 1.0, skin=0.1,
+                           mask_shells=32)
+    _, r2 = tsw._pair_r2(xT, L, torch.tensor([10], device=cuda),
+                         torch.tensor([110], device=cuda))
+    w2 = torch.tensor(1.1 ** 2, dtype=torch.float32)
+    assert (float(r2) == float(w2)) == (case == "at w")
+    flag = torch.tensor(True, device=cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, flag, zero)
+    assert int(nb) == _plain_bound(k, xT, L, flag, zero) == expected
+
+
+@pytest.mark.cuda
+def test_cuda_bound_rearms_its_scratch(cuda):
+    """Three rebuilds in a row, the second on a ring with a lower bound:
+    each gives the plain version's int, so the best block and the ticket
+    were re-armed after each launch."""
+    k, fresh, L = _bound_ring("fresh", cuda)
+    _, stale, _ = _bound_ring("stale", cuda)
+    flag = torch.tensor(True, device=cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    got = [int(k.measure_bound(xT, L, flag, zero))
+           for xT in (stale, fresh, stale)]
+    want = [_plain_bound(k, xT, L, flag, zero) for xT in (stale, fresh, stale)]
+    assert got == want and want[1] < want[0]
+    assert k.launches["sweep_bound"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_bound_is_one_launch_a_call(cuda):
+    """With and without a rebuild a call launches the bound kernel once and
+    nothing else on the device; without one it passes the bound on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k, xT, L = _bound_ring("stale", cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    keep = torch.tensor(17, dtype=torch.int32, device=cuda)
+    on, off = (torch.tensor(v, device=cuda) for v in (True, False))
+    k.measure_bound(xT, L, on, zero)   # the scratch is made on first use
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        nb_on = k.measure_bound(xT, L, on, zero)
+        nb_off = k.measure_bound(xT, L, off, keep)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert len(names) == 2 and all("sweep_bound_kernel" in s for s in names)
+    assert int(nb_on) == _plain_bound(k, xT, L, on, zero)
+    assert int(nb_off) == 17
+
+
+# ---------------------------------------------------------------------------
 # K2's alchemical variant (csrc/sweep_nb.cu sweep_forces_alch_f32)
 # ---------------------------------------------------------------------------
 
