@@ -88,7 +88,22 @@ nonzero exit. Phases:
    bounds, the split of a step (the grid barrier and the forces' launch,
    each measured on an empty bin, against the staging, the pairs and the
    update) and of one chunk of ``run`` (the kernels' device time against
-   the rest); and K4's forces beside K1's on LennardJonesFluid(16384).
+   the rest); and K4's forces beside K1's on LennardJonesFluid(16384);
+13. the MCMC layer: (a) an NPT MCMCSampler run on LJ-2048 (120 K, rho kT
+   = 21.1 bar), 10 iterations of a SequenceMove of LangevinDynamicsMove
+   (2 fs, 5,000 steps: K1's fused chunk), GHMCMove (1 fs, 100 steps) and
+   HMCMove (10 x 10 inner steps; both in sweep mode: K2),
+   MCDisplacementMove (one atom) and MonteCarloBarostatMove (5 attempts):
+   the engine of each bound, K1's and K2's launches by move, acceptances,
+   finite states, each integrator move's final U against the dense sum at
+   the box it was handed (the barostat's), wall ms per apply, K1's and
+   K2's event spans on the path, and K2's kernels timed with the stream
+   held at the GHMC move's final state; (b) the Andersen, HMC and Metropolis MC integrators
+   (their own steps) on the same fluid: no fused path, no sweep mode, no
+   chunk launch, Andersen's kinetic temperature within 5 %, acceptances;
+   (c) GHMCMove (1 fs, 2 x 50 steps) on PMEWaterBox(6.223): sweep mode, K2
+   and SETTLE inside the Metropolized block, acceptance, rigid geometry,
+   and the final U and forces against the plain sweep plus the remainder.
 
 Times of the chunk kernels of K1, K3 and K4 (``ms``, ``plain_ms``,
 ``bound_ms`` of their entries, marked ``"per": "step"``) are per step of a
@@ -2026,6 +2041,323 @@ def phase_cell(dev, smi):
             cell_list_question=sizes)
 
 
+# -- phase 13: the MCMC layer --------------------------------------------------
+
+MCMC_ITERATIONS = 10
+MCMC_KERNELS = ("lj_forces_f32", "lj_chunk_f32", "sweep_bound_f32",
+                "sweep_forces_f32")
+ANDERSEN_STEPS = 2_000
+MC_SIGMA = 1e-4          # nm: all 2,048 particles move at once
+WATER_GHMC_STEPS = 50
+
+
+class recording:
+    """Within the block, each C entry point of ``MCMC_KERNELS`` records a
+    CUDA event pair around each of its launches (``launch_events``): the
+    span of every launch by entry point, its device time plus any wait of
+    the card for the launch's submission."""
+
+    def __enter__(self):
+        self.recs = {e: launch_events(e).__enter__() for e in MCMC_KERNELS}
+        return self
+
+    def __exit__(self, *exc):
+        for rec in self.recs.values():
+            rec.__exit__(*exc)
+
+    def count(self):
+        return {e: len(rec.pairs) for e, rec in self.recs.items()}
+
+    def span_ms(self):
+        torch.cuda.synchronize()
+        return {e: sum(rec.ms()) for e, rec in self.recs.items()}
+
+
+def timed_moves(moves, last):
+    """Each move's ``apply`` timed by the wall clock (synchronized) and its
+    integrator moves' final integrator states kept in ``last``; returns the
+    list of wall ms by move name."""
+    walls = {name: [] for name in moves}
+    for name, move in moves.items():
+        apply = move.apply
+
+        def timed(ts, ss, _apply=apply, _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _apply(ts, ss, **kw)
+            torch.cuda.synchronize()
+            walls[_name].append(1e3 * (time.perf_counter() - t))
+            return out
+
+        move.apply = timed
+        if hasattr(move, "_on_integration_end"):
+            hook = move._on_integration_end
+
+            def keep(state, _hook=hook, _name=name):
+                last[_name] = state
+                _hook(state)
+
+            move._on_integration_end = keep
+    return walls
+
+
+def phase_mcmc(dev, smi):
+    """13a: an NPT MCMC run on LJ-2048 through the moves that reach K1 (the
+    Langevin move's fused chunk) and K2 (sweep mode under the GHMC and HMC
+    moves), with a displacement and a barostat move."""
+    from openmmtools_tpu_torch.constants import BAR_TO_KJ_PER_MOL_NM3, kB
+    from openmmtools_tpu_torch.mcmc import (
+        GHMCMove,
+        HMCMove,
+        LangevinDynamicsMove,
+        MCDisplacementMove,
+        MCMCSampler,
+        MonteCarloBarostatMove,
+        SequenceMove,
+    )
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+    from openmmtools_tpu_torch.states import ThermodynamicState
+
+    fluid = LennardJonesFluid(nparticles=N, device=dev)
+    system = fluid.system
+    # rho kT at the default density: the ideal-gas pressure (21.2 bar)
+    pressure = (N / fluid.box_edge ** 3) * kB * TEMPERATURE \
+        / BAR_TO_KJ_PER_MOL_NM3
+    ts = ThermodynamicState(system=system, temperature=TEMPERATURE,
+                            pressure=pressure)
+    moves = {
+        "langevin": LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                         n_steps=5_000),
+        "ghmc": GHMCMove(timestep=0.001, n_steps=100),
+        "hmc": HMCMove(timestep=0.001, n_inner_steps=10, n_steps=10),
+        "displacement": MCDisplacementMove(displacement_sigma=0.1,
+                                           atom_subset=[0]),
+        "barostat": MonteCarloBarostatMove(volume_scale=0.01, n_attempts=5),
+    }
+    # the engine each integrator move binds to
+    bounds = {name: moves[name]._bound(ts)
+              for name in ("langevin", "ghmc", "hmc")}
+    assert bounds["langevin"]._fused is not None, "Langevin move off K1"
+    assert bounds["ghmc"].sweep_mode and bounds["ghmc"]._fused is None
+    assert bounds["hmc"].sweep_mode and bounds["hmc"]._fused is None
+    wrappers = {"langevin": bounds["langevin"]._fused.launches,
+                "ghmc": bounds["ghmc"]._sweep_kernel.launches,
+                "hmc": bounds["hmc"]._sweep_kernel.launches}
+    last = {}
+    walls = timed_moves(moves, last)
+    sampler = MCMCSampler(ts, fluid.sampler_state(),
+                          SequenceMove(list(moves.values())))
+    for counts in wrappers.values():
+        for key in counts:
+            counts[key] = 0
+    boxes, checks = [], []
+    t0 = time.perf_counter()
+    with recording() as rec:
+        for it in range(MCMC_ITERATIONS):
+            sampler.run(1)
+            ss = sampler.sampler_state
+            boxes.append(float(ss.box_vectors[0, 0]))
+            # the moves' own energies at the box each one was handed
+            for name in ("langevin", "ghmc", "hmc"):
+                st = last[name]
+                u_dense = float(ts.potential_energy(
+                    bounds[name].sampler_state_from(st)))
+                checks.append((it, name, float(st.potentials[0]), u_dense,
+                               float(st.box[0, 0])))
+        device = rec.span_ms()
+        counted = rec.count()
+    wall_s = time.perf_counter() - t0
+    launches = {name: dict(c) for name, c in wrappers.items()}
+    say(f"phase 13a MCMC on LJ-{N} (NPT, {TEMPERATURE} K, {pressure:.3f} "
+        f"bar): {MCMC_ITERATIONS} iterations in {wall_s:.2f} s; launches "
+        f"{launches}")
+    assert launches["langevin"] == {"lj_forces": MCMC_ITERATIONS,
+                                    "lj_chunk": MCMC_ITERATIONS}, launches
+    for name in ("ghmc", "hmc"):
+        assert launches[name]["sweep_bound"] > 0, (name, launches)
+        assert launches[name]["sweep_forces"] > 0, (name, launches)
+    assert counted["lj_chunk_f32"] == MCMC_ITERATIONS
+    assert counted["sweep_forces_f32"] == (launches["ghmc"]["sweep_forces"]
+                                           + launches["hmc"]["sweep_forces"])
+    baro, ghmc, hmc = moves["barostat"], moves["ghmc"], moves["hmc"]
+    disp = moves["displacement"]
+    say(f"phase 13a acceptance: barostat {baro.n_accepted}/{baro.n_proposed},"
+        f" GHMC {ghmc.n_accepted}/{ghmc.n_proposed}, HMC "
+        f"{hmc.n_accepted}/{hmc.n_proposed}, displacement "
+        f"{disp.n_accepted}/{disp.n_proposed}; box edge "
+        f"{fluid.box_edge:.5f} -> {boxes[-1]:.5f} nm")
+    assert baro.n_proposed == 5 * MCMC_ITERATIONS
+    assert ghmc.n_accepted > ghmc.n_proposed / 2
+    assert hmc.n_proposed == 10 * MCMC_ITERATIONS
+    ss = sampler.sampler_state
+    assert torch.isfinite(ss.positions).all()
+    assert torch.isfinite(ss.velocities).all()
+    assert torch.isfinite(ss.box_vectors).all()
+    # a changed box reached K1 and sweep mode: each integrator move's final
+    # U (from K1's chunk, from K2 and the remainder) against the dense sum
+    # at the box it was handed
+    moved = [c for c in checks if c[4] != float(system.default_box[0, 0])]
+    assert moved, "no barostat acceptance changed the box before a move"
+    worst = 0.0
+    for it, name, u_run, u_dense, edge in checks:
+        rel = abs(u_run - u_dense) / abs(u_dense)
+        worst = max(worst, rel)
+        assert rel <= REL_TOL, (it, name, u_run, u_dense, edge)
+    it, name, u_run, u_dense, edge = checks[-1]
+    say(f"phase 13a energies: each move's final U against the dense sum at "
+        f"its own box, worst rel {worst:.2e} over {len(checks)} ("
+        f"{len(moved)} at a box the barostat changed); last ({name}) U "
+        f"{u_run:.4f} vs {u_dense:.4f} at edge {edge:.5f} nm")
+    # the median: a move's first apply carries one-time costs (the first
+    # dense evaluation on the card)
+    per_apply = {name: statistics.median(w) for name, w in walls.items()}
+    first = {name: w[0] for name, w in walls.items()}
+    k1_ms = device["lj_forces_f32"] + device["lj_chunk_f32"]
+    k2_ms = device["sweep_bound_f32"] + device["sweep_forces_f32"]
+    say("phase 13a wall ms per apply (median of 10; the first apply): "
+        + ", ".join(f"{name} {ms:.2f} ({first[name]:.2f})"
+                    for name, ms in per_apply.items()) + f" ({smi})")
+    evals = counted["sweep_forces_f32"]
+    say(f"phase 13a event spans around each launch (device time plus any "
+        f"wait of the card for the host's submission): K1 {k1_ms:.3f} ms "
+        f"({k1_ms / MCMC_ITERATIONS:.3f} an apply of the Langevin move: "
+        f"lj_chunk {device['lj_chunk_f32']:.3f}, lj_forces "
+        f"{device['lj_forces_f32']:.3f}), K2 {k2_ms:.3f} ms (sweep_forces "
+        f"{device['sweep_forces_f32']:.3f}, sweep_bound "
+        f"{device['sweep_bound_f32']:.3f}) over {evals} evaluations of the "
+        f"GHMC and HMC moves ({smi})")
+    # K2 at the path's own shapes with the stream held (launch_ms): its
+    # launches' device time alone, which the spans above overstate when
+    # the host-bound step leaves the card waiting on a short launch
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k = bounds["ghmc"]._sweep_kernel
+    st = last["ghmc"]
+    xT, par, excl, L, _ = tsw.sorted_inputs(system.terms[0], st.positions,
+                                            st.box, k)
+    flag = torch.tensor(True, device=dev)
+    no_flag = torch.tensor(False, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flag, zero)
+    before = dict(k.launches)
+    k2 = {"sweep_forces": launch_ms(lambda: k.sweep(xT, par, excl, L, nb),
+                                    "sweep_forces_f32"),
+          "sweep_bound_rebuild": launch_ms(
+              lambda: k.measure_bound(xT, L, flag, zero), "sweep_bound_f32"),
+          "sweep_bound": launch_ms(
+              lambda: k.measure_bound(xT, L, no_flag, nb), "sweep_bound_f32")}
+    k.launches.update(before)   # the timings' launches are not the path's
+    k2_eval = (k2["sweep_forces"] + k2["sweep_bound"],
+               k2["sweep_forces"] + k2["sweep_bound_rebuild"])
+    per_move = launches["ghmc"]["sweep_forces"] / MCMC_ITERATIONS
+    say(f"phase 13a K2 at the GHMC move's final state (bound {int(nb)} "
+        f"blocks of {k.n_blocks}), stream held: sweep_forces "
+        f"{k2['sweep_forces']:.5f} ms, sweep_bound "
+        f"{k2['sweep_bound_rebuild']:.5f} on a rebuild, "
+        f"{k2['sweep_bound']:.5f} without; so {k2_eval[0]:.5f}-"
+        f"{k2_eval[1]:.5f} ms an evaluation and "
+        f"{per_move * k2_eval[0]:.3f}-{per_move * k2_eval[1]:.3f} ms an "
+        f"apply of the GHMC or HMC move ({per_move:.0f} evaluations), "
+        f"against {k2_ms / evals:.5f} ms an evaluation by the spans ({smi})")
+    return sampler, ts, dict(
+        wall_ms_per_apply=per_apply, first_apply_ms=first,
+        iterations=MCMC_ITERATIONS,
+        wall_s=wall_s, launches=launches, span_ms=device,
+        k1_span_ms=k1_ms, k2_span_ms=k2_ms, k2_held_ms=k2,
+        acceptance={n: [m.n_accepted, m.n_proposed]
+                    for n, m in moves.items() if n != "langevin"},
+        box_edge=[fluid.box_edge, boxes[-1]], worst_u_rel=worst)
+
+
+def phase_extras(dev, smi, sampler, ts):
+    """13b: the integrators with their own step on LJ-2048 from the MCMC
+    run's final state: never K1's chunk, and each one's own physics."""
+    from openmmtools_tpu_torch.integrators import (
+        AndersenVelocityVerletIntegrator,
+        HMCIntegrator,
+        MetropolisMonteCarloIntegrator,
+    )
+
+    system = ts.system
+    ss = sampler.sampler_state
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    with launch_events("lj_chunk_f32") as chunks:
+        bound = AndersenVelocityVerletIntegrator(
+            temperature=TEMPERATURE, timestep=0.001).bind(system)
+        assert bound._fused is None and not bound.sweep_mode
+        state = bound.initial_state(ss, gen, thermodynamic_state=ts)
+        t = time.perf_counter()
+        state = bound.run(state, ANDERSEN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        temps = []
+        for _ in range(10):
+            state = bound.run(state, 20)
+            temps.append(kinetic_temperature(system.masses, state.velocities,
+                                             3 * N))
+        mean_t = statistics.fmean(temps)
+        say(f"phase 13b Andersen: {ANDERSEN_STEPS} steps in {wall:.2f} s "
+            f"({ANDERSEN_STEPS / wall:.1f} steps/s, dense forces; {smi}); "
+            f"kinetic temperature {mean_t:.3f} K over 10 samples 20 steps "
+            f"apart")
+        assert abs(mean_t - TEMPERATURE) < 0.05 * TEMPERATURE
+        assert torch.isfinite(state.positions).all()
+        out["andersen"] = dict(steps_per_s=ANDERSEN_STEPS / wall,
+                               temperature=mean_t)
+        for name, integ, steps in (
+                ("hmc", HMCIntegrator(temperature=TEMPERATURE, nsteps=10,
+                                      timestep=0.001), 10),
+                ("metropolis", MetropolisMonteCarloIntegrator(
+                    temperature=TEMPERATURE, displacement_sigma=MC_SIGMA),
+                 100)):
+            bound = integ.bind(system)
+            assert bound._fused is None and not bound.sweep_mode
+            state = bound.initial_state(ss, gen, thermodynamic_state=ts)
+            state = bound.run(state, steps)
+            acc, prop = int(state.n_accepted), int(state.n_proposed)
+            say(f"phase 13b {type(integ).__name__}: {acc}/{prop} accepted")
+            assert prop == steps and acc > 0
+            assert torch.isfinite(state.positions).all()
+            out[name] = [acc, prop]
+        torch.cuda.synchronize()
+    assert not chunks.pairs, "an extras integrator launched K1's chunk"
+    say("phase 13b: no lj_chunk launch during the extras' runs; each bound "
+        "keeps its own step (_fused None, sweep mode off)")
+    return out
+
+
+def phase_water_ghmc(dev, smi):
+    """13c: GHMC on explicit solvent (sweep mode, K2, SETTLE inside the
+    Metropolized block)."""
+    from openmmtools_tpu_torch.mcmc import GHMCMove, MCMCSampler
+    from openmmtools_tpu_torch.models import PMEWaterBox
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    ts = w.thermodynamic_state(WATER_T)
+    move = GHMCMove(timestep=0.001, n_steps=WATER_GHMC_STEPS)
+    bound = move._bound(ts)
+    assert bound.sweep_mode and bound._settle is not None
+    k = bound._sweep_kernel
+    for key in k.launches:
+        k.launches[key] = 0
+    last = {}
+    walls = timed_moves({"ghmc": move}, last)
+    sampler = MCMCSampler(ts, w.sampler_state(), move)
+    sampler.run(2)
+    launches = dict(k.launches)
+    say(f"phase 13c GHMC on PMEWaterBox({WATER_EDGE}): "
+        f"{w.system.n_particles} atoms, 2 x {WATER_GHMC_STEPS} steps, "
+        f"{move.n_accepted}/{move.n_proposed} accepted; wall ms per apply "
+        f"{statistics.fmean(walls['ghmc']):.1f} ({smi}); launches {launches}")
+    assert move.n_proposed == 2 * WATER_GHMC_STEPS and move.n_accepted > 0
+    assert launches["sweep_bound"] > 0 and launches["sweep_forces"] > 0
+    check_final_state(bound, last["ghmc"], "phase 13c")
+    return dict(accepted=[move.n_accepted, move.n_proposed],
+                wall_ms_per_apply=statistics.fmean(walls["ghmc"]),
+                launches=launches)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -2041,10 +2373,13 @@ def main():
     ncmc = phase_ncmc(dev, smi, state_a, system_a)
     dense_kernel, dense_rate = phase_dense(dev, smi, k)
     cell_kernels, cell_rate = phase_cell(dev, smi)
+    sampler, ts, mcmc = phase_mcmc(dev, smi)
+    mcmc["extras"] = phase_extras(dev, smi, sampler, ts)
+    mcmc["water_ghmc"] = phase_water_ghmc(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
-                    "cell_path": cell_rate, "card": smi}))
+                    "cell_path": cell_rate, "mcmc_path": mcmc, "card": smi}))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels}))
     print(json.dumps({"ok": True, "device": {

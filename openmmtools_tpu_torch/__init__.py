@@ -1,8 +1,9 @@
 """openmmtools_tpu_torch — the PyTorch/CUDA port of openmmtools_tpu.
 
-The same systems, states and integrators as the JAX package, on tensors: a
-``System`` is a frozen dataclass of tensors with pure energy terms, and the
-Langevin splitting integrators run as step programs. Every Pallas TPU kernel
+The same systems, states, integrators and MCMC moves as the JAX package, on
+tensors: a ``System`` is a frozen dataclass of tensors with pure energy
+terms, the Langevin splitting integrators run as step programs, and the
+moves of :mod:`openmmtools_tpu_torch.mcmc` drive them. Every Pallas TPU kernel
 of the JAX package becomes a kernel written by hand for the NVIDIA H100
 (``csrc/``, built at first use by ``ops/_build.py``), beside a plain PyTorch
 version of the same function that serves CPU tensors and the tests.
@@ -23,7 +24,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from openmmtools_tpu_torch import constants  # noqa: E402,F401
-from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState  # noqa: E402,F401
+from openmmtools_tpu_torch.states import (  # noqa: E402,F401
+    CompoundThermodynamicState,
+    GlobalParameterState,
+    SamplerState,
+    ThermodynamicState,
+)
 from openmmtools_tpu_torch.system import (  # noqa: E402,F401
     Constraints,
     NonbondedTerm,
@@ -35,3 +41,4 @@ from openmmtools_tpu_torch.system import (  # noqa: E402,F401
     no_constraints,
     volume,
 )
+from openmmtools_tpu_torch import mcmc  # noqa: E402,F401

@@ -24,6 +24,9 @@ CUDA device" in place of "the backend is a TPU":
   plain R/V/O splitting of a monodisperse, uncharged, periodic LJ fluid; it
   supersedes sweep mode.
 
+A subclass whose bound class brings its own ``step`` (the integrators of
+:mod:`openmmtools_tpu_torch.integrators.extras`) takes neither path.
+
 Constraints follow OpenMM's SETTLE + CCMA architecture: SETTLE for rigid
 waters, cluster M-SHAKE/M-RATTLE for the remaining small clusters, Jacobi
 SHAKE/RATTLE where clustering fails (:mod:`openmmtools_tpu_torch.ops.constraints`).
@@ -47,6 +50,7 @@ import torch
 from openmmtools_tpu_torch.alchemy import AlchemicalNonbondedTerm
 from openmmtools_tpu_torch.constants import kB
 from openmmtools_tpu_torch.ops import bonded, constraints, nonbonded, sweep_nb
+from openmmtools_tpu_torch.ops.fused_langevin import brings_own_step
 from openmmtools_tpu_torch.ops.geometry import minimum_image
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
@@ -161,6 +165,20 @@ class IntegratorState:
         return self.kT / kB
 
 
+def draw_uniform(generator, shape, like):
+    """Uniforms in [0, 1) of ``like``'s dtype, drawn on the generator's
+    device and moved to ``like``'s."""
+    return torch.rand(shape, generator=generator, dtype=like.dtype,
+                      device=generator.device).to(like.device)
+
+
+def draw_normal(generator, shape, like):
+    """Standard normals of ``like``'s dtype, drawn on the generator's device
+    and moved to ``like``'s."""
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=generator.device).to(like.device)
+
+
 def thermalize_velocities(masses, kT, generator, dtype=torch.float32):
     """Draw Maxwell–Boltzmann velocities (massless particles get 0)."""
     n = masses.shape[0]
@@ -245,6 +263,10 @@ class BoundIntegrator:
                 self._clusters = constraints.analyze_clusters(
                     rest, system.masses)
 
+        # a subclass with its own step (integrators/extras.py) evaluates by
+        # the dense program in its step and its initial state alike: it
+        # takes neither the fused kernel nor sweep mode
+        self._own_step = brings_own_step(type(self))
         self._sweep_setup()
         self._fused = None
         self._fused_setup()   # after the sweep: the fused kernel supersedes it
@@ -252,7 +274,8 @@ class BoundIntegrator:
         # dropped when the next step's leading V/O re-projects at the same
         # positions (see _vproj_skip_eligible); run_program restores the
         # final state's projection once per run
-        self._vproj_skip = self._vproj_skip_eligible()
+        self._vproj_skip = (not self._own_step
+                            and self._vproj_skip_eligible())
 
     # -- bounded-sweep production path (large heterogeneous systems) -------
     def _sweep_setup(self):
@@ -267,13 +290,15 @@ class BoundIntegrator:
         ``sweep="auto"`` engages on a CUDA system with N >= 1024; "force"
         (or "interpret", the JAX package's name for its CPU mode) engages on
         any device, where a CPU system runs the kernels' plain versions; None
-        disables."""
+        disables. A class with its own step (``brings_own_step``) keeps
+        sweep mode off: its step evaluates by the dense program."""
         self.sweep_mode = False
         self._sweep_group = None
         integ = self.integrator
         policy = integ.sweep
         system = self.system
-        if policy is None or system.default_box is None:
+        if (policy is None or system.default_box is None
+                or self._own_step):
             return
         nb_terms = [t for t in system.terms
                     if type(t) in (NonbondedTerm, AlchemicalNonbondedTerm)]
@@ -585,12 +610,14 @@ class BoundIntegrator:
         R/V/O splitting of a monodisperse uncharged periodic LJ fluid with no
         constraints, on a CUDA device. Same rules as the JAX package's TPU
         path, with "the system lives on a CUDA device" in place of "the
-        backend is a TPU", and one more: the splitting's step program must
+        backend is a TPU", and two more: the splitting's step program must
         fit the chunk kernel's table (``fits_chunk_table``), where the TPU
-        kernel unrolls any token string. Everything else takes the generic
-        program."""
+        kernel unrolls any token string; and the class must run this
+        module's step program (``brings_own_step``), where the JAX package
+        would hand an extras subclass's splitting to its TPU kernel.
+        Everything else takes the generic program."""
         integ = self.integrator
-        if integ.neighborlist is None:
+        if integ.neighborlist is None or self._own_step:
             return
         system = self.system
         if system.device.type != "cuda":
@@ -723,9 +750,7 @@ class BoundIntegrator:
         if integ.measure_heat:
             ke_old = self._kinetic(env)
         sigma = torch.sqrt(env.kT * self.inv_mass)[:, None]
-        gen = env.generator
-        noise = torch.randn(env.v.shape, generator=gen, dtype=env.v.dtype,
-                            device=gen.device).to(env.v.device)
+        noise = draw_normal(env.generator, env.v.shape, env.v)
         env.v = self.ou_a * env.v + self.ou_b * sigma * noise
         if self.system.constraints.n_constraints > 0 and not skip_constrain:
             env.v = self._constrain_velocities(env.x, env.v)
@@ -743,9 +768,7 @@ class BoundIntegrator:
         # Metropolize on the block's SHADOW work: the energy change not
         # accounted for by H-step protocol work
         shadow = (e_new - e_old) - (env.protocol_work - w0)
-        gen = env.generator
-        u = torch.rand((), generator=gen, dtype=e_new.dtype,
-                       device=gen.device).to(e_new.device)
+        u = draw_uniform(env.generator, (), e_new)
         accept = u < torch.exp(-shadow / env.kT)
         env.x = torch.where(accept, env.x, x0)
         env.v = torch.where(accept, env.v, -v0)   # momentum flip on rejection
@@ -1023,6 +1046,14 @@ class LangevinIntegrator:
         self._bound: Dict[str, BoundIntegrator] = {}
 
     _bound_class = BoundIntegrator
+
+    def __getstate__(self):
+        # the bound integrators are a cache of the system's programs
+        return {k: v for k, v in self.__dict__.items() if k != "_bound"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._bound = {}
 
     def bind(self, system: System) -> BoundIntegrator:
         # content hash, not id(): structurally identical systems share one

@@ -1,12 +1,18 @@
-"""FIRE energy minimization (counterpart of ``integrators/minimize.py``).
+"""Energy minimizers (counterpart of ``integrators/minimize.py``).
 
-The gradient-descent and L-BFGS minimizers and the ``minimize`` policy
-(FIRE, then fallbacks) arrive with the MCMC port.
+FIRE, adaptive-step gradient descent and L-BFGS as host loops over tensor
+steps, and :func:`minimize`, the policy ``MCMCSampler.minimize`` runs:
+FIRE, then L-BFGS, then gradient descent while the result is not finite;
+SHAKE onto the constraints before the acceptance check; never a state worse
+than the input. ``FIREMinimizationIntegrator`` and
+``GradientDescentMinimizationIntegrator`` carry the openmmtools names.
+Forces are ``-grad U`` by autograd.
 """
 from __future__ import annotations
 
 import torch
 
+from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
 from openmmtools_tpu_torch.system import System, make_energy_fn, value_and_grad
 
 
@@ -18,7 +24,7 @@ def fire_minimize(system: System, x, box=None, params=None, *,
     The scheme and defaults of openmmtools' FIREMinimizationIntegrator:
     velocity mixing v = (1-a) v + a |v| F/|F|, accelerate dt after n_min
     consecutive downhill steps, halve dt and zero velocities on uphill steps.
-    Forces are ``-grad U`` by autograd. Returns (x_min, U_min).
+    Returns (x_min, U_min).
     """
     u_fn = make_energy_fn(system)
     masses = torch.clamp(system.masses, min=1e-30)[:, None]
@@ -52,3 +58,192 @@ def fire_minimize(system: System, x, box=None, params=None, *,
         x = torch.where(finite, x_next, x)
         v = torch.where(finite, v_next, torch.zeros_like(v))
     return x, u_fn(x, box, params).detach()
+
+
+def gradient_descent_minimize(system: System, x, box=None, params=None, *,
+                              initial_step=1e-4, max_steps=200):
+    """Adaptive-step gradient descent (openmmtools'
+    GradientDescentMinimizationIntegrator): x -= gamma grad/|grad|max,
+    kept if the energy drops (gamma grows by 1.2), else gamma halves.
+    Returns (x_min, U_min)."""
+    u_fn = make_energy_fn(system)
+
+    def energy(xx):
+        return u_fn(xx, box, params)
+
+    x = x.detach()
+    with torch.no_grad():
+        u = energy(x)
+    gamma = torch.as_tensor(initial_step, dtype=x.dtype, device=x.device)
+    for _ in range(max_steps):
+        _, g = value_and_grad(energy, x)
+        gmax = torch.clamp(torch.max(torch.abs(g)), min=1e-12)
+        x_try = x - gamma * g / gmax
+        with torch.no_grad():
+            u_try = energy(x_try)
+        better = u_try < u
+        x = torch.where(better, x_try, x)
+        u = torch.where(better, u_try, u)
+        gamma = torch.where(better, gamma * 1.2, gamma * 0.5)
+    return x, u
+
+
+def lbfgs_minimize(system: System, x, box=None, params=None, *,
+                   max_steps=200, history=10, tolerance=10.0,
+                   max_backtracks=25):
+    """L-BFGS with the two-loop recursion and bounded Armijo backtracking,
+    the analog of OpenMM's LocalEnergyMinimizer. Each iteration caps the
+    largest per-atom displacement at 0.05 nm. It always runs ``max_steps``
+    iterations, as the JAX package's scan does; ``tolerance`` (RMS force,
+    kJ/mol/nm) is accepted for the same signature and, as there, stops
+    nothing. Returns (x_min, U_min)."""
+    u_fn = make_energy_fn(system)
+    m = int(history)
+    shape = x.shape
+    n = x.numel()
+    dtype, device = x.dtype, x.device
+
+    def energy_flat(xf):
+        return u_fn(xf.reshape(shape), box, params)
+
+    def flat_vg(xf):
+        return value_and_grad(energy_flat, xf)
+
+    def energy_at(xf):
+        with torch.no_grad():
+            return energy_flat(xf)
+
+    xf = x.detach().reshape(-1)
+    u, g = flat_vg(xf)
+    S = torch.zeros((m, n), dtype=dtype, device=device)
+    Y = torch.zeros((m, n), dtype=dtype, device=device)
+    rho = torch.zeros((m,), dtype=dtype, device=device)
+    valid = torch.zeros((m,), dtype=torch.bool, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    for _ in range(max_steps):
+        # two-loop recursion: rows are oldest..newest
+        q = g
+        alphas = [None] * m
+        for i in reversed(range(m)):
+            a = torch.where(valid[i], rho[i] * torch.dot(S[i], q), zero)
+            q = q - a * Y[i]
+            alphas[i] = a
+        sy = torch.dot(S[m - 1], Y[m - 1])
+        yy = torch.dot(Y[m - 1], Y[m - 1])
+        gamma = torch.where(valid[m - 1], sy / torch.clamp(yy, min=1e-30),
+                            torch.ones_like(sy))
+        r = gamma * q
+        for i in range(m):
+            b = torch.where(valid[i], rho[i] * torch.dot(Y[i], r), zero)
+            r = r + S[i] * (alphas[i] - b)
+        d = -r
+        g_dot_d = torch.dot(g, d)
+        # not a descent direction: fall back to -g
+        bad = g_dot_d >= 0.0
+        d = torch.where(bad, -g, d)
+        g_dot_d = torch.where(bad, -torch.dot(g, g), g_dot_d)
+        # trust region: at most 0.05 nm per atom per iteration
+        max_disp = torch.max(torch.sqrt(torch.sum(d.reshape(shape) ** 2,
+                                                  dim=-1)))
+        cap = torch.clamp(0.05 / torch.clamp(max_disp, min=1e-12), max=1.0)
+        d = d * cap
+        g_dot_d = g_dot_d * cap
+
+        # Armijo backtracking, bounded
+        t = torch.ones((), dtype=dtype, device=device)
+        u_try = energy_at(xf + t * d)
+        it = 0
+        while (it < max_backtracks
+               and bool(u_try > u + 1e-4 * t * g_dot_d)):
+            t = t * 0.5
+            u_try = energy_at(xf + t * d)
+            it += 1
+        accept = torch.isfinite(u_try) & (u_try <= u)
+        x_new = torch.where(accept, xf + t * d, xf)
+        _, g_new = flat_vg(x_new)
+        u = torch.where(accept, u_try, u)
+
+        s_vec = x_new - xf
+        y_vec = g_new - g
+        sy_new = torch.dot(s_vec, y_vec)
+        if bool(accept & (sy_new > 1e-10)):
+            S = torch.cat([S[1:], s_vec[None]])
+            Y = torch.cat([Y[1:], y_vec[None]])
+            rho = torch.cat([rho[1:], (1.0 / torch.clamp(sy_new,
+                                                         min=1e-30))[None]])
+            valid = torch.cat([valid[1:], valid.new_ones((1,))])
+        xf, g = x_new, g_new
+    return xf.reshape(shape), u
+
+
+def minimize(thermodynamic_state: ThermodynamicState,
+             sampler_state: SamplerState, tolerance: float = 1.0,
+             max_iterations: int = 500) -> SamplerState:
+    """Minimize a sampler state under a thermodynamic state (the
+    ``MCMCSampler.minimize`` / LocalEnergyMinimizer analog).
+
+    FIRE; L-BFGS from the input if FIRE's energy is not finite; gradient
+    descent from the input if that one's is not either. On a constrained
+    system the result is projected by SHAKE before the acceptance check,
+    and a result whose energy is above the input's (or not finite) returns
+    the input. ``tolerance`` is accepted for the same signature; each
+    minimizer runs ``max_iterations`` steps.
+    """
+    system = thermodynamic_state.system
+    box = sampler_state.box_vectors
+    if box is None:
+        box = system.default_box
+    params = thermodynamic_state.global_params
+    x0 = sampler_state.positions
+
+    x_min, u_min = fire_minimize(system, x0, box, params,
+                                 max_steps=max_iterations)
+    if not bool(torch.isfinite(u_min)):
+        x_min, u_min = lbfgs_minimize(system, x0, box, params,
+                                      max_steps=max_iterations)
+    if not bool(torch.isfinite(u_min)):
+        x_min, u_min = gradient_descent_minimize(system, x0, box, params,
+                                                 max_steps=max_iterations)
+    # the projection comes before the acceptance check: the unconstrained
+    # minimum of a rigid system can lie far off its constraint manifold,
+    # and projecting it can raise the energy above the input's
+    if system.constraints.n_constraints > 0:
+        from openmmtools_tpu_torch.ops.constraints import shake_positions
+
+        x_min = shake_positions(x_min, x_min, system.constraints,
+                                system.masses)
+        with torch.no_grad():
+            u_min = make_energy_fn(system)(x_min, box, params)
+    with torch.no_grad():
+        u0 = thermodynamic_state.potential_energy(sampler_state)
+    if bool(u_min > u0) or not bool(torch.isfinite(u_min)):
+        return sampler_state
+    return sampler_state.replace(positions=x_min)
+
+
+class FIREMinimizationIntegrator:
+    """openmmtools' FIREMinimizationIntegrator by name: ``minimize(system,
+    x, ...)`` through :func:`fire_minimize`."""
+
+    def __init__(self, timestep=1e-3, alpha=0.1, n_min=5, **kwargs):
+        self.timestep = timestep
+        self.alpha = alpha
+        self.n_min = n_min
+
+    def minimize(self, system, x, box=None, params=None, max_steps=500):
+        return fire_minimize(system, x, box, params, timestep=self.timestep,
+                             alpha0=self.alpha, n_min=self.n_min,
+                             max_steps=max_steps)
+
+
+class GradientDescentMinimizationIntegrator:
+    """openmmtools' GradientDescentMinimizationIntegrator by name:
+    ``minimize(system, x, ...)`` through :func:`gradient_descent_minimize`."""
+
+    def __init__(self, initial_step_size=1e-4):
+        self.initial_step_size = initial_step_size
+
+    def minimize(self, system, x, box=None, params=None, max_steps=200):
+        return gradient_descent_minimize(
+            system, x, box, params, initial_step=self.initial_step_size,
+            max_steps=max_steps)

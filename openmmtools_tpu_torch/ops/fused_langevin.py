@@ -59,7 +59,7 @@ from openmmtools_tpu_torch.ops._build import (
 )
 
 __all__ = ["FusedSortedLangevin", "FusedSortedBAOAB", "FusedDenseBAOAB",
-           "fits_chunk_table", "fused_langevin_reference", "lj_forces_reference",
+           "brings_own_step", "fits_chunk_table", "fused_langevin_reference", "lj_forces_reference",
            "lj_pair_reference", "langevin_substep_reference",
            "philox_normals"]
 
@@ -226,6 +226,20 @@ def fits_chunk_table(tokens) -> bool:
     program = _step_program(tuple(tokens))
     return (len(program) <= _MAX_ITEMS
             and _longest_segment(program) <= _MAX_SEGMENT)
+
+
+def brings_own_step(bound_class) -> bool:
+    """Whether a bound-integrator class replaces ``BoundIntegrator``'s step
+    program: it overrides ``step`` or ``initial_state``, as the integrators
+    of ``integrators/extras.py`` do (Andersen collisions, the HMC and
+    Metropolis accept/reject, the Nosé–Hoover chain, the no-op). The chunk
+    kernel runs only the step program of R/V/O tokens, so such a class
+    never takes it, whatever its splitting; nor the trailing velocity
+    projection skip, which only that program's own steps make good."""
+    from openmmtools_tpu_torch.integrators.langevin import BoundIntegrator
+
+    return any(getattr(bound_class, name) is not getattr(BoundIntegrator, name)
+               for name in ("step", "initial_state"))
 
 
 def _program_table(program):

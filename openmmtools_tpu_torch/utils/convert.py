@@ -7,9 +7,11 @@ arrays. Its numpy form, which this module reads, is plain Python:
 * an array becomes a ``numpy.ndarray``;
 * tuples, lists, dicts, strings, numbers, bools and None stay as they are.
 
-The alchemical terms come across with their region metadata (lambda names,
-annihilate flags, region interactions) and the reciprocal term with its
-``alch_mask``/``lambda_name``, as every other field: by name.
+The test systems' own terms (``HarmonicWellArrayTerm``, ``WCATerm``) come
+across like the System's. The alchemical terms come across with their
+region metadata (lambda names, annihilate flags, region interactions) and
+the reciprocal term with its ``alch_mask``/``lambda_name``, as every other
+field: by name.
 
 :func:`system_from_numpy` builds a port ``System`` from that form (the terms
 by class name, among the terms this port has), and
@@ -31,6 +33,10 @@ from openmmtools_tpu_torch.alchemy import (
     AlchemicalNonbondedTerm,
     AlchemicalPeriodicTorsionTerm,
 )
+from openmmtools_tpu_torch.models.testsystems import (
+    HarmonicWellArrayTerm,
+    WCATerm,
+)
 from openmmtools_tpu_torch.ops.fused_md import LJGridSpec
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState
@@ -49,7 +55,8 @@ _CLASSES = {cls.__name__: cls for cls in (
     System, NonbondedTerm, CustomExternalTerm, Constraints, VirtualSites,
     HarmonicBondTerm, HarmonicAngleTerm, PeriodicTorsionTerm,
     EwaldReciprocalTerm, AlchemicalNonbondedTerm, AlchemicalHarmonicBondTerm,
-    AlchemicalHarmonicAngleTerm, AlchemicalPeriodicTorsionTerm)}
+    AlchemicalHarmonicAngleTerm, AlchemicalPeriodicTorsionTerm,
+    HarmonicWellArrayTerm, WCATerm)}
 
 
 def _tensor(value, device, dtype):

@@ -1041,3 +1041,132 @@ def test_cuda_cell_chunk_strides_past_the_coresident_blocks(cuda):
     x = fluid.positions
     xs, vs, valid, _, mo = k.bin(x, _thermal(16384, cuda))
     _cell_kernels_match_plain(k, xs, vs, valid, mo, seed=14, steps=3)
+
+
+# ---------------------------------------------------------------------------
+# the MCMC layer on the card: moves reach K1 and K2, the extras keep their
+# own step
+# ---------------------------------------------------------------------------
+
+
+class _chunk_launches:
+    """Counts the launches of K1's chunk kernel (its C entry point) inside
+    the block, whatever wrapper makes them."""
+
+    def __enter__(self):
+        from openmmtools_tpu_torch.ops import _build
+
+        self.lib = _build.load_library()
+        self.launch = self.lib.lj_chunk_f32
+        self.count = 0
+
+        def counted(*args):
+            self.count += 1
+            return self.launch(*args)
+
+        self.lib.lj_chunk_f32 = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.lj_chunk_f32 = self.launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "AndersenVelocityVerletIntegrator", "HMCIntegrator",
+    "MetropolisMonteCarloIntegrator",
+    "NoseHooverChainVelocityVerletIntegrator"])
+def test_cuda_extras_keep_their_own_step(cuda, name):
+    """On LJ-2048, where BAOAB takes K1's chunk kernel, each integrator of
+    integrators/extras.py keeps its own step: no fused path, no sweep mode,
+    no chunk launch, and its own counters move."""
+    from openmmtools_tpu_torch import integrators as tint
+
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    assert BAOABIntegrator(temperature=120.0).bind(
+        fluid.system)._fused is not None
+    kwargs = dict(temperature=120.0)
+    if name == "MetropolisMonteCarloIntegrator":
+        kwargs["displacement_sigma"] = 1e-5
+    bound = getattr(tint, name)(**kwargs).bind(fluid.system)
+    assert bound._fused is None and not bound.sweep_mode
+    with _chunk_launches() as k1:
+        state = bound.initial_state(fluid.sampler_state(),
+                                    torch.Generator(device=cuda).manual_seed(0))
+        state = bound.run(state, 5)
+        torch.cuda.synchronize()
+    assert k1.count == 0
+    assert state.step_count == 5 and torch.isfinite(state.positions).all()
+    if name in ("HMCIntegrator", "MetropolisMonteCarloIntegrator"):
+        assert int(state.n_proposed) == 5
+
+
+@pytest.mark.cuda
+def test_cuda_langevin_move_launches_k1(cuda):
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    ts = fluid.thermodynamic_state(120.0)
+    move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                n_steps=500)
+    fused = move._bound(ts)._fused
+    assert fused is not None
+    ss = fluid.sampler_state()
+    for _ in range(2):
+        ss = move.apply(ts, ss)
+    assert fused.launches == {"lj_forces": 2, "lj_chunk": 2}
+    assert torch.isfinite(ss.positions).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ghmc_move_launches_k2(cuda):
+    from openmmtools_tpu_torch.mcmc import GHMCMove
+
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    ts = fluid.thermodynamic_state(120.0)
+    move = GHMCMove(timestep=0.001, n_steps=20)
+    bound = move._bound(ts)
+    assert bound.sweep_mode and bound._fused is None
+    with _chunk_launches() as k1:
+        ss = move.apply(ts, fluid.sampler_state())
+    assert k1.count == 0
+    k = bound._sweep_kernel.launches
+    assert k["sweep_bound"] > 0 and k["sweep_forces"] > 0
+    assert move.n_proposed == 20 and move.n_accepted > 0
+    assert torch.isfinite(ss.positions).all()
+
+
+@pytest.mark.cuda
+def test_cuda_barostat_box_reaches_k1_and_k2(cuda):
+    """After a barostat acceptance the Langevin move (K1) and the GHMC
+    move (sweep mode, K2) evaluate at the new box: each final U equals the
+    dense sum at that box to 2e-4."""
+    from openmmtools_tpu_torch.mcmc import (
+        GHMCMove,
+        LangevinDynamicsMove,
+        MonteCarloBarostatMove,
+    )
+
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    ts = fluid.thermodynamic_state(120.0, pressure=21.0)
+    baro = MonteCarloBarostatMove(volume_scale=0.02, n_attempts=10, seed=2)
+    ss = baro.apply(ts, fluid.sampler_state())
+    assert baro.n_accepted > 0
+    edge = float(ss.box_vectors[0, 0])
+    assert edge != float(fluid.system.default_box[0, 0])
+    for move in (LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                      n_steps=200),
+                 GHMCMove(timestep=0.001, n_steps=20)):
+        last = {}
+        hook = move._on_integration_end
+
+        def keep(state, _hook=hook):
+            last["state"] = state
+            _hook(state)
+
+        move._on_integration_end = keep
+        ss = move.apply(ts, ss)
+        state = last["state"]
+        assert float(state.box[0, 0]) == edge
+        u_dense = float(ts.potential_energy(ss))
+        assert abs(float(state.potentials[0]) - u_dense) <= REL * abs(u_dense)

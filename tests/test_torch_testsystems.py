@@ -131,3 +131,131 @@ def test_models_default_to_the_card():
         else:
             with pytest.raises((RuntimeError, AssertionError)):
                 build()
+
+
+# ---------------------------------------------------------------------------
+# the analytic systems, the LJ cluster, the WCA fluid and the charged fluid
+# ---------------------------------------------------------------------------
+
+# each system's constructor arguments, the same in both packages
+SYSTEMS = {
+    "PowerOscillator": dict(b=4),
+    "HarmonicOscillatorArray": dict(N=4),
+    "CustomExternalForcesTestSystem": dict(
+        energy_expressions=("0.75*(x**2+y**2+z**2)", "x**4 + 0.5*y*z"),
+        n_particles=6),
+    "Diatom": dict(use_central_potential=True),
+    "DiatomConstrained": dict(constraint=True),
+    "IdealGas": dict(nparticles=16),
+    "LennardJonesCluster": dict(nx=2, ny=3, nz=2),
+    "LennardJonesClusterCutoff": dict(cutoff=0.9, switch_width=0.1),
+    "WCAFluid": dict(nparticles=64),
+    "LennardJonesFluidCharged": dict(nparticles=64, reduced_density=0.5,
+                                     charge=0.3, cutoff=0.7),
+}
+CLASS_OF = {"DiatomConstrained": "Diatom",
+            "LennardJonesClusterCutoff": "LennardJonesCluster",
+            "LennardJonesFluidCharged": "LennardJonesFluid"}
+
+
+def _both(name):
+    cls = CLASS_OF.get(name, name)
+    kwargs = SYSTEMS[name]
+    return (getattr(jts, cls)(**kwargs),
+            getattr(tts, cls)(device="cpu", **kwargs))
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_system_matches_jax(name):
+    """Bit-identical leaves (the port's own build and the converter's from
+    the JAX leaves hash alike), the same positions, and the float64 energy
+    at a perturbed configuration to rel 1e-10."""
+    js, ps = _both(name)
+    converted = port_system(js.system, dtype=None)
+    assert converted.fingerprint == ps.system.fingerprint
+    np.testing.assert_array_equal(ps.positions.numpy(),
+                                  np.asarray(js.positions))
+    x = np.asarray(js.positions, np.float64)
+    x = x + np.random.default_rng(5).normal(scale=0.01, size=x.shape)
+    box = (None if js.system.default_box is None
+           else np.asarray(js.system.default_box, np.float64))
+    u_jax = float(jax_energy_fn(jax_f64(js.system))(x, box))
+    p64 = ps.system.to(dtype=torch.float64)
+    u_port = float(make_energy_fn(p64)(
+        torch.as_tensor(x), None if box is None else torch.as_tensor(box)))
+    assert abs(u_port - u_jax) <= 1e-10 * max(abs(u_jax), 1.0), (u_port,
+                                                                u_jax)
+    assert ps.analytical_properties == js.analytical_properties
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+@pytest.mark.parametrize("pressure", [None, 2.0])
+def test_expectations_match_jax(name, pressure):
+    """Every analytic expectation and standard deviation, NVT and NPT, at
+    rel 1e-10 (the JAX state's temperature and pressure as float64: its
+    own constructor stores float32)."""
+    js, ps = _both(name)
+    jstate = js.thermodynamic_state(250.0, pressure=pressure).replace(
+        temperature=np.float64(250.0),
+        pressure=None if pressure is None else np.float64(pressure))
+    pstate = ps.thermodynamic_state(250.0, pressure=pressure)
+    for prop in js.analytical_properties:
+        want = float(getattr(js, "get_" + prop)(jstate))
+        got = float(getattr(ps, "get_" + prop)(pstate))
+        assert abs(got - want) <= 1e-10 * max(abs(want), 1e-30), prop
+
+
+def test_oscillator_free_energy_matches_jax():
+    jo, to = jts.HarmonicOscillator(), tts.HarmonicOscillator(device="cpu")
+    assert to.configurational_free_energy(300.0) == pytest.approx(
+        jo.configurational_free_energy(300.0), rel=1e-12)
+    jstate = jo.thermodynamic_state(300.0).replace(
+        temperature=np.float64(300.0))
+    assert to.get_potential_standard_deviation(
+        to.thermodynamic_state(300.0)) == pytest.approx(
+        jo.get_potential_standard_deviation(jstate), rel=1e-10)
+
+
+def test_array_spring_constant_is_a_global_parameter():
+    """HarmonicWellArrayTerm reads K from the global parameters when they
+    name it, as the JAX term does."""
+    js, ps = _both("HarmonicOscillatorArray")
+    x = np.random.default_rng(2).normal(scale=0.05, size=(4, 3))
+    name = "testsystems_HarmonicOscillatorArray_K"
+    u_jax = float(jax_energy_fn(jax_f64(js.system))(x, None, {name: 123.0}))
+    u_port = float(make_energy_fn(ps.system.to(dtype=torch.float64))(
+        torch.as_tensor(x), None,
+        {name: torch.tensor(123.0, dtype=torch.float64)}))
+    assert abs(u_port - u_jax) <= 1e-12 * abs(u_jax)
+
+
+def test_available_testsystems_are_the_jax_list_less_the_unported():
+    """The port lists exactly the JAX package's systems less those of
+    ``more_systems.py`` and the prmtop systems (ROADMAP Queue 3)."""
+    import openmmtools_tpu.models.more_systems as more
+
+    port = tts.get_available_testsystems()
+    jax_names = jts.get_available_testsystems()
+    unported = {name for name in jax_names
+                if getattr(jts, name).__module__ == more.__name__}
+    unported |= {"AlanineDipeptideVacuum", "AlanineDipeptideImplicit",
+                 "AlchemicalAlanineDipeptide"}
+    assert port == sorted(set(jax_names) - unported)
+    for name in port:
+        assert issubclass(getattr(tts, name, None)
+                          or getattr(__import__(
+                              "openmmtools_tpu_torch.models.water",
+                              fromlist=[name]), name), tts.TestSystem)
+
+
+def test_wca_gradient_is_finite_at_coincident_particles():
+    """The double where keeps the masked self-pairs out of the gradient."""
+    from openmmtools_tpu_torch.system import value_and_grad
+
+    wca = tts.WCAFluid(nparticles=8, device="cpu")
+    x = wca.positions.to(torch.float64).clone()
+    x[1] = x[0] + 1e-3
+    system = wca.system.to(dtype=torch.float64)
+    u, g = value_and_grad(
+        lambda xx: make_energy_fn(system)(xx, system.default_box), x)
+    assert torch.isfinite(u) and torch.isfinite(g).all()
