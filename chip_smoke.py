@@ -103,7 +103,29 @@ nonzero exit. Phases:
    chunk launch, Andersen's kinetic temperature within 5 %, acceptances;
    (c) GHMCMove (1 fs, 2 x 50 steps) on PMEWaterBox(6.223): sweep mode, K2
    and SETTLE inside the Metropolized block, acceptance, rigid geometry,
-   and the final U and forces against the plain sweep plus the remainder.
+   and the final U and forces against the plain sweep plus the remainder;
+14. the multistate layer: (a) replica exchange on the alchemical water box
+   (AlchemicalWaterBox(box_edge=6.223), 9 states of a lambda ladder that
+   turns the electrostatics off, then the sterics, at 300 K; 9 replicas
+   from one state, FIRE-minimized through the bound integrator's sweep
+   path) -> ReplicaExchangeSampler(LangevinSplittingDynamicsMove('V R O R
+   V', 2 fs, 1/ps, 50 steps), 'swap-all') -> create -> minimize -> run(3):
+   sweep mode with K2's alchemical kernel and SETTLE, K2's launches an
+   iteration (9 x 51 propagation evaluations and the 81 of the energy
+   matrix, each a bound and a force launch), the matrix finite, two of its
+   entries against the plain sweep plus the remainder at their state's
+   lambdas, u[n, s_n] against beta U of each replica's final integrator
+   state, the swap counters symmetric, MBAR over the in-memory energies
+   finite, the seconds an iteration split into mixing, propagation, the
+   energy matrix and reporting, and K2's device ms an iteration (launch_ms
+   at the path's shapes); where h5py and PyYAML import, the run writes its
+   storage and the analyzer reads it back to the in-memory MBAR (rel
+   1e-10); (b) single-replica SAMS ('global-jump', 6 iterations) on the
+   same box and ladder: finite visits and logZ, K2's launches; (c) parallel
+   tempering on LennardJonesFluid(2048), 8 temperatures from 120 to 180 K,
+   LangevinDynamicsMove(5,000 steps), 'swap-neighbors', 5 iterations: one
+   lj_forces and one lj_chunk launch a replica an iteration (K1), and the
+   O(N) energies against each state's dense reduced potential.
 
 Times of the chunk kernels of K1, K3 and K4 (``ms``, ``plain_ms``,
 ``bound_ms`` of their entries, marked ``"per": "step"``) are per step of a
@@ -119,8 +141,10 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2358,6 +2382,356 @@ def phase_water_ghmc(dev, smi):
                 launches=launches)
 
 
+# -- phase 14: the multistate layer ---------------------------------------------
+
+MS_LAMBDAS = {
+    "lambda_electrostatics": [1.0, 0.75, 0.5, 0.25, 0.0, 0.0, 0.0, 0.0, 0.0],
+    "lambda_sterics": [1.0, 1.0, 1.0, 1.0, 1.0, 0.75, 0.5, 0.25, 0.0]}
+MS_STEPS = 50
+MS_ITERATIONS = 3
+MS_FIRE_STEPS = 20
+SAMS_ITERATIONS = 6
+PT_STEPS = 5_000
+PT_ITERATIONS = 5
+PT_LADDER = dict(min_temperature=120.0, max_temperature=180.0,
+                 n_temperatures=8)
+
+
+def storage_modules():
+    """Whether h5py and PyYAML import here (the reporter's needs), and the
+    error where they do not."""
+    try:
+        import h5py  # noqa: F401
+        import yaml  # noqa: F401
+    except ImportError as e:
+        return False, str(e)
+    return True, None
+
+
+def ladder_states(system):
+    from openmmtools_tpu_torch.alchemy import AlchemicalState
+    from openmmtools_tpu_torch.states import (
+        CompoundThermodynamicState,
+        ThermodynamicState,
+        create_thermodynamic_state_protocol,
+    )
+
+    ref = CompoundThermodynamicState(
+        base_state=ThermodynamicState(system=system, temperature=WATER_T),
+        composable_states=(AlchemicalState(lambda_electrostatics=1.0,
+                                           lambda_sterics=1.0),))
+    return create_thermodynamic_state_protocol(ref, MS_LAMBDAS)
+
+
+def water_move():
+    from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
+
+    return LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                         n_steps=MS_STEPS,
+                                         splitting="V R O R V")
+
+
+def split_means(sampler, first):
+    """Mean seconds an iteration of each phase from iteration ``first``."""
+    return {name: statistics.fmean(v[first:])
+            for name, v in sampler.phase_seconds.items()}
+
+
+def matrix_against_plain(bound, sampler, pairs):
+    """u[n, k] of the sampler's last matrix against beta_k U of the plain
+    sweep plus the remainder at state k's parameters (a fresh sort of
+    replica n): the largest relative error over ``pairs``."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k = bound._sweep_kernel
+    u = sampler.energies_last_iteration
+    beta = sampler._stacked_states.beta.numpy()
+    worst = 0.0
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        for n, col in pairs:
+            ss = sampler.sampler_states[n]
+            params = sampler._params_on(ss.positions.device,
+                                        ss.positions.dtype)[col]
+            U = float(bound.energies_at(ss.positions, ss.box_vectors,
+                                        [params])[0])
+            rel = float(abs(u[n, col] - beta[col] * U) / abs(beta[col] * U))
+            say(f"phase 14a u[{n}, {col}] {u[n, col]:.4f} vs plain "
+                f"{beta[col] * U:.4f} (rel {rel:.2e})")
+            worst = max(worst, rel)
+    finally:
+        bound._sweep_kernel = k
+    assert worst <= REL_TOL, worst
+    return worst
+
+
+def k2_held_ms(bound, sampler, dev):
+    """K2's two kernels at the path's shapes with the stream held
+    (launch_ms): replica 0's final state at its state's lambdas."""
+    k = bound._sweep_kernel
+    term = bound._sweep_alch
+    ss = sampler.sampler_states[0]
+    s0 = int(sampler.replica_states[0])
+    params = sampler._params_on(ss.positions.device, ss.positions.dtype)[s0]
+    xT, par, excl, L, lam = alchemical_inputs(term, ss.positions,
+                                              ss.box_vectors, k, params)
+    flag = torch.tensor(True, device=dev)
+    no_flag = torch.tensor(False, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flag, zero)
+    before = dict(k.launches)
+    held = {"sweep_forces_alch": launch_ms(
+                lambda: k.sweep(xT, par, excl, L, nb, lam),
+                "sweep_forces_alch_f32"),
+            "sweep_bound_rebuild": launch_ms(
+                lambda: k.measure_bound(xT, L, flag, zero), "sweep_bound_f32"),
+            "sweep_bound": launch_ms(
+                lambda: k.measure_bound(xT, L, no_flag, nb),
+                "sweep_bound_f32")}
+    k.launches.update(before)   # the timings' launches are not the path's
+    return held, int(nb)
+
+
+def phase_multistate_re(dev, smi):
+    """14a: replica exchange over the lambda ladder on the water box."""
+    from openmmtools_tpu_torch.models import AlchemicalWaterBox
+    from openmmtools_tpu_torch.multistate import (
+        MultiStateReporter,
+        ReplicaExchangeAnalyzer,
+        ReplicaExchangeSampler,
+        mbar_free_energies,
+    )
+
+    w = AlchemicalWaterBox(box_edge=WATER_EDGE, device=dev)
+    system = w.system
+    states = ladder_states(system)
+    n_states = len(states)
+    move = water_move()
+    bound = move._bound(states[0])
+    assert bound.sweep_mode and bound._sweep_alch is not None, \
+        "sweep mode did not take the alchemical term"
+    assert bound._settle is not None and bound._fused is None
+    k = bound._sweep_kernel
+    assert set(k.launches) == {"sweep_bound", "sweep_forces_alch"}
+    finals = []
+    move._on_integration_end = finals.append
+    have_storage, why = storage_modules()
+    tmp = tempfile.TemporaryDirectory()
+    reporter = None
+    if have_storage:
+        reporter = MultiStateReporter(
+            str(pathlib.Path(tmp.name) / "re.h5"), checkpoint_interval=1)
+    else:
+        say(f"phase 14a storage: the reporter is not driven on the card "
+            f"({why}); the CPU tests hold it")
+    sampler = ReplicaExchangeSampler(
+        mcmc_moves=move, number_of_iterations=MS_ITERATIONS,
+        online_analysis_interval=None, replica_mixing_scheme="swap-all",
+        rng_seed=14)
+    t0 = time.perf_counter()
+    sampler.create(states, w.sampler_state(), storage=reporter)
+    t_create = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler.minimize(max_iterations=MS_FIRE_STEPS)
+    t_min = time.perf_counter() - t0
+    n = sampler.n_replicas
+    assert n == n_states == 9
+    say(f"phase 14a setup: {system.n_particles} atoms, {n_states} states, "
+        f"{n} replicas; create (the initial 9 x 9 matrix) {t_create:.2f} s, "
+        f"FIRE ({MS_FIRE_STEPS} steps a replica, sweep forces, SETTLE) "
+        f"{t_min:.2f} s")
+    for key in k.launches:
+        k.launches[key] = 0
+    t0 = time.perf_counter()
+    sampler.run(MS_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k.launches)
+    per_iteration = n * (MS_STEPS + 1) + n * n_states
+    say(f"phase 14a {MS_ITERATIONS} iterations in {wall:.2f} s; K2 "
+        f"launches {launches} (expected {per_iteration} of each an "
+        f"iteration: {n} x {MS_STEPS + 1} propagation + {n * n_states} "
+        f"matrix evaluations)")
+    assert launches == {"sweep_bound": MS_ITERATIONS * per_iteration,
+                        "sweep_forces_alch": MS_ITERATIONS * per_iteration}, \
+        launches
+    u = sampler.energies_last_iteration
+    s = sampler.replica_states
+    assert u.shape == (n, n_states) and np.isfinite(u).all()
+    worst = matrix_against_plain(bound, sampler, [(0, n_states - 1), (4, 2)])
+    # u[n, s_n] against beta U of each replica's own final integrator state
+    beta = sampler._stacked_states.beta.numpy()
+    own = 0.0
+    for r, st in enumerate(finals[-n:]):
+        u_run = beta[s[r]] * float(st.potentials[0])
+        own = max(own, float(abs(u[r, s[r]] - u_run) / abs(u_run)))
+    say(f"phase 14a u[n, s_n] against beta U of each replica's final "
+        f"integrator state: worst rel {own:.2e}")
+    assert own <= REL_TOL, own
+    acc = sampler._n_accepted.numpy()
+    prop = sampler._n_proposed.numpy()
+    assert (prop == prop.T).all() and (acc == acc.T).all()
+    assert prop.sum() > 0
+    say(f"phase 14a swaps: {int(acc.sum()) // 2} of {int(prop.sum()) // 2} "
+        f"accepted; replica states {s.tolist()}")
+    hist_u = np.stack(sampler._energy_history)        # (T + 1, N, K)
+    hist_s = np.stack(sampler._state_history)
+    u_ln = hist_u.reshape(-1, n_states).T
+    n_k = np.bincount(hist_s.reshape(-1), minlength=n_states)
+    result = mbar_free_energies(u_ln, n_k)
+    f = result.free_energies.numpy()
+    assert np.isfinite(f).all(), f
+    say(f"phase 14a MBAR over the {hist_u.shape[0]} in-memory iterations: "
+        f"f_k {np.round(f, 3).tolist()} kT")
+    analyzed = None
+    if have_storage:
+        reporter.close()
+        analyzer = ReplicaExchangeAnalyzer(
+            MultiStateReporter(reporter.storage_path),
+            n_equilibration_iterations=0, statistical_inefficiency=1.0)
+        df, _ = analyzer.get_free_energy()
+        rel = float(np.abs(df[0] - (f - f[0])).max()
+                    / np.abs(f - f[0]).max())
+        say(f"phase 14a storage: the analyzer on the stored run, Delta f "
+            f"against the in-memory MBAR: rel {rel:.2e}")
+        assert rel <= 1e-10, rel
+        analyzer.reporter.close()
+        analyzed = rel
+    tmp.cleanup()
+    split = split_means(sampler, 0)
+    it_s = wall / MS_ITERATIONS
+    ns_day = n * MS_STEPS * 0.002e-3 / it_s * 86400.0
+    held, nb = k2_held_ms(bound, sampler, dev)
+    k2_lo = per_iteration * (held["sweep_forces_alch"] + held["sweep_bound"])
+    k2_hi = per_iteration * (held["sweep_forces_alch"]
+                             + held["sweep_bound_rebuild"])
+    say(f"phase 14a {it_s:.3f} s an iteration ({ns_day:.3f} ns/day over "
+        f"the {n} replicas): mixing {split['mixing']:.4f} s, propagation "
+        f"{split['propagation']:.3f} s, energy matrix "
+        f"{split['energy_matrix']:.3f} s, reporting {split['reporting']:.4f}"
+        f" s ({smi})")
+    say(f"phase 14a K2 at replica 0's final state (bound {nb} blocks), "
+        f"stream held: sweep_forces_alch {held['sweep_forces_alch']:.5f} ms, "
+        f"sweep_bound {held['sweep_bound_rebuild']:.5f} on a rebuild, "
+        f"{held['sweep_bound']:.5f} without; so {k2_lo:.2f}-{k2_hi:.2f} ms "
+        f"of K2 device time an iteration ({per_iteration} evaluations; "
+        f"{smi})")
+    return sampler, dict(
+        atoms=system.n_particles, states=n_states, replicas=n,
+        iterations=MS_ITERATIONS, steps_per_iteration=MS_STEPS,
+        seconds_per_iteration=it_s, ns_per_day=ns_day, split_s=split,
+        create_s=t_create, minimize_s=t_min, launches=launches,
+        matrix_worst_rel=worst, own_state_worst_rel=own,
+        swaps=[int(acc.sum()) // 2, int(prop.sum()) // 2],
+        k2_held_ms=held, k2_ms_per_iteration=[k2_lo, k2_hi],
+        storage_rel=analyzed, storage=("driven" if have_storage else why))
+
+
+def phase_multistate_sams(dev, smi, re_sampler):
+    """14b: single-replica SAMS on the same box and ladder, from the RE
+    run's replica 0."""
+    from openmmtools_tpu_torch.multistate import SAMSSampler
+
+    system = re_sampler._thermodynamic_states[0].system
+    states = ladder_states(system)
+    move = water_move()
+    bound = move._bound(states[0])
+    assert bound.sweep_mode and bound._sweep_alch is not None
+    k = bound._sweep_kernel
+    sampler = SAMSSampler(
+        mcmc_moves=move, number_of_iterations=SAMS_ITERATIONS,
+        state_update_scheme="global-jump", online_analysis_interval=None,
+        rng_seed=15)
+    sampler.create(states, [re_sampler.sampler_states[0]],
+                   initial_thermodynamic_states=[0])
+    assert sampler.n_replicas == 1
+    for key in k.launches:
+        k.launches[key] = 0
+    t0 = time.perf_counter()
+    sampler.run(SAMS_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k.launches)
+    per_iteration = (MS_STEPS + 1) + len(states)
+    hist = sampler._histogram
+    logZ = sampler.logZ
+    say(f"phase 14b SAMS: {SAMS_ITERATIONS} iterations in {wall:.2f} s "
+        f"({1e3 * wall / SAMS_ITERATIONS:.1f} ms an iteration; {smi}); "
+        f"visits {hist.tolist()}, logZ {np.round(logZ, 3).tolist()}, stage "
+        f"{sampler._stage}; K2 launches {launches}")
+    assert launches == {"sweep_bound": SAMS_ITERATIONS * per_iteration,
+                        "sweep_forces_alch":
+                        SAMS_ITERATIONS * per_iteration}, launches
+    assert hist.sum() == SAMS_ITERATIONS and np.isfinite(hist).all()
+    assert np.isfinite(logZ).all()
+    assert np.isfinite(sampler.energies_last_iteration).all()
+    return dict(iterations=SAMS_ITERATIONS,
+                ms_per_iteration=1e3 * wall / SAMS_ITERATIONS,
+                visits=hist.tolist(), logZ=logZ.tolist(), launches=launches)
+
+
+def phase_multistate_pt(dev, smi):
+    """14c: parallel tempering on LJ-2048 through K1's fused chunk."""
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+
+    fluid = LennardJonesFluid(nparticles=N, device=dev)
+    ts = fluid.thermodynamic_state(PT_LADDER["min_temperature"])
+    move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                n_steps=PT_STEPS)
+    finals = []
+    move._on_integration_end = finals.append
+    sampler = ParallelTemperingSampler(
+        mcmc_moves=move, number_of_iterations=PT_ITERATIONS,
+        online_analysis_interval=None, replica_mixing_scheme="swap-neighbors",
+        rng_seed=16)
+    sampler.create(ts, fluid.sampler_state(), **PT_LADDER)
+    n = sampler.n_replicas
+    bounds = [move._bound(st) for st in sampler._thermodynamic_states]
+    assert all(b._fused is not None for b in bounds), "a PT move is off K1"
+    for b in bounds:
+        for key in b._fused.launches:
+            b._fused.launches[key] = 0
+    t0 = time.perf_counter()
+    sampler.run(PT_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: sum(b._fused.launches[key] for b in bounds)
+                for key in ("lj_forces", "lj_chunk")}
+    temps = [round(float(t), 3) for t in sampler._stacked_sampled.temperature]
+    say(f"phase 14c PT on LJ-{N}, temperatures {temps} K: {PT_ITERATIONS} "
+        f"iterations of {PT_STEPS} steps in {wall:.2f} s "
+        f"({1e3 * wall / PT_ITERATIONS:.1f} ms an iteration; {smi}); K1 "
+        f"launches {launches}")
+    assert launches == {"lj_forces": n * PT_ITERATIONS,
+                        "lj_chunk": n * PT_ITERATIONS}, launches
+    u = sampler.energies_last_iteration
+    s = sampler.replica_states
+    assert np.isfinite(u).all()
+    # the O(N) matrix against each state's dense reduced potential, and the
+    # replicas' own columns against K1's final energies
+    worst = own = 0.0
+    beta = sampler._stacked_sampled.beta.numpy()
+    for r, ss in enumerate(sampler.sampler_states):
+        for col, st in enumerate(sampler._thermodynamic_states):
+            dense = float(st.reduced_potential(ss))
+            worst = max(worst, float(abs(u[r, col] - dense) / abs(dense)))
+        u_run = beta[s[r]] * float(finals[-n:][r].potentials[0])
+        own = max(own, float(abs(u[r, s[r]] - u_run) / abs(u_run)))
+    acc = sampler._n_accepted.numpy()
+    prop = sampler._n_proposed.numpy()
+    say(f"phase 14c O(N) energies against the dense reduced potential: "
+        f"worst rel {worst:.2e}; u[n, s_n] against K1's final U: worst rel "
+        f"{own:.2e}; swaps {int(acc.sum()) // 2} of {int(prop.sum()) // 2}")
+    assert worst <= 1e-5 and own <= REL_TOL, (worst, own)
+    return dict(temperatures=temps, iterations=PT_ITERATIONS,
+                steps_per_iteration=PT_STEPS,
+                ms_per_iteration=1e3 * wall / PT_ITERATIONS,
+                launches=launches, dense_worst_rel=worst,
+                own_state_worst_rel=own)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -2376,10 +2750,14 @@ def main():
     sampler, ts, mcmc = phase_mcmc(dev, smi)
     mcmc["extras"] = phase_extras(dev, smi, sampler, ts)
     mcmc["water_ghmc"] = phase_water_ghmc(dev, smi)
+    re_sampler, multistate = phase_multistate_re(dev, smi)
+    multistate["sams"] = phase_multistate_sams(dev, smi, re_sampler)
+    multistate["pt"] = phase_multistate_pt(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
-                    "cell_path": cell_rate, "mcmc_path": mcmc, "card": smi}))
+                    "cell_path": cell_rate, "mcmc_path": mcmc,
+                    "multistate_path": multistate, "card": smi}))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The same systems, states, integrators and MCMC moves as the JAX package, on
 tensors: a ``System`` is a frozen dataclass of tensors with pure energy
 terms, the Langevin splitting integrators run as step programs, and the
-moves of :mod:`openmmtools_tpu_torch.mcmc` drive them. Every Pallas TPU kernel
+moves of :mod:`openmmtools_tpu_torch.mcmc` drive them, and the samplers of
+:mod:`openmmtools_tpu_torch.multistate` drive many replicas. Every Pallas TPU kernel
 of the JAX package becomes a kernel written by hand for the NVIDIA H100
 (``csrc/``, built at first use by ``ops/_build.py``), beside a plain PyTorch
 version of the same function that serves CPU tensors and the tests.
@@ -42,3 +43,4 @@ from openmmtools_tpu_torch.system import (  # noqa: E402,F401
     volume,
 )
 from openmmtools_tpu_torch import mcmc  # noqa: E402,F401
+from openmmtools_tpu_torch import multistate  # noqa: E402,F401

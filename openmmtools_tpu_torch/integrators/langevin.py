@@ -60,6 +60,7 @@ from openmmtools_tpu_torch.system import (
     NonbondedTerm,
     PeriodicTorsionTerm,
     System,
+    make_energy_fn,
     make_energy_force_fn,
     value_and_grad,
 )
@@ -74,6 +75,11 @@ class IntegratorError(Exception):
 
 
 _MAX_GROUPS = 32
+
+# from this many atoms up, a system on the card never takes the dense
+# O(N^2) energy path in ``energies_at`` / ``energy_forces_at``: its (N, N)
+# pair tensors are a cliff (the sweep-setup warning's size)
+DENSE_LIMIT = 4096
 
 
 def parse_splitting(splitting: str) -> List[str]:
@@ -230,6 +236,8 @@ class BoundIntegrator:
         self.groups: List[Any] = numbered if numbered else [None]
         self._ef_fns = {g: make_energy_force_fn(
             system, groups=None if g is None else [g]) for g in self.groups}
+        self._e_fns = {g: make_energy_fn(
+            system, groups=None if g is None else [g]) for g in self.groups}
 
         self.n_R = max(1, self.tokens.count("R"))
         self.n_O = max(1, self.tokens.count("O"))
@@ -308,7 +316,7 @@ class BoundIntegrator:
         alchemical = type(term) is AlchemicalNonbondedTerm
         if alchemical and (term.softcore_beta != 0.0
                            or term.softcore_c != 6.0):
-            if system.n_particles >= 4096:
+            if system.n_particles >= DENSE_LIMIT:
                 # the dense path holds (N, N) matrices: losing the kernel
                 # at this size is a cliff, so say so
                 logger.warning(
@@ -533,12 +541,12 @@ class BoundIntegrator:
             tot = tot + t.energy(xx, box, params)
         return tot
 
-    def _sweep_eval(self, x, box, params, sw):
+    def _sweep_eval(self, x, box, params, sw, forces=True):
         """Energy and forces of the sweep's force group: the sweep kernel
         for the NonbondedTerm's standard pairs plus the remainder with
-        autograd forces. ``sw`` is a dict of the sweep state; returns
-        (u, F, new_sw), u in float64. The rebuild flag stays on the
-        device."""
+        autograd forces (``forces=False``: the remainder's energy alone,
+        and F None). ``sw`` is a dict of the sweep state; returns (u, F,
+        new_sw), u in float64. The rebuild flag stays on the device."""
         k = self._sweep_kernel
         term = self._sweep_term
         n = self.system.n_particles
@@ -579,9 +587,13 @@ class BoundIntegrator:
         F_s, u_s, nblk = k.evaluate(xT, par, sw["excl"],
                                     L.to(dtype).contiguous(), rebuild,
                                     sw["nblk"], lam)
-        F_direct = F_s.t()[sw["inv"].long()].to(x.dtype)
-        u_r, g_r = value_and_grad(
-            lambda xx: self._sweep_rest_energy(xx, box, params), x)
+        if forces:
+            F_direct = F_s.t()[sw["inv"].long()].to(x.dtype)
+            u_r, g_r = value_and_grad(
+                lambda xx: self._sweep_rest_energy(xx, box, params), x)
+        else:
+            with torch.no_grad():
+                u_r = self._sweep_rest_energy(x, box, params)
         # the parts add up in float64, as OpenMM's mixed precision sums
         # energies: a float32 total of 24,000 waters (-3.2e5 kJ/mol) moves
         # in steps of 0.03 kJ/mol, and the nonequilibrium work is a sum of
@@ -603,7 +615,80 @@ class BoundIntegrator:
         new_sw = dict(sw)
         new_sw["snap"] = torch.where(rebuild, y, sw["snap"])
         new_sw["nblk"] = nblk.reshape(())
-        return u, F_direct - g_r, new_sw
+        return u, (F_direct - g_r if forces else None), new_sw
+
+    # -- energies at other parameters (the multistate energy matrix) -------
+    def _group_energy_forces(self, g, x, box, params, sw, forces=True):
+        """(U, F, sw) of force group ``g`` by the path the step program
+        takes: sweep mode for the sweep's group, else the group's own
+        (``forces=False``: F None)."""
+        if sw is not None and g == self._sweep_group:
+            return self._sweep_eval(x, box, params, sw, forces=forces)
+        if forces:
+            u, f = self._ef_fns[g](x, box, params)
+            return u, f, sw
+        with torch.no_grad():
+            return self._e_fns[g](x, box, params), None, sw
+
+    def _path_inputs(self, x, box, params_list):
+        """The box, the sweep state of a fresh sort of ``x`` (None off
+        sweep mode) and the parameter dicts as tensors on ``x``'s device.
+        Raises where the dense O(N^2) sum would serve a system of
+        ``DENSE_LIMIT`` atoms or more on the card: there sweep mode should
+        have engaged."""
+        if box is None:
+            box = self.system.default_box
+        n = self.system.n_particles
+        if (self._fused is None and not self.sweep_mode
+                and x.device.type == "cuda" and n >= DENSE_LIMIT):
+            raise IntegratorError(
+                f"sweep mode is off for a {n}-atom system on the card; the "
+                "energies would take the dense O(N^2) sum")
+        sw = None
+        if self.sweep_mode:
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            sw = self._sweep_dict(self._resort_sweep(IntegratorState(
+                positions=x, velocities=x, kT=zero, box=box)))
+        params_list = [{k: torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                        for k, v in (params or {}).items()}
+                       for params in params_list]
+        return box, sw, params_list
+
+    def energies_at(self, x, box, params_list) -> torch.Tensor:
+        """Potential energies (K,) float64 of one configuration ``x`` at K
+        sets of global parameters, by the path the step program takes: in
+        sweep mode one sort of ``x``, then the sweep kernel (and the rest
+        of each force group by its own function) at each set; on the fused
+        path K1's force kernel (its energy does not read the parameters);
+        else each force group's dense function."""
+        box, sw, params_list = self._path_inputs(x, box, params_list)
+        if self._fused is not None:
+            u = self._fused_energy_forces(x, box)[0].to(torch.float64)
+            return u.expand(len(params_list)).clone()
+        out = []
+        for params in params_list:
+            total = torch.zeros((), dtype=torch.float64, device=x.device)
+            for g in self.groups:
+                u, _, sw = self._group_energy_forces(g, x, box, params, sw,
+                                                     forces=False)
+                total = total + u.to(torch.float64)
+            out.append(total)
+        return torch.stack(out)
+
+    def energy_forces_at(self, x, box, params):
+        """(U float64, F) of ``x`` at the global parameters ``params`` by
+        the step program's path, on a fresh sort in sweep mode."""
+        box, sw, (params,) = self._path_inputs(x, box, [params])
+        if self._fused is not None:
+            u, f = self._fused_energy_forces(x, box)
+            return u.to(torch.float64), f.to(x.dtype)
+        total_u = torch.zeros((), dtype=torch.float64, device=x.device)
+        total_f = torch.zeros_like(x)
+        for g in self.groups:
+            u, f, sw = self._group_energy_forces(g, x, box, params, sw)
+            total_u = total_u + u.to(torch.float64)
+            total_f = total_f + f
+        return total_u, total_f
 
     def _fused_setup(self):
         """Enable the fused Langevin kernel for the production case: a plain

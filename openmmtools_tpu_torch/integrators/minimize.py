@@ -18,15 +18,24 @@ from openmmtools_tpu_torch.system import System, make_energy_fn, value_and_grad
 
 def fire_minimize(system: System, x, box=None, params=None, *,
                   timestep=1e-3, max_steps=500, alpha0=0.1, f_inc=1.1,
-                  f_dec=0.5, alpha_shrink=0.99, n_min=5, dt_max_factor=10.0):
+                  f_dec=0.5, alpha_shrink=0.99, n_min=5, dt_max_factor=10.0,
+                  energy_forces=None, constrain=None):
     """FIRE (Fast Inertial Relaxation Engine) minimization.
 
     The scheme and defaults of openmmtools' FIREMinimizationIntegrator:
     velocity mixing v = (1-a) v + a |v| F/|F|, accelerate dt after n_min
     consecutive downhill steps, halve dt and zero velocities on uphill steps.
-    Returns (x_min, U_min).
+    ``energy_forces(x) -> (U, F)`` replaces the dense energy and its
+    autograd forces (a bound integrator's ``energy_forces_at``: sweep mode
+    on a large system); ``constrain(x_new, x_old)`` projects each step's
+    positions onto the constraints, the velocities following the projected
+    step. Returns (x_min, U_min).
     """
     u_fn = make_energy_fn(system)
+    if energy_forces is None:
+        def energy_forces(xx):
+            u, g = value_and_grad(lambda y: u_fn(y, box, params), xx)
+            return u, -g
     masses = torch.clamp(system.masses, min=1e-30)[:, None]
     dt_max = dt_max_factor * timestep
 
@@ -36,8 +45,7 @@ def fire_minimize(system: System, x, box=None, params=None, *,
     alpha = torch.as_tensor(alpha0, dtype=x.dtype, device=x.device)
     n_up = torch.zeros((), dtype=torch.int64, device=x.device)
     for _ in range(max_steps):
-        _, g = value_and_grad(lambda xx: u_fn(xx, box, params), x)
-        f = -g
+        _, f = energy_forces(x)
         power = torch.sum(f * v)
         f_norm = torch.sqrt(torch.sum(f * f) + 1e-30)
         v_norm = torch.sqrt(torch.sum(v * v))
@@ -53,11 +61,14 @@ def fire_minimize(system: System, x, box=None, params=None, *,
         # MD step (velocity Verlet style kick-drift)
         v_next = v_new + dt * f / masses
         x_next = x + dt * v_next
+        if constrain is not None:
+            x_next = constrain(x_next, x)
+            v_next = (x_next - x) / dt
         # guard against blowups: keep the previous iterate
         finite = torch.all(torch.isfinite(x_next))
         x = torch.where(finite, x_next, x)
         v = torch.where(finite, v_next, torch.zeros_like(v))
-    return x, u_fn(x, box, params).detach()
+    return x, energy_forces(x)[0].detach()
 
 
 def gradient_descent_minimize(system: System, x, box=None, params=None, *,

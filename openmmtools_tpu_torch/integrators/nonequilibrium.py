@@ -89,14 +89,6 @@ class BoundNonequilibriumIntegrator(BoundIntegrator):
         env.protocol_work = env.protocol_work + (u_new - u_old)
         env.lambda_ = lam
 
-    def _group_energy_forces(self, g, x, box, params, sw):
-        """(U, F, sw) of force group ``g`` by the path the step program
-        takes: sweep mode for the sweep's group, else the group's own."""
-        if sw is not None and g == self._sweep_group:
-            return self._sweep_eval(x, box, params, sw)
-        u, f = self._ef_fns[g](x, box, params)
-        return u, f, sw
-
     # -- external perturbation work (ExternalPerturbationLangevinIntegrator)
     def perturb(self, state: IntegratorState, new_params: Dict
                 ) -> IntegratorState:

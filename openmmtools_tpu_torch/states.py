@@ -12,9 +12,12 @@
   terms read; parameters may be enslaved to math expressions of function
   variables (:class:`GlobalParameterFunction`).
 * :func:`create_thermodynamic_state_protocol` builds a ladder of states.
-
-The stacked states of the JAX package (``stack_thermodynamic_states``,
-compatibility groups) arrive with the multistate port.
+* :func:`is_state_compatible` / :func:`group_by_compatibility`: states whose
+  systems have the same structure (term types, static fields, tensor shapes
+  and dtypes) and the same ensemble structure;
+  :func:`stack_thermodynamic_states` gives the per-state scalars of K
+  compatible states as (K,) float64 host tensors, the form the multistate
+  samplers read (they keep the list of states beside it).
 """
 from __future__ import annotations
 
@@ -189,6 +192,116 @@ def create_thermodynamic_state_protocol(
             global_params=gp))
     return states
 
+
+
+# ---------------------------------------------------------------------------
+# compatibility and stacks of states
+# ---------------------------------------------------------------------------
+
+
+def _structure(value):
+    """The structure of a tree of dataclasses and tensors: classes, field
+    names, static values and tensor shapes and dtypes, no tensor data."""
+    if isinstance(value, torch.Tensor):
+        return ("tensor", tuple(value.shape), str(value.dtype))
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return (type(value).__name__,) + tuple(
+            (f.name, _structure(getattr(value, f.name)))
+            for f in dataclasses.fields(value))
+    if isinstance(value, (tuple, list)):
+        return (type(value).__name__,) + tuple(_structure(v) for v in value)
+    if isinstance(value, dict):
+        return ("dict",) + tuple((k, _structure(value[k]))
+                                 for k in sorted(value))
+    return ("value", repr(value))
+
+
+def _signature(state):
+    if isinstance(state, CompoundThermodynamicState):
+        state = state.resolve()
+    ensemble = (state.pressure is not None, state.surface_tension is not None,
+                tuple(sorted(state.global_params)))
+    return (_structure(state.system), ensemble)
+
+
+def is_state_compatible(state1, state2) -> bool:
+    """True when one program evaluates both states: the same system
+    structure (term classes, static fields, tensor shapes and dtypes) and
+    the same ensemble structure (NVT or NPT, surface tension, the names of
+    the global parameters)."""
+    return _signature(state1) == _signature(state2)
+
+
+def group_by_compatibility(states: Sequence):
+    """Group states by compatibility, in order within each group. Returns
+    (groups, original_indices)."""
+    groups: List[List[Any]] = []
+    indices: List[List[int]] = []
+    sigs: List[Any] = []
+    for i, s in enumerate(states):
+        sig = _signature(s)
+        for gi, known in enumerate(sigs):
+            if known == sig:
+                groups[gi].append(s)
+                indices[gi].append(i)
+                break
+        else:
+            sigs.append(sig)
+            groups.append([s])
+            indices.append([i])
+    return groups, indices
+
+
+def _scalar(value) -> float:
+    return float(value.item() if isinstance(value, torch.Tensor) else value)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedThermodynamicStates:
+    """The per-state scalars of K compatible states sharing the first
+    state's system: temperature (K,), pressure (K,) or None, surface
+    tension (K,) or None, and each global parameter (K,), all float64
+    tensors on the host."""
+
+    system: System
+    temperature: torch.Tensor
+    pressure: Optional[torch.Tensor]
+    surface_tension: Optional[torch.Tensor]
+    global_params: Dict[str, torch.Tensor]
+
+    @property
+    def n_states(self) -> int:
+        return self.temperature.shape[0]
+
+    @property
+    def beta(self) -> torch.Tensor:
+        return 1.0 / (kB * self.temperature)
+
+
+def stack_thermodynamic_states(states: Sequence) -> StackedThermodynamicStates:
+    """Stack K compatible states (plain or compound) into their (K,)
+    per-state scalars; the system is the first state's."""
+    if not states:
+        raise ValueError("empty state list")
+    states = [s.resolve() if isinstance(s, CompoundThermodynamicState) else s
+              for s in states]
+    first = states[0]
+    for s in states[1:]:
+        if not is_state_compatible(first, s):
+            raise ThermodynamicsError("cannot stack incompatible states")
+
+    def column(values):
+        return torch.tensor([_scalar(v) for v in values], dtype=torch.float64)
+
+    return StackedThermodynamicStates(
+        system=first.system,
+        temperature=column(s.temperature for s in states),
+        pressure=(None if first.pressure is None
+                  else column(s.pressure for s in states)),
+        surface_tension=(None if first.surface_tension is None
+                         else column(s.surface_tension for s in states)),
+        global_params={name: column(s.global_params[name] for s in states)
+                       for name in first.global_params})
 
 # ---------------------------------------------------------------------------
 # GlobalParameterState / CompoundThermodynamicState

@@ -1170,3 +1170,127 @@ def test_cuda_barostat_box_reaches_k1_and_k2(cuda):
         assert float(state.box[0, 0]) == edge
         u_dense = float(ts.potential_energy(ss))
         assert abs(float(state.potentials[0]) - u_dense) <= REL * abs(u_dense)
+
+
+# -- the multistate layer -------------------------------------------------------
+
+ALCH_LADDER = {"lambda_electrostatics": [1.0, 0.5, 0.0],
+               "lambda_sterics": [1.0, 1.0, 0.5]}
+
+
+def _alchemical_ladder(edge, dev):
+    from openmmtools_tpu_torch.models import AlchemicalWaterBox
+    from openmmtools_tpu_torch.states import (
+        ThermodynamicState,
+        create_thermodynamic_state_protocol,
+    )
+
+    w = AlchemicalWaterBox(box_edge=edge, device=dev)
+    ref = ThermodynamicState(system=w.system, temperature=300.0,
+                             global_params={"lambda_electrostatics": 1.0,
+                                            "lambda_sterics": 1.0})
+    return w, create_thermodynamic_state_protocol(ref, ALCH_LADDER)
+
+
+@pytest.mark.cuda
+def test_cuda_energies_at_matches_plain_sweep(cuda):
+    """``energies_at`` on the 24,000-atom alchemical water box: one sort,
+    K2 at three lambda sets (one bound and one force launch each), against
+    the plain sweep plus the remainder; with sweep mode off it raises
+    instead of taking the dense sum."""
+    from openmmtools_tpu_torch.integrators.langevin import IntegratorError
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w, states = _alchemical_ladder(6.223, cuda)
+    bound = BAOABIntegrator(temperature=300.0).bind(w.system)
+    assert bound.sweep_mode and bound._sweep_alch is not None
+    k = bound._sweep_kernel
+    x, box = w.positions, w.system.default_box
+    sets = [s.global_params for s in states]
+    for key in k.launches:
+        k.launches[key] = 0
+    got = bound.energies_at(x, box, sets)
+    torch.cuda.synchronize()
+    assert k.launches == {"sweep_bound": 3, "sweep_forces_alch": 3}
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        want = bound.energies_at(x, box, sets)
+    finally:
+        bound._sweep_kernel = k
+    assert got.dtype == torch.float64
+    assert float(((got - want).abs() / want.abs()).max()) <= REL
+    dense = BAOABIntegrator(temperature=300.0, sweep=None).bind(w.system)
+    with pytest.raises(IntegratorError, match="dense"):
+        dense.energies_at(x, box, sets)
+
+
+@pytest.mark.cuda
+def test_cuda_replica_exchange_iteration_counts_k2(cuda):
+    """One replica-exchange iteration on a 3,000-atom alchemical water box:
+    each replica's move (5 steps, sweep mode) and its row of the matrix
+    launch K2's two kernels (3 x (5 + 1) + 3 x 3 of each); the mixing and
+    the matrix live on the host while the replicas live on the card."""
+    from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
+    from openmmtools_tpu_torch.multistate import ReplicaExchangeSampler
+    import openmmtools_tpu_torch.multistate.replicaexchange as re_module
+
+    w, states = _alchemical_ladder(3.0, cuda)
+    move = LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                         n_steps=5)
+    bound = move._bound(states[0])
+    assert bound.sweep_mode and bound._settle is not None
+    k = bound._sweep_kernel
+    sampler = ReplicaExchangeSampler(mcmc_moves=move, number_of_iterations=1,
+                                     online_analysis_interval=None)
+    sampler.create(states, w.sampler_state())
+    seen = []
+    mix = re_module.mix_all
+
+    def recording_mix(states_, u, *rest):
+        seen.append((states_.device.type, u.device.type))
+        return mix(states_, u, *rest)
+
+    re_module.mix_all = recording_mix
+    try:
+        for key in k.launches:
+            k.launches[key] = 0
+        sampler.run()
+    finally:
+        re_module.mix_all = mix
+    assert k.launches == {"sweep_bound": 27, "sweep_forces_alch": 27}
+    assert seen == [("cpu", "cpu")]
+    assert sampler._energies.device.type == "cpu"
+    assert all(ss.positions.device.type == "cuda"
+               for ss in sampler.sampler_states)
+    assert torch.isfinite(sampler._energies).all()
+
+
+@pytest.mark.cuda
+def test_cuda_parallel_tempering_launches_k1(cuda):
+    """Parallel tempering on LJ-2048: each replica's Langevin move takes
+    K1's fused path, one force and one chunk launch a replica an iteration;
+    the O(N) matrix equals each state's dense reduced potential."""
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+
+    fluid = LennardJonesFluid(nparticles=2048, device="cuda")
+    move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                n_steps=200)
+    sampler = ParallelTemperingSampler(mcmc_moves=move,
+                                       number_of_iterations=2,
+                                       online_analysis_interval=None)
+    sampler.create(fluid.thermodynamic_state(120.0), fluid.sampler_state(),
+                   temperatures=[120.0, 140.0, 160.0])
+    bounds = [move._bound(s) for s in sampler._thermodynamic_states]
+    assert all(b._fused is not None for b in bounds)
+    for b in bounds:
+        for key in b._fused.launches:
+            b._fused.launches[key] = 0
+    sampler.run()
+    for b in bounds:
+        assert b._fused.launches == {"lj_forces": 2, "lj_chunk": 2}
+    u = sampler.energies_last_iteration
+    for r, ss in enumerate(sampler.sampler_states):
+        for c, st in enumerate(sampler._thermodynamic_states):
+            dense = float(st.reduced_potential(ss))
+            assert abs(u[r, c] - dense) <= 1e-5 * abs(dense)
