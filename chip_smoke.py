@@ -93,7 +93,9 @@ nonzero exit. Phases:
    = 21.1 bar), 10 iterations of a SequenceMove of LangevinDynamicsMove
    (2 fs, 5,000 steps: K1's fused chunk), GHMCMove (1 fs, 100 steps) and
    HMCMove (10 x 10 inner steps; both in sweep mode: K2),
-   MCDisplacementMove (one atom) and MonteCarloBarostatMove (5 attempts):
+   MCDisplacementMove (one atom) and MonteCarloBarostatMove (5 attempts),
+   whose energies come from the global context cache's bound integrator
+   (K1's force kernel here: two launches an attempt, 12 an iteration):
    the engine of each bound, K1's and K2's launches by move, acceptances,
    finite states, each integrator move's final U against the dense sum at
    the box it was handed (the barostat's), wall ms per apply, K1's and
@@ -125,7 +127,31 @@ nonzero exit. Phases:
    tempering on LennardJonesFluid(2048), 8 temperatures from 120 to 180 K,
    LangevinDynamicsMove(5,000 steps), 'swap-neighbors', 5 iterations: one
    lj_forces and one lj_chunk launch a replica an iteration (K1), and the
-   O(N) energies against each state's dense reduced potential.
+   O(N) energies against each state's dense reduced potential;
+15. the equilibration path: (a) run_gentle_equilibration on
+   PMEWaterBox(box_edge=6.223) at 300 K, its 8,000 oxygens restrained at
+   sigma 0.3 nm in stages 1-3: a restrained minimize (200 FIRE
+   iterations), NVT (500 steps, 1 fs, 10/ps), NPT at 1 bar restrained and
+   NPT free (500 steps each and 20 barostat attempts after), every energy
+   and force through a bound integrator of the phase's context cache in
+   sweep mode (the thermodynamic state's dense energy raises at this size,
+   so no dense route can complete): sweep mode, K2 and SETTLE in every
+   stage, the restraint among the sweep's leftover terms in stages 1-3,
+   K2's launches by stage exactly (FIRE one an iteration plus its final
+   energy and the acceptance check's two; a dynamics stage n_steps + 1;
+   two a barostat attempt), the restrained minimum below the start, the
+   rigid geometry and a finite box after every stage, the last stage's
+   kinetic temperature within 5 %, one barostat attempt's two energies
+   against the plain sweep plus the remainder; set-up and run seconds a
+   stage, ms a barostat attempt, K2's held device ms and the float32
+   trial's projection onto the constraints in it, the acceptances, the
+   volume, ns/day; (b) parallel tempering on the same box
+   (4 temperatures from 300 to 330 K, LangevinDynamicsMove 2 fs x 50
+   steps, one iteration from a FIRE-minimized state): K2's launches 4 x
+   (50 + 1) + 4 of each, the O(N) columns against the plain sweep plus
+   the remainder.
+
+Phase 1 also prints ``utils.platforms.device_report()``.
 
 Times of the chunk kernels of K1, K3 and K4 (``ms``, ``plain_ms``,
 ``bound_ms`` of their entries, marked ``"per": "step"``) are per step of a
@@ -222,8 +248,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    from openmmtools_tpu_torch.utils import device_report
+
     say(f"phase 1 device: {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+    say(f"phase 1 device report: {json.dumps(device_report())}")
     say(smi)
     return name, smi
 
@@ -2158,15 +2187,23 @@ def phase_mcmc(dev, smi):
                                            atom_subset=[0]),
         "barostat": MonteCarloBarostatMove(volume_scale=0.01, n_attempts=5),
     }
-    # the engine each integrator move binds to
+    from openmmtools_tpu_torch.cache import global_context_cache
+
+    # the engine each integrator move binds to, and the context the
+    # Metropolized moves evaluate in (the global cache's default Langevin
+    # integrator: K1's force kernel on this fluid)
     bounds = {name: moves[name]._bound(ts)
               for name in ("langevin", "ghmc", "hmc")}
+    bounds["context"], _ = global_context_cache.get_context(ts)
     assert bounds["langevin"]._fused is not None, "Langevin move off K1"
+    assert bounds["context"]._fused is not None, "the moves' context off K1"
+    assert bounds["context"] is not bounds["langevin"]
     assert bounds["ghmc"].sweep_mode and bounds["ghmc"]._fused is None
     assert bounds["hmc"].sweep_mode and bounds["hmc"]._fused is None
     wrappers = {"langevin": bounds["langevin"]._fused.launches,
                 "ghmc": bounds["ghmc"]._sweep_kernel.launches,
-                "hmc": bounds["hmc"]._sweep_kernel.launches}
+                "hmc": bounds["hmc"]._sweep_kernel.launches,
+                "context": bounds["context"]._fused.launches}
     last = {}
     walls = timed_moves(moves, last)
     sampler = MCMCSampler(ts, fluid.sampler_state(),
@@ -2197,6 +2234,12 @@ def phase_mcmc(dev, smi):
         f"{launches}")
     assert launches["langevin"] == {"lj_forces": MCMC_ITERATIONS,
                                     "lj_chunk": MCMC_ITERATIONS}, launches
+    # both energies of every displacement and barostat attempt by K1's
+    # force kernel: 2 x (1 + 5) an iteration
+    context_forces = 2 * (1 + 5) * MCMC_ITERATIONS
+    assert launches["context"] == {"lj_forces": context_forces,
+                                   "lj_chunk": 0}, launches
+    assert counted["lj_forces_f32"] == MCMC_ITERATIONS + context_forces
     for name in ("ghmc", "hmc"):
         assert launches[name]["sweep_bound"] > 0, (name, launches)
         assert launches[name]["sweep_forces"] > 0, (name, launches)
@@ -2732,6 +2775,297 @@ def phase_multistate_pt(dev, smi):
                 own_state_worst_rel=own)
 
 
+# -- phase 15: the equilibration path -----------------------------------------
+
+EQ_MIN_ITERATIONS = 200
+EQ_STEPS = 500
+EQ_SIGMA = 0.3           # nm: the oxygens' positional restraint
+EQ_PRESSURE = 1.0        # bar
+PT_WATER_TEMPERATURES = [300.0, 310.0, 320.0, 330.0]
+PT_WATER_STEPS = 50
+
+
+def equilibration_stages(n_atoms):
+    from openmmtools_tpu_torch.utils.equilibration import EquilibrationStage
+
+    oxygens = list(range(0, n_atoms, 3))
+    restrained = dict(restraint_sigma=EQ_SIGMA, restrained_atoms=oxygens)
+    dynamics = dict(temperature=WATER_T, n_steps=EQ_STEPS, timestep=0.001,
+                    collision_rate=10.0)
+    return [
+        EquilibrationStage(stage_type="minimize",
+                           n_steps=EQ_MIN_ITERATIONS, **restrained),
+        EquilibrationStage(stage_type="nvt", **dynamics, **restrained),
+        EquilibrationStage(stage_type="npt", pressure=EQ_PRESSURE,
+                           **dynamics, **restrained),
+        EquilibrationStage(stage_type="npt", pressure=EQ_PRESSURE,
+                           **dynamics),
+    ]
+
+
+def bond_error(system, x, box):
+    c = system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    L = torch.diagonal(box)
+    d = x[i] - x[j]
+    d = d - L * torch.round(d / L)
+    return float(((torch.linalg.norm(d, dim=1) - c.distance)
+                  / c.distance).abs().max())
+
+
+def plain_energies(bound, sampler_states, params):
+    """U of each sampler state at its box by the plain sweep plus the
+    remainder (the bound's path with its kernel swapped for the plain
+    version: a fresh sort, a full rebuild)."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k = bound._sweep_kernel
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        return [float(bound.energies_at(ss.positions, ss.box_vectors,
+                                        [params])[0])
+                for ss in sampler_states]
+    finally:
+        bound._sweep_kernel = k
+
+
+def phase_equilibration(dev, smi):
+    """15a: run_gentle_equilibration on the JAC water box, every energy and
+    force through K2 in sweep mode (no dense route can complete: the
+    thermodynamic state's dense energy raises at this size)."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.forces import PositionalRestraintTerm
+    from openmmtools_tpu_torch.mcmc import (
+        MonteCarloBarostatMove,
+        potential_energies,
+    )
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+    from openmmtools_tpu_torch.system import volume
+    from openmmtools_tpu_torch.utils import Timer
+    from openmmtools_tpu_torch.utils.equilibration import (
+        barostat_applies,
+        run_gentle_equilibration,
+    )
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    system = w.system
+    n = system.n_particles
+    ts = w.thermodynamic_state(WATER_T)
+    try:
+        ts.potential_energy(w.sampler_state())
+    except RuntimeError as e:
+        say(f"phase 15a the dense sum refuses: {e}")
+    else:
+        raise AssertionError("the dense sum served a 24,000-atom system")
+    stages = equilibration_stages(n)
+    cache = ContextCache()
+    timer = Timer()
+    ends = []
+    attempts = []
+    attempt = MonteCarloBarostatMove.attempt
+
+    def timed_attempt(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = attempt(self, *args, **kwargs)
+        accepted = bool(out[1])
+        attempts.append((1e3 * (time.perf_counter() - t), accepted))
+        return out
+
+    def at_stage_end(i, stage, ss):
+        torch.cuda.synchronize()
+        ends.append(ss)
+
+    start = w.sampler_state()
+    MonteCarloBarostatMove.attempt = timed_attempt
+    try:
+        t0 = time.perf_counter()
+        out = run_gentle_equilibration(ts, start, stages, seed=15,
+                                       context_cache=cache, timer=timer,
+                                       callback=at_stage_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        MonteCarloBarostatMove.attempt = attempt
+    seconds = timer.report_timing()
+    bounds = cache.bound_integrators()
+    assert len(bounds) == 4, len(bounds)
+    launches = [dict(b._sweep_kernel.launches) for b in bounds]
+    applies = [barostat_applies(st) if st.stage_type == "npt" else 0
+               for st in stages]
+    expected = [EQ_MIN_ITERATIONS + 3] + [
+        st.n_steps + 1 + 2 * a for st, a in zip(stages[1:], applies[1:])]
+    say(f"phase 15a run_gentle_equilibration on PMEWaterBox({WATER_EDGE}) "
+        f"({n} atoms, {n // 3} oxygens restrained at sigma {EQ_SIGMA} nm in "
+        f"stages 1-3): {wall:.2f} s; K2 launches by stage {launches} "
+        f"(expected {expected} of each: FIRE one an iteration + its final "
+        f"energy + the acceptance check's two; dynamics n_steps + 1; two a "
+        f"barostat attempt)")
+    for b, restrained in zip(bounds, (True, True, True, False)):
+        assert b.sweep_mode and b._fused is None and b._settle is not None
+        assert b._sweep_alch is None
+        leftover = [type(t) for t in b._sweep_leftover]
+        assert (PositionalRestraintTerm in leftover) == restrained, leftover
+    for got, want in zip(launches, expected):
+        assert got == {"sweep_bound": want, "sweep_forces": want}, launches
+    # the restrained minimum below the start's energy, on stage 1's own
+    # bound integrator (its restraint about the start)
+    u_start, u_min = (float(u) for u in potential_energies(
+        water_state(bounds[0].system), (start, ends[0]), cache))
+    say(f"phase 15a minimize: restrained U {u_start:.2f} -> {u_min:.2f} "
+        f"kJ/mol in {EQ_MIN_ITERATIONS} FIRE iterations")
+    assert u_min < u_start
+    for i, ss in enumerate(ends):
+        assert torch.isfinite(ss.positions).all()
+        assert torch.isfinite(ss.box_vectors).all()
+        geom = bond_error(system, ss.positions, ss.box_vectors)
+        say(f"phase 15a stage {i + 1} ({stages[i].stage_type}): set-up "
+            f"{seconds[f'stage {i} setup']:.2f} s, run "
+            f"{seconds[f'stage {i} run']:.2f} s; max relative bond-length "
+            f"error {geom:.2e}; box edge {float(ss.box_vectors[0, 0]):.5f} "
+            f"nm")
+        assert geom <= 1e-5, (i, geom)
+    dof = 3 * n - system.constraints.n_constraints
+    t_last = kinetic_temperature(system.masses, out.velocities, dof)
+    v0 = float(volume(start.box_vectors))
+    v1 = float(volume(out.box_vectors))
+    acc = sum(a for _, a in attempts)
+    ms = [m for m, _ in attempts]
+    ns_day = {i + 1: stages[i].n_steps * stages[i].timestep * 1e-3
+              / seconds[f"stage {i} run"] * 86400.0 for i in (1, 2, 3)}
+    say(f"phase 15a last stage kinetic temperature {t_last:.2f} K; volume "
+        f"{v0:.4f} -> {v1:.4f} nm^3; barostat {acc}/{len(attempts)} "
+        f"accepted, {statistics.median(ms):.2f} ms an attempt (median; "
+        f"first {ms[0]:.2f}); ns/day of stages 2-4 (dynamics and barostat) "
+        f"{ {k: round(v, 3) for k, v in ns_day.items()} } ({smi})")
+    assert len(attempts) == sum(applies)
+    assert abs(t_last - WATER_T) <= 0.05 * WATER_T, t_last
+    # one barostat attempt's two energies against the plain sweep plus the
+    # remainder at the same boxes (stage 4's context, its final state and
+    # a trial 1 % larger in volume)
+    last = bounds[-1]
+    ts4 = water_state(last.system, pressure=EQ_PRESSURE)
+    baro = MonteCarloBarostatMove()
+    mol_ids, n_mol = baro._molecules_for(last.system)
+    eps = torch.tensor(0.01, dtype=out.positions.dtype, device=dev)
+    trial, _ = baro.attempt(ts4, out, eps, torch.tensor(-1e30, device=dev),
+                            mol_ids, n_mol, cache)
+    pair = (out, trial)
+    u_k2 = [float(u) for u in potential_energies(ts4, pair, cache)]
+    u_plain = plain_energies(last, pair, {})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(u_k2, u_plain))
+    say(f"phase 15a a barostat attempt's u_old, u_new by K2 "
+        f"{u_k2[0]:.3f}, {u_k2[1]:.3f} vs the plain sweep plus the "
+        f"remainder {u_plain[0]:.3f}, {u_plain[1]:.3f} (rel {rel:.2e})")
+    assert rel <= REL_TOL, rel
+    # K2's held device time in an attempt: two fresh sorts, each a rebuild
+    k = last._sweep_kernel
+    xT, par, excl, L, _ = tsw.sorted_inputs(last._sweep_term, out.positions,
+                                            out.box_vectors, k)
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flag, zero)
+    before = dict(k.launches)
+    held = {"sweep_forces": launch_ms(lambda: k.sweep(xT, par, excl, L, nb),
+                                      "sweep_forces_f32"),
+            "sweep_bound_rebuild": launch_ms(
+                lambda: k.measure_bound(xT, L, flag, zero),
+                "sweep_bound_f32")}
+    k.launches.update(before)
+    k2_attempt = 2 * (held["sweep_forces"] + held["sweep_bound_rebuild"])
+    say(f"phase 15a K2 at the final state, stream held: sweep_forces "
+        f"{held['sweep_forces']:.5f} ms, sweep_bound on a rebuild "
+        f"{held['sweep_bound_rebuild']:.5f} ms; so {k2_attempt:.4f} ms of "
+        f"K2 device time in a barostat attempt of "
+        f"{statistics.median(ms):.2f} ms ({smi})")
+    # the float32 trial's projection onto the constraints (SETTLE), wall
+    # time with the card synchronized around each call
+    project = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last._constrain_positions(trial.positions, out.positions)
+        torch.cuda.synchronize()
+        project.append(1e3 * (time.perf_counter() - t))
+    say(f"phase 15a the trial's projection onto the constraints (SETTLE) "
+        f"{statistics.median(project):.3f} ms of an attempt (median of 20, "
+        f"synchronized) ({smi})")
+    return dict(
+        atoms=n, wall_s=wall,
+        setup_s=[seconds[f"stage {i} setup"] for i in range(4)],
+        run_s=[seconds[f"stage {i} run"] for i in range(4)],
+        launches=launches, restrained_u=[u_start, u_min],
+        last_temperature=t_last, volume=[v0, v1],
+        barostat=[acc, len(attempts)],
+        barostat_ms_median=statistics.median(ms), ns_per_day=ns_day,
+        k2_held_ms=held, k2_ms_per_attempt=k2_attempt,
+        project_ms=statistics.median(project), attempt_rel=rel)
+
+
+def water_state(system, pressure=None):
+    """The thermodynamic state of a water system at 300 K."""
+    from openmmtools_tpu_torch.states import ThermodynamicState
+
+    return ThermodynamicState(system=system, temperature=WATER_T,
+                              pressure=pressure)
+
+
+def phase_pt_water(dev, smi):
+    """15b: parallel tempering on the JAC water box: each replica's move and
+    the O(N) energies through K2 (no dense route)."""
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                n_steps=PT_WATER_STEPS)
+    sampler = ParallelTemperingSampler(
+        mcmc_moves=move, number_of_iterations=1,
+        online_analysis_interval=None, replica_mixing_scheme="swap-neighbors",
+        rng_seed=17)
+    t0 = time.perf_counter()
+    sampler.create(w.thermodynamic_state(WATER_T), w.sampler_state(),
+                   temperatures=PT_WATER_TEMPERATURES)
+    sampler.minimize(max_iterations=MS_FIRE_STEPS)
+    t_setup = time.perf_counter() - t0
+    n = sampler.n_replicas
+    bounds = [move._bound(st) for st in sampler._thermodynamic_states]
+    kernels = {id(b._sweep_kernel): b._sweep_kernel for b in bounds}
+    assert all(b.sweep_mode and b._fused is None for b in bounds)
+    for k in kernels.values():
+        for key in k.launches:
+            k.launches[key] = 0
+    t0 = time.perf_counter()
+    sampler.run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: sum(k.launches[key] for k in kernels.values())
+                for key in ("sweep_bound", "sweep_forces")}
+    want = n * (PT_WATER_STEPS + 1) + n
+    say(f"phase 15b PT on PMEWaterBox({WATER_EDGE}), temperatures "
+        f"{PT_WATER_TEMPERATURES} K, {n} replicas x {PT_WATER_STEPS} steps: "
+        f"set-up (create, FIRE) {t_setup:.2f} s, one iteration {wall:.2f} s "
+        f"({smi}); K2 launches {launches} (expected {want} of each: "
+        f"{n} x {PT_WATER_STEPS + 1} propagation + {n} O(N) energies)")
+    assert launches == {"sweep_bound": want, "sweep_forces": want}, launches
+    u = sampler.energies_last_iteration
+    assert u.shape == (n, n) and np.isfinite(u).all()
+    beta = sampler._stacked_sampled.beta.numpy()
+    worst = 0.0
+    for r in (0, n - 1):
+        ss = sampler.sampler_states[r]
+        (U,) = plain_energies(sampler._matrix_bound(), [ss], {})
+        worst = max(worst, max(abs(u[r, c] - beta[c] * U) / abs(beta[c] * U)
+                               for c in range(n)))
+    say(f"phase 15b the O(N) columns against the plain sweep plus the "
+        f"remainder: worst rel {worst:.2e}")
+    assert worst <= REL_TOL, worst
+    return dict(replicas=n, steps=PT_WATER_STEPS, setup_s=t_setup,
+                iteration_s=wall, launches=launches, worst_rel=worst)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -2753,11 +3087,14 @@ def main():
     re_sampler, multistate = phase_multistate_re(dev, smi)
     multistate["sams"] = phase_multistate_sams(dev, smi, re_sampler)
     multistate["pt"] = phase_multistate_pt(dev, smi)
+    equilibration = phase_equilibration(dev, smi)
+    equilibration["pt_water"] = phase_pt_water(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
                     "cell_path": cell_rate, "mcmc_path": mcmc,
-                    "multistate_path": multistate, "card": smi}))
+                    "multistate_path": multistate,
+                    "equilibration_path": equilibration, "card": smi}))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@ The same systems, states, integrators and MCMC moves as the JAX package, on
 tensors: a ``System`` is a frozen dataclass of tensors with pure energy
 terms, the Langevin splitting integrators run as step programs, and the
 moves of :mod:`openmmtools_tpu_torch.mcmc` drive them, and the samplers of
-:mod:`openmmtools_tpu_torch.multistate` drive many replicas. Every Pallas TPU kernel
+:mod:`openmmtools_tpu_torch.multistate` drive many replicas. Moves and
+minimizers without an integrator of their own evaluate through the bound
+integrators of :mod:`openmmtools_tpu_torch.cache`; the restraints are in
+:mod:`openmmtools_tpu_torch.forces`, HDF5 storage in
+:mod:`openmmtools_tpu_torch.storage`. Every Pallas TPU kernel
 of the JAX package becomes a kernel written by hand for the NVIDIA H100
 (``csrc/``, built at first use by ``ops/_build.py``), beside a plain PyTorch
 version of the same function that serves CPU tensors and the tests.
@@ -42,5 +46,8 @@ from openmmtools_tpu_torch.system import (  # noqa: E402,F401
     no_constraints,
     volume,
 )
+from openmmtools_tpu_torch import cache  # noqa: E402,F401
+from openmmtools_tpu_torch import forces  # noqa: E402,F401
 from openmmtools_tpu_torch import mcmc  # noqa: E402,F401
 from openmmtools_tpu_torch import multistate  # noqa: E402,F401
+from openmmtools_tpu_torch import storage  # noqa: E402,F401

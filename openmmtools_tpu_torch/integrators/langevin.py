@@ -55,6 +55,7 @@ from openmmtools_tpu_torch.ops.geometry import minimum_image
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
 from openmmtools_tpu_torch.system import (
+    DENSE_LIMIT,
     HarmonicAngleTerm,
     HarmonicBondTerm,
     NonbondedTerm,
@@ -75,11 +76,6 @@ class IntegratorError(Exception):
 
 
 _MAX_GROUPS = 32
-
-# from this many atoms up, a system on the card never takes the dense
-# O(N^2) energy path in ``energies_at`` / ``energy_forces_at``: its (N, N)
-# pair tensors are a cliff (the sweep-setup warning's size)
-DENSE_LIMIT = 4096
 
 
 def parse_splitting(splitting: str) -> List[str]:
@@ -217,6 +213,38 @@ class _Env:
         self.box = None
         self.sweep = None
         self.stash = None
+
+
+def fused_lj_eligible(system: System) -> bool:
+    """Whether the fused LJ kernel (K1) can integrate ``system``: one
+    uncharged periodic LJ ``NonbondedTerm`` (cutoff, no exceptions, no
+    global LJ scale parameter) of uniform sigma, epsilon and mass,
+    no constraints, 192 to 32,768 particles in an orthorhombic box at least
+    twice the cutoff. The kernel reads neither the global parameters nor
+    per-atom parameters, so a term with an ``lj_scale_param`` would be
+    integrated at full epsilon whatever the state's scale."""
+    if (system.constraints.n_constraints > 0 or len(system.terms) != 1
+            or system.default_box is None
+            or not 192 <= system.n_particles <= 32768):
+        return False
+    term = system.terms[0]
+    if not isinstance(term, NonbondedTerm):
+        return False
+    if (term.method != "cutoff_periodic" or term.cutoff is None
+            or term.exception_index.shape[0] > 0
+            or term.lj_scale_param is not None):
+        return False
+    sig = term.sigma.cpu()
+    eps = term.epsilon.cpu()
+    q = term.charge.cpu()
+    mass = system.masses.cpu()
+    box = system.default_box.cpu()
+    diag = torch.diagonal(box)
+    if not (bool(torch.all(sig == sig[0])) and bool(torch.all(eps == eps[0]))
+            and bool(torch.all(q == 0.0)) and bool(torch.all(mass == mass[0]))
+            and torch.allclose(box, torch.diag(diag))):
+        return False
+    return float(term.cutoff) <= 0.5 * float(diag.min())   # minimum image
 
 
 class BoundIntegrator:
@@ -632,10 +660,11 @@ class BoundIntegrator:
 
     def _path_inputs(self, x, box, params_list):
         """The box, the sweep state of a fresh sort of ``x`` (None off
-        sweep mode) and the parameter dicts as tensors on ``x``'s device.
-        Raises where the dense O(N^2) sum would serve a system of
-        ``DENSE_LIMIT`` atoms or more on the card: there sweep mode should
-        have engaged."""
+        sweep mode), that sort's exclusion-bitfield overflow flag (a device
+        bool, None off sweep mode) and the parameter dicts as tensors on
+        ``x``'s device. Raises where the dense O(N^2) sum would serve a
+        system of ``DENSE_LIMIT`` atoms or more on the card: there sweep
+        mode should have engaged."""
         if box is None:
             box = self.system.default_box
         n = self.system.n_particles
@@ -644,27 +673,39 @@ class BoundIntegrator:
             raise IntegratorError(
                 f"sweep mode is off for a {n}-atom system on the card; the "
                 "energies would take the dense O(N^2) sum")
-        sw = None
+        sw = overflow = None
         if self.sweep_mode:
             zero = torch.zeros((), dtype=x.dtype, device=x.device)
-            sw = self._sweep_dict(self._resort_sweep(IntegratorState(
-                positions=x, velocities=x, kT=zero, box=box)))
+            state = self._resort_sweep(IntegratorState(
+                positions=x, velocities=x, kT=zero, box=box))
+            sw, overflow = self._sweep_dict(state), state.sweep_overflow
         params_list = [{k: torch.as_tensor(v, dtype=x.dtype, device=x.device)
                         for k, v in (params or {}).items()}
                        for params in params_list]
-        return box, sw, params_list
+        return box, sw, overflow, params_list
 
-    def energies_at(self, x, box, params_list) -> torch.Tensor:
-        """Potential energies (K,) float64 of one configuration ``x`` at K
-        sets of global parameters, by the path the step program takes: in
-        sweep mode one sort of ``x``, then the sweep kernel (and the rest
-        of each force group by its own function) at each set; on the fused
-        path K1's force kernel (its energy does not read the parameters);
-        else each force group's dense function."""
-        box, sw, params_list = self._path_inputs(x, box, params_list)
+    def check_sweep_overflow(self, flag):
+        """Raise while ``flag`` (a device bool, or None off sweep mode) is
+        set: an exception pair's sorted separation exceeded the bitfield's
+        ``mask_shells``, so its full interaction was evaluated at bonded
+        distance and the energies are wrong. One host read."""
+        if flag is not None and bool(flag):
+            raise IntegratorError(
+                "sweep kernel exclusion-bitfield overflow: an exception "
+                "pair's sorted separation exceeded mask_shells="
+                f"{self._sweep_kernel.mask_shells}; forces are wrong. "
+                "Disable sweep mode (integrator.sweep=None).")
+
+    def energies_and_overflow_at(self, x, box, params_list):
+        """:meth:`energies_at` without its host read: (U (K,) float64, the
+        fresh sort's overflow flag, a device bool or None). A caller that
+        evaluates many configurations ORs the flags and checks once
+        (:meth:`check_sweep_overflow`)."""
+        box, sw, overflow, params_list = self._path_inputs(x, box,
+                                                           params_list)
         if self._fused is not None:
             u = self._fused_energy_forces(x, box)[0].to(torch.float64)
-            return u.expand(len(params_list)).clone()
+            return u.expand(len(params_list)).clone(), overflow
         out = []
         for params in params_list:
             total = torch.zeros((), dtype=torch.float64, device=x.device)
@@ -673,12 +714,26 @@ class BoundIntegrator:
                                                      forces=False)
                 total = total + u.to(torch.float64)
             out.append(total)
-        return torch.stack(out)
+        return torch.stack(out), overflow
+
+    def energies_at(self, x, box, params_list) -> torch.Tensor:
+        """Potential energies (K,) float64 of one configuration ``x`` at K
+        sets of global parameters, by the path the step program takes: in
+        sweep mode one sort of ``x``, then the sweep kernel (and the rest
+        of each force group by its own function) at each set; on the fused
+        path K1's force kernel (the fused path takes no term that reads
+        global parameters: ``fused_lj_eligible``); else each force group's
+        dense function. Raises as ``run`` does on an exclusion-bitfield
+        overflow."""
+        u, overflow = self.energies_and_overflow_at(x, box, params_list)
+        self.check_sweep_overflow(overflow)
+        return u
 
     def energy_forces_at(self, x, box, params):
         """(U float64, F) of ``x`` at the global parameters ``params`` by
-        the step program's path, on a fresh sort in sweep mode."""
-        box, sw, (params,) = self._path_inputs(x, box, [params])
+        the step program's path, on a fresh sort in sweep mode; raises as
+        ``run`` does on an exclusion-bitfield overflow."""
+        box, sw, overflow, (params,) = self._path_inputs(x, box, [params])
         if self._fused is not None:
             u, f = self._fused_energy_forces(x, box)
             return u.to(torch.float64), f.to(x.dtype)
@@ -688,6 +743,7 @@ class BoundIntegrator:
             u, f, sw = self._group_energy_forces(g, x, box, params, sw)
             total_u = total_u + u.to(torch.float64)
             total_f = total_f + f
+        self.check_sweep_overflow(overflow)
         return total_u, total_f
 
     def _fused_setup(self):
@@ -695,12 +751,14 @@ class BoundIntegrator:
         R/V/O splitting of a monodisperse uncharged periodic LJ fluid with no
         constraints, on a CUDA device. Same rules as the JAX package's TPU
         path, with "the system lives on a CUDA device" in place of "the
-        backend is a TPU", and two more: the splitting's step program must
-        fit the chunk kernel's table (``fits_chunk_table``), where the TPU
-        kernel unrolls any token string; and the class must run this
-        module's step program (``brings_own_step``), where the JAX package
-        would hand an extras subclass's splitting to its TPU kernel.
-        Everything else takes the generic program."""
+        backend is a TPU", and three more: the term must read no global
+        LJ scale (``fused_lj_eligible``), since the kernel integrates at
+        the term's own epsilon; the splitting's step program must fit the
+        chunk kernel's table (``fits_chunk_table``), where the TPU kernel
+        unrolls any token string; and the class must run this module's
+        step program (``brings_own_step``), where the JAX package would
+        hand an extras subclass's splitting to its TPU kernel. Everything
+        else takes sweep mode or the generic program."""
         integ = self.integrator
         if integ.neighborlist is None or self._own_step:
             return
@@ -711,28 +769,8 @@ class BoundIntegrator:
             return   # Metropolization/MTS/H need the generic emitters
         if integ.measure_shadow_work or integ.measure_heat:
             return
-        if (system.constraints.n_constraints > 0 or len(system.terms) != 1
-                or system.default_box is None
-                or not 192 <= system.n_particles <= 32768):
+        if not fused_lj_eligible(system):
             return
-        term = system.terms[0]
-        if not isinstance(term, NonbondedTerm):
-            return
-        if (term.method != "cutoff_periodic" or term.cutoff is None
-                or term.exception_index.shape[0] > 0):
-            return
-        sig = term.sigma.cpu()
-        eps = term.epsilon.cpu()
-        q = term.charge.cpu()
-        mass = system.masses.cpu()
-        box = system.default_box.cpu()
-        diag = torch.diagonal(box)
-        if not (bool(torch.all(sig == sig[0])) and bool(torch.all(eps == eps[0]))
-                and bool(torch.all(q == 0.0)) and bool(torch.all(mass == mass[0]))
-                and torch.allclose(box, torch.diag(diag))):
-            return
-        if float(term.cutoff) > 0.5 * float(diag.min()):
-            return  # minimum image invalid
         from openmmtools_tpu_torch.ops.fused_langevin import (
             FusedSortedBAOAB,
             fits_chunk_table,
@@ -741,12 +779,14 @@ class BoundIntegrator:
         if not fits_chunk_table(self.tokens):
             return   # the chunk kernel's step-program table cannot hold it
 
+        term = system.terms[0]
         self.sweep_mode = False   # the fused kernel supersedes the sweep
         self._fused_term = term
         self._fused = FusedSortedBAOAB(
             system.n_particles, float(term.cutoff), term.switch_width,
-            float(sig[0]), float(eps[0]), float(mass[0]),
-            integ.timestep, integ.collision_rate, tokens=tuple(self.tokens))
+            float(term.sigma[0]), float(term.epsilon[0]),
+            float(system.masses[0]), integ.timestep, integ.collision_rate,
+            tokens=tuple(self.tokens))
 
     # -- energy plumbing ----------------------------------------------------
     def _ensure_forces(self, env: _Env, groups=None):
@@ -1052,13 +1092,8 @@ class BoundIntegrator:
         full interaction evaluated at bonded distance."""
         if self._fused is None:
             state = self.run_program(n_steps)(state)
-            if (self.sweep_mode and state.sweep_overflow is not None
-                    and bool(state.sweep_overflow)):
-                raise IntegratorError(
-                    "sweep kernel exclusion-bitfield overflow: an exception "
-                    "pair's sorted separation exceeded mask_shells="
-                    f"{self._sweep_kernel.mask_shells}; forces are wrong. "
-                    "Disable sweep mode (integrator.sweep=None).")
+            if self.sweep_mode:
+                self.check_sweep_overflow(state.sweep_overflow)
             return state
         box = state.box if state.box is not None else self.system.default_box
         x, v, f, u = self._fused.run(state.positions, state.velocities, box,

@@ -6,14 +6,40 @@ FIRE, then L-BFGS, then gradient descent while the result is not finite;
 SHAKE onto the constraints before the acceptance check; never a state worse
 than the input. ``FIREMinimizationIntegrator`` and
 ``GradientDescentMinimizationIntegrator`` carry the openmmtools names.
-Forces are ``-grad U`` by autograd.
+
+Each minimizer takes ``energy_forces(x) -> (U, F)``; without it, the dense
+energy and its autograd forces, which raise on the card from
+``DENSE_LIMIT`` atoms up. :func:`minimize` takes ``energy_forces`` and
+FIRE's constraint projection from the bound integrator that the context
+cache holds for the state (``cache.py``), and so does its acceptance
+check's energy: sweep mode and the sweep kernel with SETTLE on a water box
+on the card. The JAX package runs them all on the dense energy and leaves
+FIRE's steps unprojected.
 """
 from __future__ import annotations
 
 import torch
 
 from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
-from openmmtools_tpu_torch.system import System, make_energy_fn, value_and_grad
+from openmmtools_tpu_torch.system import (
+    System,
+    make_energy_fn,
+    refuse_dense,
+    value_and_grad,
+)
+
+
+def _dense_energy_forces(system, box, params, x, what):
+    """``energy_forces`` by the dense energy and autograd; refused on the
+    card from ``DENSE_LIMIT`` atoms up."""
+    refuse_dense(system, x, what)
+    u_fn = make_energy_fn(system)
+
+    def energy_forces(xx):
+        u, g = value_and_grad(lambda y: u_fn(y, box, params), xx)
+        return u, -g
+
+    return energy_forces
 
 
 def fire_minimize(system: System, x, box=None, params=None, *,
@@ -31,11 +57,9 @@ def fire_minimize(system: System, x, box=None, params=None, *,
     positions onto the constraints, the velocities following the projected
     step. Returns (x_min, U_min).
     """
-    u_fn = make_energy_fn(system)
     if energy_forces is None:
-        def energy_forces(xx):
-            u, g = value_and_grad(lambda y: u_fn(y, box, params), xx)
-            return u, -g
+        energy_forces = _dense_energy_forces(system, box, params, x,
+                                             "fire_minimize")
     masses = torch.clamp(system.masses, min=1e-30)[:, None]
     dt_max = dt_max_factor * timestep
 
@@ -72,26 +96,29 @@ def fire_minimize(system: System, x, box=None, params=None, *,
 
 
 def gradient_descent_minimize(system: System, x, box=None, params=None, *,
-                              initial_step=1e-4, max_steps=200):
+                              initial_step=1e-4, max_steps=200,
+                              energy_forces=None):
     """Adaptive-step gradient descent (openmmtools'
     GradientDescentMinimizationIntegrator): x -= gamma grad/|grad|max,
     kept if the energy drops (gamma grows by 1.2), else gamma halves.
-    Returns (x_min, U_min)."""
-    u_fn = make_energy_fn(system)
+    ``energy_forces`` as in :func:`fire_minimize`. Returns (x_min,
+    U_min)."""
+    if energy_forces is None:
+        energy_forces = _dense_energy_forces(
+            system, box, params, x, "gradient_descent_minimize")
 
     def energy(xx):
-        return u_fn(xx, box, params)
+        with torch.no_grad():
+            return energy_forces(xx)[0]
 
     x = x.detach()
-    with torch.no_grad():
-        u = energy(x)
+    u = energy(x)
     gamma = torch.as_tensor(initial_step, dtype=x.dtype, device=x.device)
     for _ in range(max_steps):
-        _, g = value_and_grad(energy, x)
+        g = -energy_forces(x)[1]
         gmax = torch.clamp(torch.max(torch.abs(g)), min=1e-12)
         x_try = x - gamma * g / gmax
-        with torch.no_grad():
-            u_try = energy(x_try)
+        u_try = energy(x_try)
         better = u_try < u
         x = torch.where(better, x_try, x)
         u = torch.where(better, u_try, u)
@@ -101,28 +128,29 @@ def gradient_descent_minimize(system: System, x, box=None, params=None, *,
 
 def lbfgs_minimize(system: System, x, box=None, params=None, *,
                    max_steps=200, history=10, tolerance=10.0,
-                   max_backtracks=25):
+                   max_backtracks=25, energy_forces=None):
     """L-BFGS with the two-loop recursion and bounded Armijo backtracking,
     the analog of OpenMM's LocalEnergyMinimizer. Each iteration caps the
     largest per-atom displacement at 0.05 nm. It always runs ``max_steps``
     iterations, as the JAX package's scan does; ``tolerance`` (RMS force,
     kJ/mol/nm) is accepted for the same signature and, as there, stops
-    nothing. Returns (x_min, U_min)."""
-    u_fn = make_energy_fn(system)
+    nothing. ``energy_forces`` as in :func:`fire_minimize`. Returns
+    (x_min, U_min)."""
+    if energy_forces is None:
+        energy_forces = _dense_energy_forces(system, box, params, x,
+                                             "lbfgs_minimize")
     m = int(history)
     shape = x.shape
     n = x.numel()
     dtype, device = x.dtype, x.device
 
-    def energy_flat(xf):
-        return u_fn(xf.reshape(shape), box, params)
-
     def flat_vg(xf):
-        return value_and_grad(energy_flat, xf)
+        u, f = energy_forces(xf.reshape(shape))
+        return u, -f.reshape(-1)
 
     def energy_at(xf):
         with torch.no_grad():
-            return energy_flat(xf)
+            return energy_forces(xf.reshape(shape))[0]
 
     xf = x.detach().reshape(-1)
     u, g = flat_vg(xf)
@@ -189,44 +217,62 @@ def lbfgs_minimize(system: System, x, box=None, params=None, *,
 
 def minimize(thermodynamic_state: ThermodynamicState,
              sampler_state: SamplerState, tolerance: float = 1.0,
-             max_iterations: int = 500) -> SamplerState:
+             max_iterations: int = 500, context_cache=None) -> SamplerState:
     """Minimize a sampler state under a thermodynamic state (the
     ``MCMCSampler.minimize`` / LocalEnergyMinimizer analog).
 
     FIRE; L-BFGS from the input if FIRE's energy is not finite; gradient
-    descent from the input if that one's is not either. On a constrained
-    system the result is projected by SHAKE before the acceptance check,
-    and a result whose energy is above the input's (or not finite) returns
-    the input. ``tolerance`` is accepted for the same signature; each
-    minimizer runs ``max_iterations`` steps.
+    descent from the input if that one's is not either. Every energy and
+    force comes from the bound integrator that ``context_cache`` (default:
+    the global cache) holds for the state (``energy_forces_at``), and FIRE
+    projects each step by its constraint solvers. On a constrained system
+    the result is projected by SHAKE before the acceptance check, and a
+    result whose energy is above the input's (or not finite) returns the
+    input. ``tolerance`` is accepted for the same signature; each minimizer
+    runs ``max_iterations`` steps.
     """
+    if context_cache is None:
+        from openmmtools_tpu_torch.cache import global_context_cache
+
+        context_cache = global_context_cache
     system = thermodynamic_state.system
     box = sampler_state.box_vectors
     if box is None:
         box = system.default_box
     params = thermodynamic_state.global_params
     x0 = sampler_state.positions
+    bound, _ = context_cache.get_context(thermodynamic_state)
 
-    x_min, u_min = fire_minimize(system, x0, box, params,
-                                 max_steps=max_iterations)
+    def energy_forces(xx):
+        return bound.energy_forces_at(xx, box, params)
+
+    def energy(xx):
+        with torch.no_grad():
+            return bound.energies_at(xx, box, [params])[0]
+
+    constrained = system.constraints.n_constraints > 0
+    x_min, u_min = fire_minimize(
+        system, x0, box, params, max_steps=max_iterations,
+        energy_forces=energy_forces,
+        constrain=bound._constrain_positions if constrained else None)
     if not bool(torch.isfinite(u_min)):
         x_min, u_min = lbfgs_minimize(system, x0, box, params,
-                                      max_steps=max_iterations)
+                                      max_steps=max_iterations,
+                                      energy_forces=energy_forces)
     if not bool(torch.isfinite(u_min)):
         x_min, u_min = gradient_descent_minimize(system, x0, box, params,
-                                                 max_steps=max_iterations)
+                                                 max_steps=max_iterations,
+                                                 energy_forces=energy_forces)
     # the projection comes before the acceptance check: the unconstrained
     # minimum of a rigid system can lie far off its constraint manifold,
     # and projecting it can raise the energy above the input's
-    if system.constraints.n_constraints > 0:
+    if constrained:
         from openmmtools_tpu_torch.ops.constraints import shake_positions
 
         x_min = shake_positions(x_min, x_min, system.constraints,
                                 system.masses)
-        with torch.no_grad():
-            u_min = make_energy_fn(system)(x_min, box, params)
-    with torch.no_grad():
-        u0 = thermodynamic_state.potential_energy(sampler_state)
+        u_min = energy(x_min)
+    u0 = energy(x0)
     if bool(u_min > u0) or not bool(torch.isfinite(u_min)):
         return sampler_state
     return sampler_state.replace(positions=x_min)

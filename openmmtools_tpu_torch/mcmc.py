@@ -12,7 +12,12 @@ own. The statistics (``n_accepted``/``n_proposed``) are host integers.
 The Metropolized moves split into a draw and a deterministic core that
 takes the draws as arguments: the displacement vector, the quaternion's
 three uniforms, the barostat's ln V step epsilon, and ln u of the
-acceptance test.
+acceptance test. The core takes both energies of an attempt from a bound
+integrator that the context cache holds for the state (``cache.py``; the
+``context_cache`` of ``apply``, else the global one): its
+``energies_at``, which on the card is sweep mode and the sweep kernel for a
+large periodic system and K1's force kernel for an LJ fluid, never the
+dense O(N^2) sum.
 
 On NaN an integrator move retries up to ``n_restart_attempts`` times, the
 last with fresh velocities, then writes the failing state to
@@ -54,6 +59,39 @@ def _resolve(thermodynamic_state):
     if isinstance(thermodynamic_state, CompoundThermodynamicState):
         return thermodynamic_state.resolve()
     return thermodynamic_state
+
+
+def _context(thermodynamic_state, context_cache=None):
+    """The bound integrator that ``context_cache`` (default: the global
+    cache) holds for the state."""
+    if context_cache is None:
+        from openmmtools_tpu_torch.cache import global_context_cache
+
+        context_cache = global_context_cache
+    return context_cache.get_context(thermodynamic_state)[0]
+
+
+def potential_energies(thermodynamic_state, sampler_states,
+                       context_cache=None):
+    """U (float64) of each sampler state at the thermodynamic state, each
+    at its own box, by the bound integrator that ``context_cache`` (default:
+    the global cache) holds for the state: ``energies_at``, the path the
+    step program takes (sweep mode and the sweep kernel on a large periodic
+    system on the card, K1's force kernel on an LJ fluid there)."""
+    bound = _context(thermodynamic_state, context_cache)
+    params = thermodynamic_state.global_params
+    return [bound.energies_at(ss.positions, ss.box_vectors, [params])[0]
+            for ss in sampler_states]
+
+
+def reduced_potentials(thermodynamic_state, sampler_states,
+                       context_cache=None):
+    """beta (U + p V - gamma A) of each sampler state, U by
+    :func:`potential_energies`."""
+    ts = thermodynamic_state
+    return [ts.reduced_potential(ss, potential_energy=u) for ss, u in zip(
+        sampler_states, potential_energies(ts, sampler_states,
+                                           context_cache))]
 
 
 class MCMCMoveError(Exception):
@@ -113,14 +151,16 @@ class MCMCMove:
               generator: Optional[torch.Generator] = None,
               context_cache=None) -> SamplerState:
         """Apply the move, drawing from ``generator`` (default: the move's
-        own on the positions' device). ``context_cache`` is accepted for
-        openmmtools' signature; bound integrators are cached on the move."""
+        own on the positions' device). The Metropolized moves evaluate
+        their energies in ``context_cache`` (default: the global one); the
+        integrator moves keep their bound integrators on the move."""
         if generator is None:
             generator = self.generator(sampler_state.positions.device)
         return self._apply(_resolve(thermodynamic_state), sampler_state,
-                           generator)
+                           generator, context_cache)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         raise NotImplementedError
 
     @property
@@ -160,9 +200,11 @@ class SequenceMove(MCMCMove):
         super().__init__(seed)
         self.move_list = list(move_list)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         for move in self.move_list:
-            sampler_state = move.apply(thermodynamic_state, sampler_state)
+            sampler_state = move.apply(thermodynamic_state, sampler_state,
+                                       context_cache=context_cache)
         return sampler_state
 
     @property
@@ -186,12 +228,14 @@ class WeightedMove(MCMCMove):
         super().__init__(seed)
         self.move_set = list(move_set)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         weights = torch.as_tensor([w for _, w in self.move_set],
                                   dtype=torch.float64, device=generator.device)
         idx = int(torch.multinomial(weights / weights.sum(), 1,
                                     generator=generator))
-        return self.move_set[idx][0].apply(thermodynamic_state, sampler_state)
+        return self.move_set[idx][0].apply(thermodynamic_state, sampler_state,
+                                           context_cache=context_cache)
 
     @property
     def statistics(self):
@@ -232,7 +276,8 @@ class BaseIntegratorMove(MCMCMove):
     def _on_integration_end(self, final_state):
         """Hook: harvest statistics from the final integrator state."""
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         bound = self._bound(thermodynamic_state)
         for attempt in range(self.n_restart_attempts + 1):
             ss = sampler_state
@@ -433,30 +478,33 @@ class MetropolizedMove(MCMCMove):
         raise NotImplementedError
 
     def metropolis_step(self, thermodynamic_state, sampler_state, draw,
-                        log_u):
+                        log_u, context_cache=None):
         """One move given its draws (the proposal's ``draw`` and ``log_u``
         = ln u of the acceptance test): the new sampler state and the
-        accept flag, a tensor."""
+        accept flag, a tensor. Both reduced potentials take U from the
+        context cache's bound integrator (``reduced_potentials``)."""
         x = sampler_state.positions
         subset = (torch.arange(x.shape[0], device=x.device)
                   if self.atom_subset is None
                   else torch.as_tensor(self.atom_subset, dtype=torch.int64,
                                        device=x.device))
-        u_old = thermodynamic_state.reduced_potential(sampler_state)
         x_new = x.index_put((subset,),
                             self._propose_positions(draw, x[subset]))
-        u_new = thermodynamic_state.reduced_potential(
-            sampler_state.replace(positions=x_new))
+        proposed = sampler_state.replace(positions=x_new)
+        u_old, u_new = reduced_potentials(
+            thermodynamic_state, (sampler_state, proposed), context_cache)
         accept = log_u < -(u_new - u_old)
         return (sampler_state.replace(positions=torch.where(accept, x_new, x)),
                 accept)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         x = sampler_state.positions
         draw = self._draw(generator, x)
         log_u = torch.log(draw_uniform(generator, (), x))
         new_ss, accept = self.metropolis_step(thermodynamic_state,
-                                              sampler_state, draw, log_u)
+                                              sampler_state, draw, log_u,
+                                              context_cache)
         self.n_proposed += 1
         self.n_accepted += int(accept)
         return new_ss
@@ -523,8 +571,17 @@ class MonteCarloBarostatMove(MetropolizedMove):
     for the centroids' scaling and one more for the ln V measure.
 
     Molecules are the connected components of the bond, constraint and
-    virtual-site graph, found once a system on the host. The energies are
-    the thermodynamic state's ``potential_energy``: the dense sum.
+    virtual-site graph, found once a system on the host. Both energies of
+    an attempt come from the context cache's bound integrator for the state
+    (``energies_at``), the trial one at the scaled box: sweep mode on a
+    water box on the card, with a fresh sort at that box.
+
+    In float32 the translation rounds each atom on its own, and over a run
+    of attempts with no dynamics between them that error builds up in the
+    rigid geometry. So on a constrained float32 system the trial positions
+    are projected onto the constraints by the same bound integrator (SETTLE
+    on water), as a step would. In float64 the rounding is negligible and
+    the trial is the JAX package's.
     """
 
     _CACHES = ("_molecules_cache",)
@@ -577,14 +634,15 @@ class MonteCarloBarostatMove(MetropolizedMove):
         return self._molecules_cache[key]
 
     def attempt(self, thermodynamic_state, sampler_state, eps, log_u,
-                mol_ids, n_molecules):
+                mol_ids, n_molecules, context_cache=None):
         """One volume attempt given its draws (``eps``, the ln V step, and
-        ``log_u``): the new sampler state and the accept flag, a tensor."""
+        ``log_u``): the new sampler state and the accept flag, a tensor.
+        Both energies come from the context cache's bound integrator
+        (``potential_energies``)."""
         ts = thermodynamic_state
         box = sampler_state.box_vectors
         x = sampler_state.positions
         v_old = box_volume(box)
-        u_old = ts.potential_energy(sampler_state)
         v_new = v_old * torch.exp(eps)
         scale = torch.exp(eps / 3.0)
         box_new = box * scale
@@ -596,8 +654,11 @@ class MonteCarloBarostatMove(MetropolizedMove):
                               device=x.device).index_add_(0, mol_ids, x)
         centers = centers / counts[:, None]
         x_new = x + (scale - 1.0) * centers[mol_ids]
-        u_new = ts.potential_energy(sampler_state.replace(
-            positions=x_new, box_vectors=box_new))
+        if x.dtype == torch.float32 and ts.system.constraints.n_constraints:
+            x_new = _context(ts, context_cache)._constrain_positions(x_new, x)
+        u_old, u_new = potential_energies(
+            ts, (sampler_state, sampler_state.replace(
+                positions=x_new, box_vectors=box_new)), context_cache)
         beta = ts.beta
         p = ts.pressure * BAR_TO_KJ_PER_MOL_NM3
         log_alpha = (-(beta * (u_new - u_old) + beta * p * (v_new - v_old))
@@ -607,7 +668,8 @@ class MonteCarloBarostatMove(MetropolizedMove):
             positions=torch.where(accept, x_new, x),
             box_vectors=torch.where(accept, box_new, box)), accept
 
-    def _apply(self, thermodynamic_state, sampler_state, generator):
+    def _apply(self, thermodynamic_state, sampler_state, generator,
+               context_cache):
         ts = thermodynamic_state
         if ts.pressure is None:
             raise MCMCMoveError("MonteCarloBarostatMove requires an NPT state")
@@ -619,7 +681,8 @@ class MonteCarloBarostatMove(MetropolizedMove):
                                        - 1.0)
             log_u = torch.log(draw_uniform(generator, (), like))
             sampler_state, accept = self.attempt(ts, sampler_state, eps,
-                                                 log_u, mol_ids, n_molecules)
+                                                 log_u, mol_ids, n_molecules,
+                                                 context_cache)
             n_acc = n_acc + accept.to(torch.int64)
         self.n_proposed += self.n_attempts
         self.n_accepted += int(n_acc)
@@ -646,9 +709,11 @@ class MCMCSampler:
             self.sampler_state = self.move.apply(self.thermodynamic_state,
                                                  self.sampler_state)
 
-    def minimize(self, tolerance=1.0, max_iterations=500):
+    def minimize(self, tolerance=1.0, max_iterations=500,
+                 context_cache=None):
         from openmmtools_tpu_torch.integrators.minimize import minimize
 
         self.sampler_state = minimize(
             _resolve(self.thermodynamic_state), self.sampler_state,
-            tolerance=tolerance, max_iterations=max_iterations)
+            tolerance=tolerance, max_iterations=max_iterations,
+            context_cache=context_cache)

@@ -2,10 +2,15 @@
 O(N) energy matrix (counterpart of ``multistate/paralleltempering.py``).
 
 One reference state at K temperatures: the states differ only in beta, so
-an iteration's energy matrix evaluates U(x_n) once a replica, by the
-system's dense energy function at the replica's state, and the base
+an iteration's energy matrix evaluates U(x_n) once a replica, and the base
 sampler's assembly gives u_k = beta_k (U + p_k V) (paralleltempering.py:
-175-238). The initial matrix (create, minimize) takes the generic path.
+175-238). U(x_n) comes from the first integrator move's bound integrator
+(``energies_at``) where it is in sweep mode or the system has
+``DENSE_LIMIT`` atoms or more: on the card that is the sweep kernel, and
+a large system never takes the dense sum. Otherwise (a small system, the
+fused LJ path, no integrator move) it is the system's dense energy at the
+replica's state. The initial matrix (create, minimize) takes the generic
+path.
 """
 from __future__ import annotations
 
@@ -18,8 +23,11 @@ from openmmtools_tpu_torch.mcmc import _resolve
 from openmmtools_tpu_torch.multistate.replicaexchange import (
     ReplicaExchangeSampler,
 )
-from openmmtools_tpu_torch.multistate.sampler import refuse_dense
-from openmmtools_tpu_torch.system import make_energy_fn
+from openmmtools_tpu_torch.system import (
+    DENSE_LIMIT,
+    make_energy_fn,
+    refuse_dense,
+)
 
 
 def temperature_ladder(min_temperature, max_temperature, n_temperatures):
@@ -63,14 +71,20 @@ class ParallelTemperingSampler(ReplicaExchangeSampler):
         return super()._columns(state_index, windowed=False)
 
     def _potentials(self, ss, cols, state_index, windowed):
-        """An iteration's O(N) potentials: U(x_n) once, by the dense energy
-        at the replica's own state, for every column; the matrix of create
-        and minimize takes the generic path."""
+        """An iteration's O(N) potentials: U(x_n) once at the replica's own
+        state, for every column (see the module docstring for the path);
+        the matrix of create and minimize takes the generic path."""
         if not windowed:
             return super()._potentials(ss, cols, state_index, windowed)
         system = self._thermodynamic_states[0].system
         x = ss.positions
-        refuse_dense(system, x, "parallel tempering's O(N) energies")
         params = self._params_on(x.device, x.dtype)[state_index]
+        bound = self._matrix_bound()
+        if bound is not None and (bound.sweep_mode
+                                  or system.n_particles >= DENSE_LIMIT):
+            U, overflow = bound.energies_and_overflow_at(
+                x, ss.box_vectors, [params])
+            return U.expand(len(cols)), overflow
+        refuse_dense(system, x, "parallel tempering's O(N) energies")
         U = make_energy_fn(system)(x, ss.box_vectors, params)
-        return U.to(torch.float64).expand(len(cols))
+        return U.to(torch.float64).expand(len(cols)), None

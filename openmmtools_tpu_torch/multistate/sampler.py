@@ -15,8 +15,12 @@ eager host loops around the device work:
    integrator move's bound integrator, the path its step program takes
    (in sweep mode one sort of x_n, then the sweep kernel at each state's
    global parameters); without an integrator move, the dense energy.
-   Unsampled states with a system of their own are evaluated by their own
-   ``reduced_potential``. With ``locality`` only the 2L+1 states around a
+   Unsampled states with a system of their own are evaluated by the first
+   integrator move's integrator bound to their system through the global
+   context cache (``cache.py``), the same path on their own system; their
+   own dense ``reduced_potential`` serves only without an integrator move.
+   A sweep path's exclusion-bitfield overflow flags are read once a matrix,
+   an OR over the replicas. With ``locality`` only the 2L+1 states around a
    replica's state are evaluated; the rest of its row is +inf. The matrix
    comes to the host once an iteration, in the positions' dtype;
 4. NaN check, report, online analysis, timing.
@@ -47,10 +51,7 @@ import numpy as np
 import torch
 
 from openmmtools_tpu_torch.constants import BAR_TO_KJ_PER_MOL_NM3, kB
-from openmmtools_tpu_torch.integrators.langevin import (
-    DENSE_LIMIT,
-    thermalize_velocities,
-)
+from openmmtools_tpu_torch.integrators.langevin import thermalize_velocities
 from openmmtools_tpu_torch.mcmc import (
     BaseIntegratorMove,
     MCMCMove,
@@ -68,7 +69,7 @@ from openmmtools_tpu_torch.states import (
     is_state_compatible,
     stack_thermodynamic_states,
 )
-from openmmtools_tpu_torch.system import make_energy_fn, volume
+from openmmtools_tpu_torch.system import make_energy_fn, refuse_dense, volume
 
 logger = logging.getLogger(__name__)
 
@@ -137,15 +138,6 @@ class _StoredProperty:
                 if isinstance(attr, cls):
                     out[name] = attr
         return out
-
-
-def refuse_dense(system, x, what):
-    """Raise where the dense O(N^2) sum would serve a system of
-    ``DENSE_LIMIT`` atoms or more on the card."""
-    if x.device.type == "cuda" and system.n_particles >= DENSE_LIMIT:
-        raise RuntimeError(
-            f"{what} would take the dense O(N^2) sum of a "
-            f"{system.n_particles}-atom system on the card")
 
 
 def first_integrator_move(move) -> Optional[BaseIntegratorMove]:
@@ -304,7 +296,7 @@ class MultiStateSampler:
                 or ts.system.fingerprint == sampled0.system.fingerprint)
 
         # unsampled states with a system of their own (expanded-cutoff
-        # endpoints) are evaluated by their own reduced_potential
+        # endpoints) are evaluated by their own bound integrator
         self._unsampled_separate = bool(self._unsampled_states) and not all(
             same_system(ts) for ts in self._unsampled_states)
         self._stacked_sampled = stack_thermodynamic_states(
@@ -568,20 +560,55 @@ class MultiStateSampler:
         return self._device_params[key]
 
     def _potentials(self, ss: SamplerState, cols: List[int],
-                    state_index: int, windowed: bool) -> torch.Tensor:
-        """U (len(cols),) float64 of one configuration at the stacked
-        states ``cols``, by the bound integrator's path or, without an
-        integrator move, the dense energy."""
+                    state_index: int, windowed: bool):
+        """(U (len(cols),) float64, overflow) of one configuration at the
+        stacked states ``cols``, by the bound integrator's path or, without
+        an integrator move, the dense energy; ``overflow`` is the sweep
+        path's exclusion-bitfield flag (a device bool, None off sweep
+        mode), which the matrix checks once for all replicas."""
         x, box = ss.positions, ss.box_vectors
         params = self._params_on(x.device, x.dtype)
         bound = self._matrix_bound()
         if bound is not None:
-            return bound.energies_at(x, box, [params[c] for c in cols])
+            return bound.energies_and_overflow_at(x, box,
+                                                  [params[c] for c in cols])
         system = self._thermodynamic_states[0].system
         refuse_dense(system, x, "the energy matrix without an integrator move")
         u_fn = make_energy_fn(system)
         return torch.stack([u_fn(x, box, params[c]).to(torch.float64)
-                            for c in cols])
+                            for c in cols]), None
+
+    def _unsampled_bound(self, thermodynamic_state):
+        """The bound integrator that evaluates an unsampled state with a
+        system of its own: the first integrator move's integrator (its
+        class and settings), bound to that state's system through the
+        global context cache; None without an integrator move."""
+        from openmmtools_tpu_torch.cache import global_context_cache
+
+        move = first_integrator_move(self._moves_per_state()[0])
+        if move is None:
+            return None
+        integrator = move._get_integrator(self._thermodynamic_states[0])
+        bound, _ = global_context_cache.get_context(thermodynamic_state,
+                                                    integrator)
+        return bound
+
+    def _unsampled_potentials(self, ss: SamplerState):
+        """[(u (1,) float64, overflow, bound)] of one configuration at each
+        unsampled state with a system of its own: the reduced potential by
+        that state's bound integrator (``_unsampled_bound``) or, without
+        an integrator move, by its own dense ``reduced_potential``."""
+        out = []
+        for ts in self._unsampled_states:
+            bound = self._unsampled_bound(ts)
+            U = flag = None
+            if bound is not None:
+                U, flag = bound.energies_and_overflow_at(
+                    ss.positions, ss.box_vectors, [ts.global_params])
+                U = U[0]
+            u = torch.as_tensor(ts.reduced_potential(ss, potential_energy=U))
+            out.append((u.to(torch.float64).reshape(1), flag, bound))
+        return out
 
     def _columns(self, state_index: int, windowed: bool) -> List[int]:
         """The stacked states a replica at ``state_index`` evaluates: all,
@@ -603,19 +630,28 @@ class MultiStateSampler:
         states with a system of their own) stay on its device until one
         copy brings them all to the host."""
         stacked = self._stacked_states
-        cols_of, parts = [], []
+        bound = self._matrix_bound()
+        cols_of, parts, flags = [], [], []
         with torch.no_grad():
             for ss, s in zip(self._sampler_states, self._replica_states):
                 cols = self._columns(int(s), windowed)
                 cols_of.append(cols)
-                parts.append(self._potentials(ss, cols, int(s), windowed))
+                u, flag = self._potentials(ss, cols, int(s), windowed)
+                parts.append(u)
+                flags.append((flag, bound))
                 if stacked.pressure is not None:
                     parts.append(volume(ss.box_vectors).to(
                         torch.float64).reshape(1))
                 if self._unsampled_separate:
-                    parts += [torch.as_tensor(ts.reduced_potential(ss)).to(
-                        torch.float64).reshape(1)
-                        for ts in self._unsampled_states]
+                    for u, flag, bound in self._unsampled_potentials(ss):
+                        parts.append(u)
+                        flags.append((flag, bound))
+        flags = [(f, b) for f, b in flags if f is not None]
+        if flags:
+            # the replicas' overflow flags, read once for the matrix
+            flags[0][1].check_sweep_overflow(
+                torch.stack([f.to(flags[0][0].device)
+                             for f, _ in flags]).any())
         flat = torch.cat([p.to(parts[0].device) for p in parts]).cpu()
         n_uns = len(self._unsampled_states) if self._unsampled_separate else 0
         rows, at = [], 0

@@ -27,7 +27,13 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from openmmtools_tpu_torch.constants import BAR_TO_KJ_PER_MOL_NM3, kB
-from openmmtools_tpu_torch.system import System, kinetic_energy, make_energy_fn, volume
+from openmmtools_tpu_torch.system import (
+    System,
+    kinetic_energy,
+    make_energy_fn,
+    refuse_dense,
+    volume,
+)
 from openmmtools_tpu_torch.utils.math_eval import math_eval
 from openmmtools_tpu_torch.utils.pytree import tensor_dataclass
 
@@ -117,20 +123,30 @@ class ThermodynamicState:
         return volume(self.system.default_box)
 
     def potential_energy(self, sampler_state: SamplerState):
+        """The dense energy of the sampler state's configuration. On the
+        card it raises from ``DENSE_LIMIT`` atoms up: a bound integrator's
+        ``energies_at`` (sweep mode) serves such a system, through a
+        ``cache.ContextCache`` where no integrator is at hand."""
         box = sampler_state.box_vectors
         if box is None:
             box = self.system.default_box
-        return make_energy_fn(self.system)(
-            sampler_state.positions, box, self.global_params)
+        x = sampler_state.positions
+        refuse_dense(self.system, x, "ThermodynamicState.potential_energy")
+        return make_energy_fn(self.system)(x, box, self.global_params)
 
     def kinetic_energy(self, sampler_state: SamplerState):
         if sampler_state.velocities is None:
             raise SamplerStateError("sampler state has no velocities")
         return kinetic_energy(self.system.masses, sampler_state.velocities)
 
-    def reduced_potential(self, sampler_state: SamplerState):
-        """u(x) = beta [U(x) + p V(x) - gamma A(x)]."""
-        U = self.potential_energy(sampler_state)
+    def reduced_potential(self, sampler_state: SamplerState,
+                          potential_energy=None):
+        """u(x) = beta [U(x) + p V(x) - gamma A(x)]; U is
+        ``potential_energy`` where the caller evaluated it (a bound
+        integrator's ``energies_at``), else the dense energy."""
+        U = potential_energy
+        if U is None:
+            U = self.potential_energy(sampler_state)
         area = None
         if (self.surface_tension is not None
                 and sampler_state.box_vectors is not None):
@@ -572,8 +588,10 @@ class CompoundThermodynamicState:
     def global_params(self):
         return self.resolve().global_params
 
-    def reduced_potential(self, sampler_state: SamplerState):
-        return self.resolve().reduced_potential(sampler_state)
+    def reduced_potential(self, sampler_state: SamplerState,
+                          potential_energy=None):
+        return self.resolve().reduced_potential(
+            sampler_state, potential_energy=potential_energy)
 
     def potential_energy(self, sampler_state: SamplerState):
         return self.resolve().potential_energy(sampler_state)

@@ -359,6 +359,21 @@ def _select_terms(system: System, groups):
     return tuple(t for t in system.terms if t.force_group in gs)
 
 
+# from this many atoms up, a system on the card never takes the dense O(N^2)
+# energy: its (N, N) pair tensors are a cliff (576 M entries a tensor at
+# 24,000 atoms); the bound integrators' sweep path serves it instead
+DENSE_LIMIT = 4096
+
+
+def refuse_dense(system: System, x, what):
+    """Raise where the dense O(N^2) sum would serve a system of
+    ``DENSE_LIMIT`` atoms or more on the card."""
+    if x.device.type == "cuda" and system.n_particles >= DENSE_LIMIT:
+        raise RuntimeError(
+            f"{what} would take the dense O(N^2) sum of a "
+            f"{system.n_particles}-atom system on the card")
+
+
 def make_energy_fn(system: System, groups=None):
     """Return ``U(x, box, params) -> scalar`` summing the selected terms.
 

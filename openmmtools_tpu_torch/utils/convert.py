@@ -7,8 +7,8 @@ arrays. Its numpy form, which this module reads, is plain Python:
 * an array becomes a ``numpy.ndarray``;
 * tuples, lists, dicts, strings, numbers, bools and None stay as they are.
 
-The test systems' own terms (``HarmonicWellArrayTerm``, ``WCATerm``) come
-across like the System's. The alchemical terms come across with their
+The test systems' own terms (``HarmonicWellArrayTerm``, ``WCATerm``) and
+the restraints of ``forces.py`` come across like the System's. The alchemical terms come across with their
 region metadata (lambda names, annihilate flags, region interactions) and
 the reciprocal term with its ``alch_mask``/``lambda_name``, as every other
 field: by name.
@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from openmmtools_tpu_torch import forces
 from openmmtools_tpu_torch.alchemy import (
     AlchemicalHarmonicAngleTerm,
     AlchemicalHarmonicBondTerm,
@@ -56,7 +57,9 @@ _CLASSES = {cls.__name__: cls for cls in (
     HarmonicBondTerm, HarmonicAngleTerm, PeriodicTorsionTerm,
     EwaldReciprocalTerm, AlchemicalNonbondedTerm, AlchemicalHarmonicBondTerm,
     AlchemicalHarmonicAngleTerm, AlchemicalPeriodicTorsionTerm,
-    HarmonicWellArrayTerm, WCATerm)}
+    HarmonicWellArrayTerm, WCATerm, forces.HarmonicRestraintForce,
+    forces.HarmonicRestraintBondForce, forces.FlatBottomRestraintForce,
+    forces.FlatBottomRestraintBondForce, forces.PositionalRestraintTerm)}
 
 
 def _tensor(value, device, dtype):

@@ -14,6 +14,7 @@ dx < 5e-4 modulo L and dv < 5e-3 of the velocity scale). The sweep kernels'
 block bound must equal the plain version's exactly: both round r^2 the same
 way.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +23,7 @@ from openmmtools_tpu_torch.integrators import (
     BAOABIntegrator,
     LangevinIntegrator,
     fire_minimize,
+    minimize,
 )
 from openmmtools_tpu_torch.models import LennardJonesFluid
 from openmmtools_tpu_torch.ops.fused_langevin import (
@@ -1294,3 +1296,226 @@ def test_cuda_parallel_tempering_launches_k1(cuda):
         for c, st in enumerate(sampler._thermodynamic_states):
             dense = float(st.reduced_potential(ss))
             assert abs(u[r, c] - dense) <= 1e-5 * abs(dense)
+
+
+# -- the equilibration slice: every energy through a bound integrator ----------
+
+
+@pytest.mark.cuda
+def test_cuda_fused_path_refuses_an_lj_scale(cuda):
+    """An LJ fluid whose term reads a global LJ scale takes sweep mode, not
+    K1 (whose kernel integrates at the term's own epsilon): its energies
+    follow the scale (eps_ij, and so U, linear in it)."""
+    fluid = LennardJonesFluid(nparticles=2048, device=cuda)
+    term = fluid.system.terms[0].replace(lj_scale_param="lambda_sterics")
+    system = fluid.system.replace(terms=(term,))
+    bound = BAOABIntegrator(temperature=120.0).bind(system)
+    assert bound._fused is None and bound.sweep_mode
+    assert BAOABIntegrator(temperature=120.0).bind(
+        fluid.system)._fused is not None
+    u = bound.energies_at(fluid.positions, None,
+                          [{"lambda_sterics": 1.0}, {"lambda_sterics": 0.5}])
+    assert abs(float(u[1]) - 0.5 * float(u[0])) <= REL * abs(float(u[0]))
+
+
+def _water(edge, dev):
+    from openmmtools_tpu_torch.models import PMEWaterBox
+
+    return PMEWaterBox(box_edge=edge, device=dev)
+
+
+def _plain_energies(bound, sampler_states, params):
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    k = bound._sweep_kernel
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    try:
+        return [float(bound.energies_at(ss.positions, ss.box_vectors,
+                                        [params])[0])
+                for ss in sampler_states]
+    finally:
+        bound._sweep_kernel = k
+
+
+@pytest.mark.cuda
+def test_cuda_dense_sum_is_refused_at_the_limit(cuda):
+    """``ThermodynamicState.potential_energy`` raises on a 24,000-atom
+    system on the card instead of taking the dense sum; below
+    ``DENSE_LIMIT`` it serves."""
+    w = _water(6.223, cuda)
+    with pytest.raises(RuntimeError, match="dense"):
+        w.thermodynamic_state(300.0).potential_energy(w.sampler_state())
+    small = _water(3.0, cuda)
+    assert small.system.n_particles < 4096
+    u = small.thermodynamic_state(300.0).potential_energy(
+        small.sampler_state())
+    assert torch.isfinite(u)
+
+
+@pytest.mark.cuda
+def test_cuda_barostat_on_water_launches_k2(cuda):
+    """A barostat attempt on the 24,000-atom water box: both energies by
+    the context cache's bound integrator in sweep mode (one bound and one
+    force launch each), against the plain sweep plus the remainder."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.mcmc import (
+        MonteCarloBarostatMove,
+        potential_energies,
+    )
+
+    w = _water(6.223, cuda)
+    ts = w.thermodynamic_state(300.0, pressure=1.0)
+    cache = ContextCache()
+    bound, _ = cache.get_context(ts)
+    assert bound.sweep_mode
+    k = bound._sweep_kernel
+    baro = MonteCarloBarostatMove()
+    mol_ids, n_mol = baro._molecules_for(ts.system)
+    ss = w.sampler_state()
+    for key in k.launches:
+        k.launches[key] = 0
+    trial, accept = baro.attempt(ts, ss, torch.tensor(0.01, device=cuda),
+                                 torch.tensor(-1e30, device=cuda), mol_ids,
+                                 n_mol, cache)
+    torch.cuda.synchronize()
+    assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+    assert bool(accept)
+    got = [float(u) for u in potential_energies(ts, (ss, trial), cache)]
+    want = _plain_energies(bound, (ss, trial), {})
+    for g, p in zip(got, want):
+        assert abs(g - p) <= REL * abs(p)
+
+
+@pytest.mark.cuda
+def test_cuda_minimize_on_water_takes_k2(cuda):
+    """``minimize`` on the 24,000-atom water box: FIRE through the cached
+    bound integrator's sweep path with SETTLE, one K2 evaluation an
+    iteration plus the final and the acceptance check's two; rigid
+    waters, a lower energy."""
+    from openmmtools_tpu_torch.cache import ContextCache
+
+    w = _water(6.223, cuda)
+    ts = w.thermodynamic_state(300.0)
+    cache = ContextCache()
+    bound, _ = cache.get_context(ts)
+    k = bound._sweep_kernel
+    for key in k.launches:
+        k.launches[key] = 0
+    ss = w.sampler_state()
+    out = minimize(ts, ss, max_iterations=10, context_cache=cache)
+    torch.cuda.synchronize()
+    assert k.launches == {"sweep_bound": 13, "sweep_forces": 13}
+    u0, u1 = (float(bound.energies_at(s.positions, None, [{}])[0])
+              for s in (ss, out))
+    assert u1 < u0
+    c = ts.system.constraints
+    d = out.positions[c.index[:, 0].long()] - out.positions[
+        c.index[:, 1].long()]
+    assert float(((d.norm(dim=-1) - c.distance) / c.distance).abs().max()) \
+        <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_parallel_tempering_on_water_launches_k2(cuda):
+    """Parallel tempering on a 3,000-atom water box: each replica's move
+    and its O(N) energy through K2 (2 x (5 + 1) + 2 of each kernel an
+    iteration), the columns against the plain sweep plus the remainder."""
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+
+    w = _water(3.0, cuda)
+    move = LangevinDynamicsMove(timestep=0.001, collision_rate=1.0,
+                                n_steps=5)
+    sampler = ParallelTemperingSampler(mcmc_moves=move,
+                                       number_of_iterations=1,
+                                       online_analysis_interval=None)
+    sampler.create(w.thermodynamic_state(300.0), w.sampler_state(),
+                   temperatures=[300.0, 330.0])
+    bounds = [move._bound(s) for s in sampler._thermodynamic_states]
+    kernels = {id(b._sweep_kernel): b._sweep_kernel for b in bounds}
+    assert all(b.sweep_mode for b in bounds)
+    for kk in kernels.values():
+        for key in kk.launches:
+            kk.launches[key] = 0
+    sampler.run()
+    torch.cuda.synchronize()
+    total = {key: sum(kk.launches[key] for kk in kernels.values())
+             for key in ("sweep_bound", "sweep_forces")}
+    assert total == {"sweep_bound": 14, "sweep_forces": 14}
+    u = sampler.energies_last_iteration
+    beta = sampler._stacked_sampled.beta.numpy()
+    for r, ss in enumerate(sampler.sampler_states):
+        (U,) = _plain_energies(sampler._matrix_bound(), [ss], {})
+        for c in range(2):
+            assert abs(u[r, c] - beta[c] * U) <= REL * abs(beta[c] * U)
+
+
+@pytest.mark.cuda
+def test_cuda_unsampled_state_takes_its_own_k2(cuda):
+    """An unsampled state with a system of its own (the water box with its
+    oxygens restrained) is evaluated by the first move's integrator bound
+    to that system: its own sweep kernel, one evaluation a replica."""
+    from openmmtools_tpu_torch.cache import global_context_cache
+    from openmmtools_tpu_torch.forces import restrain_atoms
+    from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
+    from openmmtools_tpu_torch.multistate import MultiStateSampler
+    from openmmtools_tpu_torch.states import ThermodynamicState
+
+    w = _water(3.0, cuda)
+    restrained = restrain_atoms(w.system, w.positions,
+                                list(range(0, w.system.n_particles, 3)))
+    move = LangevinDynamicsMove(timestep=0.001, collision_rate=1.0,
+                                n_steps=2)
+    sampler = MultiStateSampler(mcmc_moves=move, number_of_iterations=1,
+                                online_analysis_interval=None)
+    unsampled = ThermodynamicState(system=restrained, temperature=300.0)
+    sampler.create([w.thermodynamic_state(300.0)], w.sampler_state(),
+                   unsampled_thermodynamic_states=[unsampled])
+    integ = move._get_integrator(sampler._thermodynamic_states[0])
+    bound, _ = global_context_cache.get_context(unsampled, integ)
+    assert bound.sweep_mode and bound.system is restrained
+    k = bound._sweep_kernel
+    for key in k.launches:
+        k.launches[key] = 0
+    sampler.run()
+    torch.cuda.synchronize()
+    assert k.launches == {"sweep_bound": 1, "sweep_forces": 1}
+    assert np.isfinite(sampler.energies_last_iteration).all()
+
+
+@pytest.mark.cuda
+def test_cuda_equilibration_launches_k2_in_every_stage(cuda):
+    """The four-stage protocol on a 3,000-atom water box, short stages:
+    each stage's bound integrator in sweep mode with K2's launches as
+    counted, the restraint among the sweep's leftover terms in the
+    restrained stages."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.forces import PositionalRestraintTerm
+    from openmmtools_tpu_torch.utils.equilibration import (
+        EquilibrationStage,
+        run_gentle_equilibration,
+    )
+
+    w = _water(3.0, cuda)
+    ox = list(range(0, w.system.n_particles, 3))
+    r = dict(restraint_sigma=0.3, restrained_atoms=ox)
+    stages = [EquilibrationStage("minimize", n_steps=10, **r),
+              EquilibrationStage("nvt", n_steps=20, **r),
+              EquilibrationStage("npt", pressure=1.0, n_steps=50, **r),
+              EquilibrationStage("npt", pressure=1.0, n_steps=50)]
+    cache = ContextCache()
+    out = run_gentle_equilibration(w.thermodynamic_state(300.0),
+                                   w.sampler_state(), stages, seed=3,
+                                   context_cache=cache)
+    torch.cuda.synchronize()
+    bounds = cache.bound_integrators()
+    assert [b._sweep_kernel.launches["sweep_forces"] for b in bounds] == \
+        [13, 21, 55, 55]
+    assert [b._sweep_kernel.launches["sweep_bound"] for b in bounds] == \
+        [13, 21, 55, 55]
+    for b, restrained in zip(bounds, (True, True, True, False)):
+        assert b.sweep_mode
+        assert (PositionalRestraintTerm in [type(t) for t in
+                                            b._sweep_leftover]) == restrained
+    assert torch.isfinite(out.positions).all()
+    assert torch.isfinite(out.box_vectors).all()

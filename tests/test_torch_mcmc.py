@@ -134,6 +134,43 @@ def test_barostat_attempts_match_jax(name, seed):
     _close(pss.box_vectors, jss1.box_vectors)
 
 
+def test_barostat_attempts_keep_float32_waters_rigid(monkeypatch):
+    """Twenty accepted attempts in a row on a float32 water box: each trial
+    is projected onto the constraints, so the rigid geometry stays within
+    one rounding of exact (sqrt(3) ulp of the largest coordinate over the
+    shortest constraint) and does not build up over the attempts; without
+    the projection this run exceeds that bound. The energies play no part
+    (ln u = -inf accepts), so they are stubbed."""
+    monkeypatch.setattr(tmc, "potential_energies",
+                        lambda ts, states, cache=None: [
+                            torch.zeros((), dtype=torch.float64)] * 2)
+    w = twater.WaterBox(box_edge=2.5, device="cpu")
+    system = w.system
+    ts = w.thermodynamic_state(TEMP, pressure=1.0)
+    s = w.sampler_state()
+    assert s.positions.dtype == torch.float32
+    c = system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    move = tmc.MonteCarloBarostatMove()
+    ids, n = move._molecule_ids(system)
+    rng = np.random.default_rng(0)
+    top = float(s.positions.abs().max())
+    for _ in range(20):
+        eps = torch.tensor(0.01 * (2.0 * rng.random() - 1.0),
+                           dtype=torch.float32)
+        s, accept = move.attempt(ts, s, eps, torch.tensor(-math.inf), ids, n)
+        assert bool(accept)
+        top = max(top, float(s.positions.abs().max()))
+    L = torch.diagonal(s.box_vectors)
+    d = s.positions[i] - s.positions[j]
+    d = d - L * torch.round(d / L)
+    error = float(((torch.linalg.norm(d, dim=1).double() - c.distance.double())
+                   / c.distance.double()).abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 23)
+    bound = math.sqrt(3.0) * ulp / float(c.distance.min())
+    assert error <= bound, (error, bound)
+
+
 @pytest.mark.parametrize("name", ["water", "diatom", "lj"])
 def test_molecule_ids_match_jax(name):
     js = {"water": lambda: jwater.WaterBox(box_edge=1.5, cutoff=0.6),
