@@ -149,7 +149,30 @@ nonzero exit. Phases:
    (4 temperatures from 300 to 330 K, LangevinDynamicsMove 2 fs x 50
    steps, one iteration from a FIRE-minimized state): K2's launches 4 x
    (50 + 1) + 4 of each, the O(N) columns against the plain sweep plus
-   the remainder.
+   the remainder;
+16. the rest of the catalog: (a) ``scripts.test_platforms.run_sweep`` on
+   the card over every system of ``get_available_testsystems()`` less
+   ``_SLOW``, each built by its default constructor: cuda/f32 and cpu/f32
+   against cpu/f64 (0.06 kcal/mol, ``FORCE_RTOL``) and, wherever K1's fused
+   path or K2's sweep engages, the kernel check against the dense float32
+   sum with each kernel's launches read from its counter; no failure, the
+   names checked the catalog less ``_SLOW`` less the named skips, and which
+   systems took K1, K2, K2's alchemical variant or none; (b)
+   CustomGBForceSystem() (140 atoms, GBSA-OBC) on the generic program,
+   BAOAB 300 K, 1/ps, 1 fs (its ion pairs' contact vibration leaves 2 fs
+   unstable) for 1,000 steps, the final U and F against CPU
+   float64, ms a step, and the factory's alchemical version (the first
+   molecule) at lambda_electrostatics 0, 0.5 and 1 against CPU float64;
+   (c) CustomGBForceSystem(n_molecules=1024) (2,048 atoms) in sweep mode
+   with the GB term in the sweep's remainder: the initial U and F against
+   the dense float32 sum, 200 steps of 1 fs and K2's launches; (d)
+   neighbour mode at its threshold on the card, LennardJonesFluid(100,000) on a lattice
+   at the catalog's density, BAOAB 120 K with sweep off: k_max, r_list
+   and the rebuild interval, two intervals with no overflow, the final U
+   against a float64 recomputation over a fresh blocked list and against
+   K2's energy (a second bind in forced sweep mode), ms a rebuild and a
+   step; (e) ``scripts.benchmark_alchemy.main([])`` (512 particles, 100
+   iterations) and its µs an evaluation.
 
 Phase 1 also prints ``utils.platforms.device_report()``.
 
@@ -3066,6 +3089,370 @@ def phase_pt_water(dev, smi):
                 iteration_s=wall, launches=launches, worst_rel=worst)
 
 
+# -- phase 16: the rest of the catalog, GBSA and neighbour mode ---------------
+
+GB_STEPS = 1_000
+# CustomGBForceSystem's +-1 ions carry a tiny LJ epsilon (0.0016 kJ/mol), so
+# they collapse into contact pairs (about 0.12 nm) whose vibration, about
+# 10 fs a period, leaves 2 fs at the edge of the Verlet limit: a float32
+# BAOAB run at 2 fs went to NaN near step 650 (140 atoms) and 130 (2,048
+# atoms) on the CPU, where 1 fs stayed finite through 1,000 and 200 steps
+GB_TIMESTEP = 0.001
+GB_SWEEP_MOLECULES = 1_024   # CustomGBForceSystem: 2,048 atoms
+GB_SWEEP_STEPS = 200
+NBR_N = 100_000              # neighbour mode's threshold on the card
+NBR_T = 120.0
+VSITE_EDGE = 3.3             # FourSiteWaterBox: 1,331 waters, 5,324 atoms
+VSITE_STEPS = 500
+
+
+def phase_catalog_sweep(dev, smi):
+    """16a: the every-system parity sweep on the card over the catalog less
+    ``_SLOW``: cuda/f32 and cpu/f32 against cpu/f64, and the kernel check
+    wherever K1 or K2 engages; no failure, every name checked or skipped by
+    name."""
+    from openmmtools_tpu_torch.models import get_available_testsystems
+    from openmmtools_tpu_torch.scripts import test_platforms as tp
+
+    names = get_available_testsystems()
+    t0 = time.perf_counter()
+    results, failures, skipped = tp.run_sweep(
+        names, failure_dir=str(ROOT / "build" / "platform-failures"),
+        device="cuda")
+    wall = time.perf_counter() - t0
+    assert not failures, [(n, key) for n, key, _ in failures]
+    checked = {row["system"] for row in results}
+    named = {n for n, _ in skipped}
+    assert checked == set(names) - tp._SLOW - named, checked
+    by_path = collections.defaultdict(list)
+    totals = collections.Counter()
+    for row in results:
+        by_path[row.get("kernel_path") or "none"].append(row["system"])
+        totals.update(row.get("kernel_launches") or {})
+        if row.get("kernel_path"):
+            assert all(row["kernel_launches"].values()), row
+    via = sorted(row["system"] for row in results
+                 if row["checks"]["cuda/f32"]["via"] != "dense")
+    say(f"phase 16a parity sweep: {len(results)} systems checked of "
+        f"{len(names)} in the catalog, {wall:.2f} s; skipped by name "
+        f"{skipped}; cuda/f32 through energy_forces_at (DENSE_LIMIT or "
+        f"more atoms): {via or 'none'}")
+    for path in ("K1", "K2", "K2-alchemical", "none"):
+        say(f"phase 16a {path}: {sorted(by_path.get(path, []))}")
+    worst = {key: max(row["checks"][key]["dU_kJ"] for row in results)
+             for key in ("cpu/f32", "cuda/f32")}
+    say(f"phase 16a kernel launches in the sweep's checks {dict(totals)}; "
+        f"worst |dU| against cpu/f64 {worst} kJ/mol ({smi})")
+    return dict(seconds=wall, checked=len(results), catalog=len(names),
+                skipped=skipped, paths={k: sorted(v)
+                                        for k, v in by_path.items()},
+                launches=dict(totals), worst_dU_kJ=worst)
+
+
+def _u_f_rel(u, f, u_ref, f_ref):
+    """|dU| / |U_ref| and max |dF| / max |F_ref|, on the host in float64."""
+    f, f_ref = f.detach().cpu().double(), f_ref.detach().cpu().double()
+    return (abs(float(u) - float(u_ref)) / abs(float(u_ref)),
+            float((f - f_ref).abs().max()) / float(f_ref.abs().max()))
+
+
+def _cpu64_u_f(system, x, params=None):
+    from openmmtools_tpu_torch.system import make_energy_fn, value_and_grad
+
+    s64 = system.to(device="cpu", dtype=torch.float64)
+    u_fn = make_energy_fn(s64)
+    u, g = value_and_grad(lambda xx: u_fn(xx, s64.default_box, params),
+                          x.detach().cpu().double())
+    return u, -g
+
+
+def phase_gbsa(dev, smi):
+    """16b: CustomGBForceSystem() (140 atoms) on the generic program, 1,000
+    BAOAB steps, the final U and F against CPU float64; the factory's
+    alchemical version (the first molecule) at three lambdas. 16c: the
+    2,048-atom version in sweep mode with the GB term in the remainder."""
+    from openmmtools_tpu_torch.alchemy import (
+        AbsoluteAlchemicalFactory,
+        AlchemicalRegion,
+    )
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import CustomGBForceSystem
+    from openmmtools_tpu_torch.ops.gbsa import GBSAOBCTerm
+    from openmmtools_tpu_torch.system import make_energy_fn, value_and_grad
+
+    ts = CustomGBForceSystem(device=dev)
+    bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                            timestep=GB_TIMESTEP).bind(ts.system)
+    assert not (bound.sweep_mode or bound.neighbor_mode
+                or bound._fused is not None)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    state = bound.initial_state(ts.sampler_state(), gen)
+    state = bound.run(state, 10)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = bound.run(state, GB_STEPS)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / GB_STEPS
+    x = state.positions
+    assert torch.isfinite(x).all()
+    u_ref, f_ref = _cpu64_u_f(ts.system, x)
+    u_rel, f_rel = _u_f_rel(state.potentials[0], state.forces[0], u_ref,
+                            f_ref)
+    say(f"phase 16b CustomGBForceSystem ({ts.n_particles} atoms), generic "
+        f"program, {GB_STEPS + 10} steps of {GB_TIMESTEP * 1e3:g} fs: "
+        f"{ms_step:.3f} ms a step ({smi}); "
+        f"final U {float(state.potentials[0]):.4f} vs CPU float64 "
+        f"{float(u_ref):.4f} (rel {u_rel:.2e}), forces rel {f_rel:.2e}")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+    alch = AbsoluteAlchemicalFactory().create_alchemical_system(
+        ts.system, AlchemicalRegion(alchemical_atoms=[0, 1]))
+    gb = [t for t in alch.terms if isinstance(t, GBSAOBCTerm)]
+    assert len(gb) == 1 and gb[0].alchemical is not None
+    lam_rel = {}
+    for lam in (0.0, 0.5, 1.0):
+        params = {"lambda_electrostatics": lam, "lambda_sterics": 1.0}
+        u = alch.energy(x, alch.default_box, {
+            k: torch.tensor(v, device=dev) for k, v in params.items()})
+        s64 = alch.to(device="cpu", dtype=torch.float64)
+        u64 = s64.energy(x.cpu().double(), s64.default_box, {
+            k: torch.tensor(v, dtype=torch.float64)
+            for k, v in params.items()})
+        lam_rel[lam] = abs(float(u) - float(u64)) / abs(float(u64))
+        say(f"phase 16b alchemical GB (the first molecule) at "
+            f"lambda_electrostatics {lam}: U {float(u):.4f} vs CPU float64 "
+            f"{float(u64):.4f} (rel {lam_rel[lam]:.2e})")
+        assert lam_rel[lam] <= REL_TOL
+
+    big = CustomGBForceSystem(n_molecules=GB_SWEEP_MOLECULES, device=dev)
+    b2 = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                         timestep=GB_TIMESTEP).bind(big.system)
+    assert b2.sweep_mode and b2._sweep_alch is None
+    assert GBSAOBCTerm in [type(t) for t in b2._sweep_leftover]
+    k = b2._sweep_kernel
+    s2 = b2.initial_state(big.sampler_state(),
+                          torch.Generator(device=dev).manual_seed(17))
+    u_fn = make_energy_fn(big.system)
+    u_d, g_d = value_and_grad(
+        lambda xx: u_fn(xx, big.system.default_box), big.positions)
+    u2_rel, f2_rel = _u_f_rel(s2.potentials[0], s2.forces[0], u_d, -g_d)
+    say(f"phase 16c CustomGBForceSystem(n_molecules={GB_SWEEP_MOLECULES}) "
+        f"({big.n_particles} atoms) in sweep mode, GB in the remainder: "
+        f"initial U {float(s2.potentials[0]):.4f} vs dense cuda/f32 "
+        f"{float(u_d):.4f} (rel {u2_rel:.2e}), forces rel {f2_rel:.2e}")
+    assert u2_rel <= REL_TOL and f2_rel <= REL_TOL
+    for key in k.launches:
+        k.launches[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2 = b2.run(s2, GB_SWEEP_STEPS)
+    torch.cuda.synchronize()
+    ms2 = 1e3 * (time.perf_counter() - t0) / GB_SWEEP_STEPS
+    launches = dict(k.launches)
+    assert torch.isfinite(s2.positions).all()
+    assert launches == {"sweep_bound": GB_SWEEP_STEPS,
+                        "sweep_forces": GB_SWEEP_STEPS}, launches
+    say(f"phase 16c {GB_SWEEP_STEPS} steps of {GB_TIMESTEP * 1e3:g} fs: "
+        f"{ms2:.3f} ms a step ({smi}); "
+        f"K2 launches {launches}")
+    return dict(gb_ms_step=ms_step, gb_final_rel=[u_rel, f_rel],
+                gb_alchemical_rel=lam_rel, gb_sweep_initial_rel=[u2_rel,
+                                                                 f2_rel],
+                gb_sweep_ms_step=ms2, gb_sweep_launches=launches)
+
+
+def phase_neighbor_mode(dev, smi):
+    """16d: neighbour mode at its threshold on the card:
+    LennardJonesFluid(100,000) on a lattice at the catalog's density,
+    BAOAB with sweep off; two rebuild intervals, of which the first takes
+    initial_state's list; the final U against a float64 recomputation over
+    a fresh blocked list and against K2, and the same steps timed on K2,
+    the path this fluid takes by default on the card."""
+    from openmmtools_tpu_torch.constants import kB
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+    from openmmtools_tpu_torch.ops.neighborlist import build_neighbor_list
+    from openmmtools_tpu_torch.states import SamplerState
+
+    fluid = LennardJonesFluid(nparticles=NBR_N, lattice=True, device=dev)
+    term = fluid.system.terms[0]
+    integ = BAOABIntegrator(temperature=NBR_T, collision_rate=1.0,
+                            timestep=0.002, sweep=None)
+    bound = integ.bind(fluid.system)
+    assert bound.neighbor_mode and bound._fused is None
+    assert not bound.sweep_mode
+    r_list = 1.35 * term.cutoff
+    avg = NBR_N / fluid.box_edge ** 3 * 4.0 / 3.0 * math.pi * r_list ** 3
+    v_th = math.sqrt(kB * NBR_T / float(fluid.system.masses[0]))
+    interval = min(200, int(0.5 * 0.35 * term.cutoff
+                            / (4.0 * v_th * 0.002)))
+    assert abs(bound.neighbor_r_list - r_list) <= 1e-12 * r_list
+    assert abs(bound.neighbor_k_max - math.ceil(2.5 * avg + 8)) <= 1
+    assert bound.neighbor_rebuild_interval == interval
+    gen = torch.Generator(device=dev).manual_seed(18)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = bound.initial_state(fluid.sampler_state(), gen,
+                                temperature=NBR_T)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    x0, v0, box = state.positions, state.velocities, fluid.system.default_box
+    rebuild = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bound._build_nbr(x0, box)
+        torch.cuda.synchronize()
+        rebuild.append(1e3 * (time.perf_counter() - t0))
+    builds = []
+    build = bound._build_nbr
+
+    def counted(xx, bb):
+        builds.append(1)
+        return build(xx, bb)
+
+    bound._build_nbr = counted
+    steps = 2 * interval
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = bound.run(state, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms_rebuild = statistics.median(rebuild)
+    ms_step = (1e3 * wall - len(builds) * ms_rebuild) / steps
+    # initial_state's list serves the first interval: one build in the run
+    assert len(builds) == 1, builds
+    assert not bool(state.nbr_overflow)
+    assert torch.isfinite(state.positions).all()
+    x = state.positions
+    term64 = term.to(dtype=torch.float64)
+    x64, box64 = x.double(), box.double()
+    fresh = build_neighbor_list(x64, box64, bound.neighbor_r_list,
+                                bound.neighbor_k_max)
+    assert not bool(fresh.overflow)
+    u64 = float(term64.energy_neighbors(x64, box64, None, fresh))
+    u_run = float(state.potentials[0])
+    rel64 = abs(u_run - u64) / abs(u64)
+    # the default bind: sweep mode replaces the list at this size
+    k2 = BAOABIntegrator(temperature=NBR_T, collision_rate=1.0,
+                         timestep=0.002).bind(fluid.system)
+    assert k2.sweep_mode and not k2.neighbor_mode
+    u_k2 = float(k2.energies_at(x, box, [{}])[0])
+    rel_k2 = abs(u_run - u_k2) / abs(u_k2)
+    # the same steps from the same start on K2
+    s_k2 = k2.initial_state(SamplerState(positions=x0, velocities=v0,
+                                         box_vectors=box),
+                            torch.Generator(device=dev).manual_seed(18),
+                            temperature=NBR_T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_k2 = k2.run(s_k2, steps)
+    torch.cuda.synchronize()
+    k2_ms_step = 1e3 * (time.perf_counter() - t0) / steps
+    assert torch.isfinite(s_k2.positions).all()
+    say(f"phase 16d neighbour mode, LennardJonesFluid({NBR_N}) on a "
+        f"lattice, {NBR_T} K: k_max {bound.neighbor_k_max}, r_list "
+        f"{bound.neighbor_r_list:.4f} nm, rebuild every "
+        f"{bound.neighbor_rebuild_interval} steps; initial state "
+        f"{t_init:.2f} s; {steps} steps in {wall:.2f} s with "
+        f"{len(builds)} rebuild: {ms_rebuild:.2f} ms a rebuild, "
+        f"{ms_step:.3f} ms a step; the same {steps} steps on K2 (the "
+        f"default path): {k2_ms_step:.3f} ms a step, re-sorts included "
+        f"({smi})")
+    say(f"phase 16d final U {u_run:.4f} vs float64 over a fresh blocked list "
+        f"{u64:.4f} (rel {rel64:.2e}) and K2 {u_k2:.4f} (rel {rel_k2:.2e}); "
+        f"overflow {bool(state.nbr_overflow)}")
+    assert rel64 <= REL_TOL and rel_k2 <= REL_TOL
+    return dict(k_max=bound.neighbor_k_max, r_list=bound.neighbor_r_list,
+                interval=bound.neighbor_rebuild_interval, steps=steps,
+                init_s=t_init, ms_rebuild=ms_rebuild, ms_step=ms_step,
+                k2_ms_step=k2_ms_step, rel_f64=rel64, rel_k2=rel_k2)
+
+
+def phase_virtual_sites(dev, smi):
+    """16f: FourSiteWaterBox(3.3) (5,324 atoms, DENSE_LIMIT or more) bound
+    by default on the card: sweep mode with the M-sites rebuilt from their
+    parents before each sort and evaluation; 500 steps of 2 fs, K2 at every
+    step, the final U and F against the CPU float64 dense sum."""
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import FourSiteWaterBox
+    from openmmtools_tpu_torch.system import DENSE_LIMIT
+
+    ts = FourSiteWaterBox(box_edge=VSITE_EDGE, device=dev)
+    n = ts.system.n_particles
+    vs = ts.system.virtual_sites
+    assert n >= DENSE_LIMIT and vs.n_sites > 0
+    bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                            timestep=0.002).bind(ts.system)
+    assert bound.sweep_mode and bound._vsites is not None
+    assert not bound.neighbor_mode
+    k = bound._sweep_kernel
+    state = bound.initial_state(ts.sampler_state(),
+                                torch.Generator(device=dev).manual_seed(19))
+    sites0 = vs.reconstruct(state.positions)[vs.site.long()]
+    for key in k.launches:
+        k.launches[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = bound.run(state, VSITE_STEPS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / VSITE_STEPS
+    launches = dict(k.launches)
+    assert launches == {"sweep_bound": VSITE_STEPS,
+                        "sweep_forces": VSITE_STEPS}, launches
+    assert torch.isfinite(state.positions).all()
+    # how far the sites moved with their parents: the stale places the
+    # kernel would have read without the rebuild
+    moved = float((vs.reconstruct(state.positions)[vs.site.long()]
+                   - sites0).norm(dim=-1).max())
+    u_ref, f_ref = _cpu64_u_f(ts.system, state.positions)
+    u_rel, f_rel = _u_f_rel(state.potentials[0], state.forces[0], u_ref,
+                            f_ref)
+    say(f"phase 16f FourSiteWaterBox({VSITE_EDGE}) ({n} atoms, "
+        f"{vs.n_sites} M-sites), default bind: sweep mode; {VSITE_STEPS} "
+        f"steps of 2 fs: {ms:.3f} ms a step ({smi}); K2 launches "
+        f"{launches}; the sites moved up to {moved:.3f} nm; final U "
+        f"{float(state.potentials[0]):.4f} vs CPU float64 dense "
+        f"{float(u_ref):.4f} (rel {u_rel:.2e}), forces rel {f_rel:.2e}")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL
+    return dict(atoms=n, steps=VSITE_STEPS, ms_step=ms, launches=launches,
+                site_moved_nm=moved, final_rel=[u_rel, f_rel])
+
+
+def phase_benchmark_alchemy(smi):
+    """16e: scripts.benchmark_alchemy at its defaults (512 particles, 100
+    iterations) on the card."""
+    import contextlib
+    import io
+    import re
+
+    from openmmtools_tpu_torch.scripts import benchmark_alchemy
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = benchmark_alchemy.main([])
+    assert rc == 0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        say(f"phase 16e benchmark_alchemy: {line} ({smi})")
+    us = {m.group(1): float(m.group(2)) for m in (
+        re.match(r"(\w+)\s+energy\+force: ([0-9.]+) us/eval", line)
+        for line in lines) if m}
+    assert set(us) == {"reference", "alchemical"}, lines
+    return us
+
+
+def phase_catalog(dev, smi):
+    t0 = time.perf_counter()
+    out = {"sweep": phase_catalog_sweep(dev, smi)}
+    out.update(phase_gbsa(dev, smi))
+    out["neighbor_mode"] = phase_neighbor_mode(dev, smi)
+    out["benchmark_alchemy_us"] = phase_benchmark_alchemy(smi)
+    out["virtual_sites"] = phase_virtual_sites(dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3089,12 +3476,14 @@ def main():
     multistate["pt"] = phase_multistate_pt(dev, smi)
     equilibration = phase_equilibration(dev, smi)
     equilibration["pt_water"] = phase_pt_water(dev, smi)
+    catalog = phase_catalog(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
                     "cell_path": cell_rate, "mcmc_path": mcmc,
                     "multistate_path": multistate,
-                    "equilibration_path": equilibration, "card": smi}))
+                    "equilibration_path": equilibration,
+                    "catalog_path": catalog, "card": smi}, default=str))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ import torch
 from openmmtools_tpu_torch.ops import bonded as bonded_ops
 from openmmtools_tpu_torch.ops import nonbonded as nb_ops
 from openmmtools_tpu_torch.ops import softcore as sc
+from openmmtools_tpu_torch.ops.gbsa import GBSAOBCTerm
 from openmmtools_tpu_torch.ops.geometry import minimum_image
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import (
@@ -588,7 +589,7 @@ class AbsoluteAlchemicalFactory:
                 terms.append(term.replace(
                     alch_mask=_mask_like(region_id >= 0, term.charge),
                     lambda_name=f"lambda_electrostatics{suffix(regions[0])}"))
-            elif type(term).__name__ in ("GBSAOBCTerm",):
+            elif isinstance(term, GBSAOBCTerm):
                 # alchemically modified GB: lambda_electrostatics scales the
                 # alchemical atoms' charges, descreening and surface term
                 if len(regions) > 1:

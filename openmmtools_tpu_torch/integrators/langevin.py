@@ -9,10 +9,17 @@ The operator-splitting language of openmmtools' ``LangevinIntegrator``:
 * ``{ ... }`` Metropolization of the enclosed deterministic substeps (GHMC)
 
 ``BoundIntegrator`` turns a splitting into a step program over tensors, run
-eagerly by ``run(state, n_steps)``. Two production paths take over where they
-qualify, with the JAX package's eligibility rules and "the system lives on a
-CUDA device" in place of "the backend is a TPU":
+eagerly by ``run(state, n_steps)``. Three production paths take over where
+they qualify, with the JAX package's eligibility rules and "the system lives
+on a CUDA device" in place of "the backend is a TPU":
 
+* neighbour mode (one periodic cutoff NonbondedTerm, one force group, from
+  128 particles on the CPU and 100,000 on the card): the NonbondedTerm's
+  energy over a fixed-capacity neighbour list
+  (:mod:`openmmtools_tpu_torch.ops.neighborlist`), autograd forces, the list
+  rebuilt every ``neighbor_rebuild_interval`` steps with a sticky overflow
+  flag in the state; sweep mode and the fused kernel replace it where they
+  engage;
 * sweep mode (large periodic systems with a real force field, N >= 1024): the
   NonbondedTerm's direct space goes through the bounded-sweep kernel of
   :mod:`openmmtools_tpu_torch.ops.sweep_nb`, and the bonded terms, exception
@@ -37,7 +44,6 @@ token (alchemical perturbation) belongs to the nonequilibrium integrators of
 :mod:`openmmtools_tpu_torch.integrators.nonequilibrium`, which use the
 ``_pre_step`` hook and the ``lambda_``/``lambda_step`` fields of the state.
 
-Not ported yet: the neighbour-list force path, with its own slice.
 """
 from __future__ import annotations
 
@@ -152,6 +158,11 @@ class IntegratorState:
     lambda_: Any = 0.0
     lambda_step: int = 0
     step_count: int = 0
+    # neighbour-list state (None when neighbour mode is off)
+    nbr_idx: Optional[torch.Tensor] = None       # (N, k_max) int32
+    nbr_mask: Optional[torch.Tensor] = None      # (N, k_max) bool
+    nbr_overflow: Optional[torch.Tensor] = None  # () bool, sticky
+    nbr_at: Optional[torch.Tensor] = None        # the positions it was built at
     # bounded-sweep state (ops/sweep_nb.py; None when sweep mode is off)
     sweep_perm: Optional[torch.Tensor] = None   # (N,) sorted slot -> atom
     sweep_inv: Optional[torch.Tensor] = None    # (N,) atom -> sorted slot
@@ -211,6 +222,7 @@ class _Env:
         self.lambda_step = None
         self.step_count = None
         self.box = None
+        self.nbr = None
         self.sweep = None
         self.stash = None
 
@@ -266,6 +278,12 @@ class BoundIntegrator:
             system, groups=None if g is None else [g]) for g in self.groups}
         self._e_fns = {g: make_energy_fn(
             system, groups=None if g is None else [g]) for g in self.groups}
+        # massless virtual sites, which the step never moves: neighbour and
+        # sweep mode rebuild them from their parents before they read the
+        # positions (None for a system without them)
+        vsites = system.virtual_sites
+        self._vsites = (vsites if vsites is not None and vsites.n_sites > 0
+                        else None)
 
         self.n_R = max(1, self.tokens.count("R"))
         self.n_O = max(1, self.tokens.count("O"))
@@ -303,7 +321,8 @@ class BoundIntegrator:
         # the dense program in its step and its initial state alike: it
         # takes neither the fused kernel nor sweep mode
         self._own_step = brings_own_step(type(self))
-        self._sweep_setup()
+        self._neighbor_setup()
+        self._sweep_setup()   # replaces neighbour mode where it engages
         self._fused = None
         self._fused_setup()   # after the sweep: the fused kernel supersedes it
         # inside a run the trailing velocity projection of each step is
@@ -312,6 +331,112 @@ class BoundIntegrator:
         # final state's projection once per run
         self._vproj_skip = (not self._own_step
                             and self._vproj_skip_eligible())
+
+    # -- neighbour-list production path -------------------------------------
+    def _neighbor_setup(self):
+        """Enable the fixed-capacity neighbour-list force path for a system
+        with one periodic cutoff NonbondedTerm and one force group, from
+        128 particles on the CPU and 100,000 on the card (the JAX package's
+        thresholds for its CPU and its TPU). The list radius is cutoff +
+        ``neighbor_skin`` (default 0.35 cutoff), its capacity
+        ceil(2.5 avg + 8) for the average count within the radius, and the
+        rebuild interval ``neighbor_rebuild_interval``, by default the
+        steps in which four times the fastest thermal speed drifts skin/2,
+        at most 200. ``neighborlist=None`` disables it, as does a class
+        with its own step (``brings_own_step``): such a step evaluates by
+        the dense program, in the JAX package too. A system with virtual
+        sites has them rebuilt before each list build and inside the
+        energy, as the dense program rebuilds them."""
+        self.neighbor_mode = False
+        integ = self.integrator
+        system = self.system
+        if (integ.neighborlist is None or self._own_step
+                or self.groups != [None] or system.default_box is None):
+            return
+        nb_terms = [t for t in system.terms
+                    if isinstance(t, NonbondedTerm) and t.cutoff is not None
+                    and t.method != "no_cutoff" and t.periodic]
+        min_particles = 128 if system.device.type == "cpu" else 100_000
+        if len(nb_terms) != 1 or system.n_particles < min_particles:
+            return
+        term = nb_terms[0]
+        n = system.n_particles
+        skin = integ.neighbor_skin
+        if skin is None:
+            skin = 0.35 * term.cutoff
+        r_list = term.cutoff + skin
+        vol = float(torch.prod(torch.diagonal(system.default_box)))
+        avg = n / vol * 4.0 / 3.0 * math.pi * r_list ** 3
+        k_max = min(int(math.ceil(2.5 * avg + 8)), n - 1)
+        interval = integ.neighbor_rebuild_interval
+        if interval is None:
+            # four times the fastest thermal speed must not drift more than
+            # skin/2 over the interval
+            kT = kB * float(integ.temperature)
+            masses = system.masses
+            v_th = float(torch.max(torch.sqrt(kT / torch.clamp(
+                torch.where(masses > 0, masses, math.inf), min=1e-30))))
+            drift = 4.0 * max(v_th, 1e-6) * integ.timestep
+            interval = min(max(1, int((0.5 * skin) / max(drift, 1e-12))),
+                           200)
+        self.neighbor_mode = True
+        self._nbr_term = term
+        self._nbr_other = tuple(t for t in system.terms if t is not term)
+        self.neighbor_k_max = k_max
+        self.neighbor_r_list = r_list
+        self.neighbor_rebuild_interval = interval
+
+    def _neighbor_energy(self, x, box, params, nbr):
+        """The whole system's energy with the NonbondedTerm over ``nbr``."""
+        if self._vsites is not None:
+            x = self._vsites.reconstruct(x)
+        total = self._nbr_term.energy_neighbors(x, box, params, nbr)
+        for t in self._nbr_other:
+            total = total + t.energy(x, box, params)
+        return total
+
+    def _build_nbr(self, x, box):
+        from openmmtools_tpu_torch.ops.neighborlist import build_neighbor_list
+
+        x = x.detach()
+        if self._vsites is not None:
+            x = self._vsites.reconstruct(x)   # the sites where they are now
+        return build_neighbor_list(x, box, self.neighbor_r_list,
+                                   self.neighbor_k_max, periodic=True)
+
+    def _rebuild_neighbors(self, state: IntegratorState) -> IntegratorState:
+        """A fresh list at the state's positions; the overflow flag stays
+        set once set. A list built at these very positions (the state's
+        tensor itself, as ``initial_state`` leaves it for ``run``) is kept:
+        the build is O(N^2)."""
+        if state.nbr_idx is not None and state.nbr_at is state.positions:
+            return state
+        box = state.box if state.box is not None else self.system.default_box
+        nbr = self._build_nbr(state.positions, box)
+        overflow = nbr.overflow
+        if state.nbr_overflow is not None:
+            overflow = overflow | state.nbr_overflow
+        return state.replace(nbr_idx=nbr.idx, nbr_mask=nbr.mask,
+                             nbr_overflow=overflow, nbr_at=state.positions)
+
+    def _state_nbr(self, state: IntegratorState):
+        """The state's list as a NeighborList (None off neighbour mode)."""
+        if not self.neighbor_mode or state.nbr_idx is None:
+            return None
+        from openmmtools_tpu_torch.ops.neighborlist import NeighborList
+
+        return NeighborList(idx=state.nbr_idx, mask=state.nbr_mask,
+                            overflow=state.nbr_overflow,
+                            r_list=self.neighbor_r_list)
+
+    def _eval_group(self, g, x, box, params, nbr=None):
+        """(U, F) of force group ``g``: over the list in neighbour mode
+        (autograd forces), else the group's dense function."""
+        if self.neighbor_mode and nbr is not None:
+            u, grad = value_and_grad(
+                lambda xx: self._neighbor_energy(xx, box, params, nbr), x)
+            return u, -grad
+        return self._ef_fns[g](x, box, params)
 
     # -- bounded-sweep production path (large heterogeneous systems) -------
     def _sweep_setup(self):
@@ -327,14 +452,16 @@ class BoundIntegrator:
         (or "interpret", the JAX package's name for its CPU mode) engages on
         any device, where a CPU system runs the kernels' plain versions; None
         disables. A class with its own step (``brings_own_step``) keeps
-        sweep mode off: its step evaluates by the dense program."""
+        sweep mode off: its step evaluates by the dense program. A system
+        with virtual sites has them rebuilt from their parents before each
+        sort and each evaluation, and the sites' forces spread back onto
+        the parents (``VirtualSites.spread_forces``)."""
         self.sweep_mode = False
         self._sweep_group = None
         integ = self.integrator
         policy = integ.sweep
         system = self.system
-        if (policy is None or system.default_box is None
-                or self._own_step):
+        if policy is None or system.default_box is None or self._own_step:
             return
         nb_terms = [t for t in system.terms
                     if type(t) in (NonbondedTerm, AlchemicalNonbondedTerm)]
@@ -384,6 +511,7 @@ class BoundIntegrator:
             coulomb_pme_treatment=(alchemical
                                    and term.coulomb_pme_treatment))
         self.sweep_mode = True
+        self.neighbor_mode = False   # the sweep replaces the list path
         self._sweep_group = sweep_group
         self._sweep_term = term
         self._sweep_alch = term if alchemical else None
@@ -486,7 +614,10 @@ class BoundIntegrator:
         k = self._sweep_kernel
         term = self._sweep_term
         box = state.box if state.box is not None else self.system.default_box
-        perm, inv = sweep_nb.sort_for_sweep(state.positions, box, k.n_pad)
+        x = state.positions
+        if self._vsites is not None:
+            x = self._vsites.reconstruct(x)
+        perm, inv = sweep_nb.sort_for_sweep(x, box, k.n_pad)
         excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
             self._sweep_pairs, inv, k.n_pad, k.mask_rows)
         # the unscaled [sigma, sqrt(eps), charge(, code)] rows in the new
@@ -575,6 +706,9 @@ class BoundIntegrator:
         autograd forces (``forces=False``: the remainder's energy alone,
         and F None). ``sw`` is a dict of the sweep state; returns (u, F,
         new_sw), u in float64. The rebuild flag stays on the device."""
+        x_in = x
+        if self._vsites is not None:
+            x = self._vsites.reconstruct(x)
         k = self._sweep_kernel
         term = self._sweep_term
         n = self.system.n_particles
@@ -643,7 +777,12 @@ class BoundIntegrator:
         new_sw = dict(sw)
         new_sw["snap"] = torch.where(rebuild, y, sw["snap"])
         new_sw["nblk"] = nblk.reshape(())
-        return u, (F_direct - g_r if forces else None), new_sw
+        if not forces:
+            return u, None, new_sw
+        f = F_direct - g_r
+        if self._vsites is not None:
+            f = self._vsites.spread_forces(x_in, f)
+        return u, f, new_sw
 
     # -- energies at other parameters (the multistate energy matrix) -------
     def _group_energy_forces(self, g, x, box, params, sw, forces=True):
@@ -781,6 +920,7 @@ class BoundIntegrator:
 
         term = system.terms[0]
         self.sweep_mode = False   # the fused kernel supersedes the sweep
+        self.neighbor_mode = False
         self._fused_term = term
         self._fused = FusedSortedBAOAB(
             system.n_particles, float(term.cutoff), term.switch_width,
@@ -797,8 +937,8 @@ class BoundIntegrator:
                     env.U[g], env.F[g], env.sweep = self._sweep_eval(
                         env.x, env.box, env.params, env.sweep)
                 else:
-                    env.U[g], env.F[g] = self._ef_fns[g](env.x, env.box,
-                                                         env.params)
+                    env.U[g], env.F[g] = self._eval_group(
+                        g, env.x, env.box, env.params, nbr=env.nbr)
 
     def _total_potential(self, env: _Env):
         self._ensure_forces(env)
@@ -969,6 +1109,7 @@ class BoundIntegrator:
         env.lambda_ = state.lambda_
         env.lambda_step = state.lambda_step
         env.step_count = state.step_count
+        env.nbr = self._state_nbr(state)
         if self.sweep_mode and state.sweep_perm is not None:
             env.sweep = self._sweep_dict(state)
 
@@ -1014,7 +1155,7 @@ class BoundIntegrator:
         """Build the integrator state from a sampler state. Velocities are
         thermalized from ``generator`` if absent; forces and potentials are
         precomputed so the first V substep is exact (on the fused path by
-        its force kernel)."""
+        its force kernel; in neighbour mode over a list built here)."""
         if thermodynamic_state is not None:
             temperature = thermodynamic_state.temperature
             global_params = dict(thermodynamic_state.global_params)
@@ -1044,6 +1185,9 @@ class BoundIntegrator:
         if self.sweep_mode:
             state = self._resort_sweep(state)
             sw = self._sweep_dict(state)
+        if self.neighbor_mode:
+            state = self._rebuild_neighbors(state)
+        nbr = self._state_nbr(state)
         forces, potentials = [], []
         for g in self.groups:
             if sw is not None and g == self._sweep_group:
@@ -1051,7 +1195,7 @@ class BoundIntegrator:
                 state = state.replace(sweep_snap=sw["snap"],
                                       sweep_nblk=sw["nblk"])
             else:
-                u, f = self._ef_fns[g](x, box, params)
+                u, f = self._eval_group(g, x, box, params, nbr=nbr)
             potentials.append(u)
             forces.append(f)
         return state.replace(forces=tuple(forces),
@@ -1060,21 +1204,30 @@ class BoundIntegrator:
     def run_program(self, n_steps: int):
         """The function state -> state advancing ``n_steps`` steps. In sweep
         mode the sweep ring is re-sorted every ``sweep_sort_interval`` steps
-        (and at the start of the run); with the trailing-projection skip the
-        final state's velocities are projected once at the end."""
+        (and at the start of the run), in neighbour mode the list is rebuilt
+        every ``neighbor_rebuild_interval`` steps (and at the start of the
+        run); with the trailing-projection skip the final state's
+        velocities are projected once at the end."""
         def steps(state, count):
             for _ in range(count):
                 state = self.step(state, skip_trailing_vproj=self._vproj_skip)
             return state
 
+        def chunked(state, refresh, interval):
+            n_chunks, remainder = divmod(n_steps, interval)
+            for _ in range(n_chunks):
+                state = steps(refresh(state), interval)
+            if remainder:
+                state = steps(refresh(state), remainder)
+            return state
+
         def run_fn(state):
             if self.sweep_mode:
-                interval = self.sweep_sort_interval
-                n_chunks, remainder = divmod(n_steps, interval)
-                for _ in range(n_chunks):
-                    state = steps(self._resort_sweep(state), interval)
-                if remainder:
-                    state = steps(self._resort_sweep(state), remainder)
+                state = chunked(state, self._resort_sweep,
+                                self.sweep_sort_interval)
+            elif self.neighbor_mode:
+                state = chunked(state, self._rebuild_neighbors,
+                                self.neighbor_rebuild_interval)
             else:
                 state = steps(state, n_steps)
             if self._vproj_skip and n_steps > 0:
@@ -1089,7 +1242,10 @@ class BoundIntegrator:
         generic). In sweep mode one host read per call checks the sticky
         exclusion-bitfield overflow flag and raises while it is set: an
         exception pair outside the bitfield's coverage would have had its
-        full interaction evaluated at bonded distance."""
+        full interaction evaluated at bonded distance. In neighbour mode the
+        state carries the list's sticky overflow flag (``nbr_overflow``), as
+        in the JAX package, and the caller reads it once (the MCMC moves
+        raise on it)."""
         if self._fused is None:
             state = self.run_program(n_steps)(state)
             if self.sweep_mode:
@@ -1140,7 +1296,10 @@ class LangevinIntegrator:
     "force" or "interpret": any system, plain versions on the CPU; None:
     off), re-sorting every ``sweep_sort_interval`` steps (default 100) with
     ``sweep_shell_block`` shells a block (default 8) and a Verlet skin of
-    ``neighbor_skin`` nm (default 0.1).
+    ``neighbor_skin`` nm (default 0.1). Neighbour mode (``neighborlist``
+    "auto", see ``BoundIntegrator._neighbor_setup``) takes the same
+    ``neighbor_skin`` (default 0.35 cutoff there) and rebuilds every
+    ``neighbor_rebuild_interval`` steps (default from the thermal drift).
     """
 
     _default_splitting = "V R O R V"
@@ -1148,7 +1307,8 @@ class LangevinIntegrator:
     def __init__(self, temperature=298.0, collision_rate=1.0, timestep=0.001,
                  splitting: Optional[str] = None, constraint_tolerance=1e-8,
                  measure_shadow_work=False, measure_heat=False,
-                 neighborlist="auto", neighbor_skin=None, sweep="auto",
+                 neighborlist="auto", neighbor_skin=None,
+                 neighbor_rebuild_interval=None, sweep="auto",
                  sweep_sort_interval=None, sweep_shell_block=None):
         self.temperature = temperature
         self.collision_rate = collision_rate
@@ -1159,6 +1319,7 @@ class LangevinIntegrator:
         self.measure_heat = measure_heat
         self.neighborlist = neighborlist
         self.neighbor_skin = neighbor_skin
+        self.neighbor_rebuild_interval = neighbor_rebuild_interval
         self.sweep = sweep
         self.sweep_sort_interval = sweep_sort_interval
         self.sweep_shell_block = sweep_shell_block

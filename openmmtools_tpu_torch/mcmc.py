@@ -286,6 +286,11 @@ class BaseIntegratorMove(MCMCMove):
             state = bound.initial_state(
                 ss, generator, thermodynamic_state=thermodynamic_state)
             state = bound.run(state, self.n_steps)
+            if state.nbr_overflow is not None and bool(state.nbr_overflow):
+                raise MCMCMoveError(
+                    "neighbor-list capacity exceeded during integration; "
+                    "increase neighbor_skin/k_max or density changed "
+                    "drastically")
             new_ss = bound.sampler_state_from(state)
             if not bool(new_ss.has_nan()):
                 self._on_integration_end(state)

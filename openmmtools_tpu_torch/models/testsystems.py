@@ -8,7 +8,8 @@ package (the same scipy Sobol draw, so positions match bit for bit), and
 ends in float32 tensors on the ``device`` the caller names: the card unless
 the caller asks for the CPU. Each system carries its analytic expectations
 where it has them (``get_*_expectation``, ``get_*_standard_deviation``).
-:func:`get_available_testsystems` names the systems the port has.
+:func:`get_available_testsystems` names the systems the port has, those of
+``models/water.py`` and ``models/more_systems.py`` included.
 
 Units: all constructor arguments are in internal MD units (nm, ps, amu,
 kJ/mol, K, bar).
@@ -102,11 +103,11 @@ class TestSystem:
 
 def get_available_testsystems():
     """The names of every concrete TestSystem subclass the port has: those
-    of this module and of ``models/water.py``."""
-    from openmmtools_tpu_torch.models import water
+    of this module, ``models/water.py`` and ``models/more_systems.py``."""
+    from openmmtools_tpu_torch.models import more_systems, water
 
     out = set()
-    for module in (sys.modules[__name__], water):
+    for module in (sys.modules[__name__], water, more_systems):
         for name in dir(module):
             obj = getattr(module, name)
             if (isinstance(obj, type) and issubclass(obj, TestSystem)

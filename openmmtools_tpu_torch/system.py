@@ -8,8 +8,6 @@ of parameter tensors plus a tuple of energy terms; each term exposes
 where ``params`` is a dict of global (context) parameters. Forces are the
 analytic ``energy_forces`` where a term has one and ``-grad`` by autograd
 otherwise. Force groups (MTS splittings) are static integer tags on terms.
-
-``NonbondedTerm.energy_neighbors`` arrives with the neighbour-list port.
 """
 from __future__ import annotations
 
@@ -193,6 +191,61 @@ class NonbondedTerm:
                 lj_scale=lj_scale)
         return u, f
 
+    def energy_neighbors(self, x, box, params, nbr):
+        """Energy over a fixed-capacity neighbour list (neighbour mode's
+        force path); ``nbr`` is an :class:`~openmmtools_tpu_torch.ops.
+        neighborlist.NeighborList` built with ``r_list >= cutoff``. The list
+        carries no exclusions, so exception pairs are subtracted at their
+        combined-rule interaction and their own added back: in float32 this
+        costs ~1e-4 of the excepted pairs' magnitude, where :meth:`energy`
+        masks them out of the dense sum exactly."""
+        from openmmtools_tpu_torch.ops.neighborlist import neighbor_energy
+
+        charge_scale = _param(params, self.charge_scale_param, None)
+        lj_scale = _param(params, self.lj_scale_param, None)
+        q = self.charge if charge_scale is None else self.charge * charge_scale
+        eps = self.epsilon if lj_scale is None else self.epsilon * lj_scale
+        sigma = self.sigma
+        cutoff, sw = self.cutoff, self.switch_width
+
+        def pair_fn(r2, i, j):
+            sig_ij = 0.5 * (sigma[i] + sigma[j])
+            eps_ij = torch.sqrt(eps[i] * eps[j])
+            r = torch.sqrt(r2)
+            e_lj = nonbonded.lj_pair(r2, sig_ij, eps_ij)
+            if sw is not None and cutoff is not None:
+                e_lj = e_lj * nonbonded.switch_factor(r, cutoff - sw, cutoff)
+            e_c = nonbonded.coulomb_pair(
+                r, q[i] * q[j], self.method, cutoff=cutoff,
+                dielectric=self.dielectric, alpha=self.ewald_alpha,
+                shift_rf=self.shift_rf)
+            if self.switch_coulomb and sw is not None and cutoff is not None:
+                e_c = e_c * nonbonded.switch_factor(r, cutoff - sw, cutoff)
+            e = e_lj + e_c
+            if cutoff is not None and self.method != "no_cutoff":
+                e = torch.where(r2 < cutoff * cutoff, e, 0.0)
+            return e
+
+        e = neighbor_energy(x, box, nbr, pair_fn, periodic=self.periodic)
+        if self.exception_index.shape[0] > 0:
+            i = self.exception_index[:, 0].long()
+            j = self.exception_index[:, 1].long()
+            e = e - nonbonded.pair_list_energy(
+                x, box, self.exception_index, q[i] * q[j],
+                0.5 * (sigma[i] + sigma[j]), torch.sqrt(eps[i] * eps[j]),
+                method=self.method, cutoff=cutoff, switch_width=sw,
+                dielectric=self.dielectric, alpha=self.ewald_alpha,
+                periodic=self.periodic, shift_rf=self.shift_rf,
+                switch_coulomb=self.switch_coulomb)
+            e = e + nonbonded.pair_list_energy(
+                x, box, self.exception_index, self.exception_chargeprod,
+                self.exception_sigma, self.exception_epsilon,
+                method="no_cutoff", periodic=self.periodic)
+        if self.use_dispersion_correction and self.periodic:
+            e = e + nonbonded.dispersion_correction_energy(
+                box, sigma, self.epsilon, cutoff, lj_scale=lj_scale)
+        return e
+
 
 @tensor_dataclass
 class CustomExternalTerm:
@@ -254,6 +307,19 @@ class VirtualSites:
         r13 = parent_pos[:, 2] - parent_pos[:, 0]
         site_pos = site_pos + self.wcross[:, None] * torch.linalg.cross(r12, r13)
         return x.index_put((self.site.long(),), site_pos.to(x.dtype))
+
+    def spread_forces(self, x, f):
+        """Forces ``f`` on the reconstructed positions of ``x`` as forces
+        on ``x``: the vector-Jacobian product of :meth:`reconstruct`, which
+        moves each site's force onto its parents and leaves the sites'
+        own entries zero, as autograd through the energy does."""
+        if self.site.shape[0] == 0:
+            return f
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.reconstruct(xx), xx,
+                                       grad_outputs=f)
+        return g
 
 
 def no_virtual_sites(device="cuda") -> VirtualSites:

@@ -7,8 +7,9 @@ arrays. Its numpy form, which this module reads, is plain Python:
 * an array becomes a ``numpy.ndarray``;
 * tuples, lists, dicts, strings, numbers, bools and None stay as they are.
 
-The test systems' own terms (``HarmonicWellArrayTerm``, ``WCATerm``) and
-the restraints of ``forces.py`` come across like the System's. The alchemical terms come across with their
+The test systems' own terms (``HarmonicWellArrayTerm``, ``WCATerm``,
+``DoubleWellBondTerm``), the GB term (``GBSAOBCTerm``) and the restraints of
+``forces.py`` come across like the System's. The alchemical terms come across with their
 region metadata (lambda names, annihilate flags, region interactions) and
 the reciprocal term with its ``alch_mask``/``lambda_name``, as every other
 field: by name.
@@ -20,7 +21,8 @@ by class name, among the terms this port has), and
 whoever holds one makes the numpy form first. Like every entry point of the
 port, they put their tensors on the card unless the caller names another
 device. :func:`grid_spec` carries a cell-grid spec (``pallas_md.LJGridSpec``)
-across as plain numbers.
+across as plain numbers, and :func:`neighbor_list_from_numpy` a neighbour
+list (numpy ``idx``, ``mask``, ``overflow``).
 """
 from __future__ import annotations
 
@@ -34,11 +36,14 @@ from openmmtools_tpu_torch.alchemy import (
     AlchemicalNonbondedTerm,
     AlchemicalPeriodicTorsionTerm,
 )
+from openmmtools_tpu_torch.models.more_systems import DoubleWellBondTerm
 from openmmtools_tpu_torch.models.testsystems import (
     HarmonicWellArrayTerm,
     WCATerm,
 )
 from openmmtools_tpu_torch.ops.fused_md import LJGridSpec
+from openmmtools_tpu_torch.ops.gbsa import GBSAOBCTerm
+from openmmtools_tpu_torch.ops.neighborlist import NeighborList
 from openmmtools_tpu_torch.ops.pme import EwaldReciprocalTerm
 from openmmtools_tpu_torch.states import SamplerState
 from openmmtools_tpu_torch.system import (
@@ -57,7 +62,8 @@ _CLASSES = {cls.__name__: cls for cls in (
     HarmonicBondTerm, HarmonicAngleTerm, PeriodicTorsionTerm,
     EwaldReciprocalTerm, AlchemicalNonbondedTerm, AlchemicalHarmonicBondTerm,
     AlchemicalHarmonicAngleTerm, AlchemicalPeriodicTorsionTerm,
-    HarmonicWellArrayTerm, WCATerm, forces.HarmonicRestraintForce,
+    HarmonicWellArrayTerm, WCATerm, DoubleWellBondTerm, GBSAOBCTerm,
+    forces.HarmonicRestraintForce,
     forces.HarmonicRestraintBondForce, forces.FlatBottomRestraintForce,
     forces.FlatBottomRestraintBondForce, forces.PositionalRestraintTerm)}
 
@@ -126,6 +132,18 @@ def integrator_state_from_numpy(positions, velocities, box, kT,
         global_params={}, heat=zero, shadow_work=zero, protocol_work=zero,
         n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
         step_count=0, generator=generator)
+
+
+def neighbor_list_from_numpy(idx, mask, overflow, r_list,
+                             device="cuda") -> NeighborList:
+    """A port ``NeighborList`` from a JAX list's numpy ``idx`` (N, k) int,
+    ``mask`` (N, k) bool and ``overflow`` () bool."""
+    return NeighborList(
+        idx=torch.as_tensor(np.array(idx, dtype=np.int32), device=device),
+        mask=torch.as_tensor(np.array(mask, dtype=bool), device=device),
+        overflow=torch.as_tensor(np.array(overflow, dtype=bool),
+                                 device=device),
+        r_list=float(r_list))
 
 
 def grid_spec(spec) -> LJGridSpec:

@@ -1519,3 +1519,104 @@ def test_cuda_equilibration_launches_k2_in_every_stage(cuda):
                                             b._sweep_leftover]) == restrained
     assert torch.isfinite(out.positions).all()
     assert torch.isfinite(out.box_vectors).all()
+
+
+@pytest.mark.cuda
+def test_cuda_neighbor_mode_engages_from_100000_atoms(cuda):
+    """On the card neighbour mode engages only from 100,000 atoms, and
+    only with sweep mode off (the sweep replaces it)."""
+    small = LennardJonesFluid(nparticles=40_000, device="cuda")
+    assert not BAOABIntegrator(sweep=None).bind(small.system).neighbor_mode
+    big = LennardJonesFluid(nparticles=100_000, device="cuda")
+    bound = BAOABIntegrator(sweep=None).bind(big.system)
+    assert bound.neighbor_mode and bound._fused is None
+    assert bound.neighbor_k_max < 100
+    swept = BAOABIntegrator().bind(big.system)
+    assert swept.sweep_mode and not swept.neighbor_mode
+
+
+@pytest.mark.cuda
+def test_cuda_gbsa_float32_against_cpu_float64(cuda):
+    """GBSA-OBC in float32 on the card against float64 on the CPU (2e-4
+    of scale)."""
+    from openmmtools_tpu_torch.models import CustomGBForceSystem
+    from openmmtools_tpu_torch.ops.gbsa import GBSAOBCTerm
+    from openmmtools_tpu_torch.system import value_and_grad
+
+    ts = CustomGBForceSystem(device="cuda")
+    gb = next(t for t in ts.system.terms if isinstance(t, GBSAOBCTerm))
+    u32, g32 = value_and_grad(lambda xx: gb.energy(xx, None), ts.positions)
+    gb64 = gb.to(device="cpu", dtype=torch.float64)
+    x64 = ts.positions.cpu().double()
+    u64, g64 = value_and_grad(lambda xx: gb64.energy(xx, None), x64)
+    assert abs(float(u32) - float(u64)) <= REL * abs(float(u64))
+    assert float((g32.cpu().double() - g64).abs().max()) <= \
+        REL * float(g64.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_platform_kernel_check_reads_the_launch_counters(cuda):
+    """The parity sweep's kernel check launches K1 on an LJ fluid and K2 on
+    a water box, and records each kernel's launches."""
+    from openmmtools_tpu_torch.models import WaterBox
+    from openmmtools_tpu_torch.scripts import test_platforms
+
+    for cls, path, keys in (
+            (LennardJonesFluid, "K1", ("lj_forces", "lj_chunk")),
+            (WaterBox, "K2", ("sweep_bound", "sweep_forces"))):
+        ts = cls(device="cpu")
+        status, detail, got, launches = test_platforms._kernel_check(
+            ts, test_platforms.ENERGY_TOLERANCE_KJ, "cuda", 0.0)
+        assert status == "ok", detail
+        assert got == path
+        assert all(launches[k] >= 1 for k in keys), launches
+
+
+@pytest.mark.cuda
+def test_cuda_platform_sweep_takes_the_bound_integrator_at_the_limit(cuda):
+    """From DENSE_LIMIT atoms up the sweep's cuda/f32 evaluation goes
+    through a bound integrator's energy_forces_at (sweep mode: K2), not the
+    refused dense sum, and agrees with the CPU float64 dense sum."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.scripts import test_platforms
+    from openmmtools_tpu_torch.system import DENSE_LIMIT
+
+    ts = PMEWaterBox(box_edge=3.6, device="cpu")
+    assert ts.system.n_particles >= DENSE_LIMIT
+    u, f, via = test_platforms._evaluate(ts.system, torch.float32, "cuda",
+                                         ts.positions)
+    u64, f64, via64 = test_platforms._evaluate(ts.system, torch.float64,
+                                               "cpu", ts.positions)
+    assert via == "energy_forces_at" and via64 == "dense"
+    assert abs(u - u64) <= test_platforms.ENERGY_TOLERANCE_KJ * max(
+        1.0, abs(u64) * 1e-5 / test_platforms.ENERGY_TOLERANCE_KJ)
+    assert np.abs(f - f64).max() <= test_platforms.FORCE_RTOL * max(
+        np.abs(f64).max(), 1.0)
+
+
+@pytest.mark.cuda
+def test_cuda_virtual_sites_above_the_limit_take_k2(cuda):
+    """A four-site water box of DENSE_LIMIT atoms or more takes sweep mode
+    by default on the card, its M-sites rebuilt from their parents: K2
+    launches at every step, and after 100 steps U and F agree with the CPU
+    float64 dense sum (2e-4 of scale)."""
+    from openmmtools_tpu_torch.models import FourSiteWaterBox
+    from openmmtools_tpu_torch.system import DENSE_LIMIT, make_energy_force_fn
+
+    ts = FourSiteWaterBox(box_edge=3.3, device="cuda")
+    assert ts.system.n_particles >= DENSE_LIMIT
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002).bind(ts.system)
+    assert bound.sweep_mode and bound._vsites is not None
+    k = bound._sweep_kernel
+    state = bound.initial_state(ts.sampler_state(),
+                                torch.Generator(device="cuda").manual_seed(8))
+    for key in k.launches:
+        k.launches[key] = 0
+    state = bound.run(state, 100)
+    assert k.launches == {"sweep_bound": 100, "sweep_forces": 100}
+    s64 = ts.system.to(device="cpu", dtype=torch.float64)
+    u64, f64 = make_energy_force_fn(s64)(state.positions.cpu().double())
+    assert abs(float(state.potentials[0]) - float(u64)) <= REL * abs(
+        float(u64))
+    assert float((state.forces[0].cpu().double() - f64).abs().max()) <= \
+        REL * float(f64.abs().max())

@@ -15,6 +15,10 @@ versions stand in for the card's).
   sum on the card.
 * F7: ``minimize`` takes its energies, forces and constraint projection
   from the context cache's bound integrator.
+* F8: sweep mode and neighbour mode rebuild a system's virtual sites from
+  their parents before they sort the ring or build the list, and inside
+  the energy: the step never moves the massless sites, so without it the
+  kernel, the remainder and the list read them at their first places.
 
 Energies by the sweep path are held against the dense sum at rel 1e-10.
 """
@@ -304,3 +308,48 @@ def test_f7_minimize_takes_the_cached_bound_integrator(water, sweep_calls):
     d = out.positions[c.index[:, 0].long()] - out.positions[
         c.index[:, 1].long()]
     assert float((d.norm(dim=-1) - c.distance).abs().max()) < 1e-6
+
+
+# -- F8 ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["neighbour", "sweep"])
+def test_f8_virtual_sites_follow_their_parents(mode):
+    """A four-site water box in neighbour mode and in forced sweep mode.
+    The parents move 0.5 nm, past the list's skin and the sweep's, and the
+    sites stay behind: the state's U and F are the dense energy's, whose
+    sites follow their parents. So are they after a run across three
+    rebuilds of the list (re-sorts of the ring)."""
+    from openmmtools_tpu_torch.models import FourSiteWaterBox
+    from openmmtools_tpu_torch.system import make_energy_force_fn
+
+    box = FourSiteWaterBox(box_edge=2.1, device="cpu")
+    system = box.system.to(dtype=torch.float64)
+    vs = system.virtual_sites
+    assert vs.n_sites > 0
+    if mode == "sweep":
+        integ = BAOABIntegrator(temperature=TEMP, timestep=0.002,
+                                sweep="force", sweep_sort_interval=5)
+    else:
+        integ = BAOABIntegrator(temperature=TEMP, timestep=0.002, sweep=None,
+                                neighbor_rebuild_interval=5)
+    bound = integ.bind(system)
+    assert bound.sweep_mode == (mode == "sweep")
+    assert bound.neighbor_mode == (mode == "neighbour")
+    x = box.positions.double().clone()
+    parents = torch.ones(system.n_particles, dtype=torch.bool)
+    parents[vs.site.long()] = False
+    x[parents, 0] += 0.5
+    ef = make_energy_force_fn(system)
+
+    def held(state):
+        u, f = ef(state.positions, state.box, {})
+        assert abs(float(state.potentials[0] - u)) <= REL * abs(float(u))
+        assert float((state.forces[0] - f).abs().max()) <= (
+            REL * float(f.abs().max()))
+
+    ss = tstates.SamplerState(positions=x, box_vectors=system.default_box)
+    state = bound.initial_state(ss, torch.Generator().manual_seed(0))
+    held(state)
+    state = bound.run(state, 15)
+    held(state)

@@ -230,22 +230,25 @@ def test_array_spring_constant_is_a_global_parameter():
 
 
 def test_available_testsystems_are_the_jax_list_less_the_unported():
-    """The port lists exactly the JAX package's systems less those of
-    ``more_systems.py`` and the prmtop systems (ROADMAP Queue 3)."""
+    """The port lists exactly the JAX package's systems less the prmtop
+    systems (those of ``more_systems.py`` that read Amber files) and the
+    three ``AlanineDipeptide*`` systems (ROADMAP Queue 1, item 11)."""
     import openmmtools_tpu.models.more_systems as more
+    import openmmtools_tpu_torch.models as tmodels
 
     port = tts.get_available_testsystems()
     jax_names = jts.get_available_testsystems()
-    unported = {name for name in jax_names
-                if getattr(jts, name).__module__ == more.__name__}
-    unported |= {"AlanineDipeptideVacuum", "AlanineDipeptideImplicit",
-                 "AlchemicalAlanineDipeptide"}
+    prmtop = {name for name in jax_names
+              if getattr(jts, name).__module__ == more.__name__
+              and (issubclass(getattr(jts, name), more._PrmtopSystem)
+                   or name in ("MolecularIdealGas",
+                               "AlanineDipeptideExplicit", "DHFRExplicit",
+                               "MethanolBox", "DNADodecamerExplicit"))}
+    unported = prmtop | {"AlanineDipeptideVacuum", "AlanineDipeptideImplicit",
+                         "AlchemicalAlanineDipeptide"}
     assert port == sorted(set(jax_names) - unported)
     for name in port:
-        assert issubclass(getattr(tts, name, None)
-                          or getattr(__import__(
-                              "openmmtools_tpu_torch.models.water",
-                              fromlist=[name]), name), tts.TestSystem)
+        assert issubclass(getattr(tmodels, name), tts.TestSystem)
 
 
 def test_wca_gradient_is_finite_at_coincident_particles():
