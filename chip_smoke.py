@@ -112,9 +112,11 @@ nonzero exit. Phases:
    from one state, FIRE-minimized through the bound integrator's sweep
    path) -> ReplicaExchangeSampler(LangevinSplittingDynamicsMove('V R O R
    V', 2 fs, 1/ps, 50 steps), 'swap-all') -> create -> minimize -> run(3):
-   sweep mode with K2's alchemical kernel and SETTLE, K2's launches an
-   iteration (9 x 51 propagation evaluations and the 81 of the energy
-   matrix, each a bound and a force launch), the matrix finite, two of its
+   sweep mode with K2's alchemical kernel and SETTLE, the batched route,
+   K2's launches an iteration (51 propagation evaluations of the 9
+   replicas and one of the 81 pairs of the energy matrix, each a bound
+   and a force launch, 52 of each; by batch size), the matrix finite, two
+   of its
    entries against the plain sweep plus the remainder at their state's
    lambdas, u[n, s_n] against beta U of each replica's final integrator
    state, the swap counters symmetric, MBAR over the in-memory energies
@@ -147,9 +149,9 @@ nonzero exit. Phases:
    trial's projection onto the constraints in it, the acceptances, the
    volume, ns/day; (b) parallel tempering on the same box
    (4 temperatures from 300 to 330 K, LangevinDynamicsMove 2 fs x 50
-   steps, one iteration from a FIRE-minimized state): K2's launches 4 x
-   (50 + 1) + 4 of each, the O(N) columns against the plain sweep plus
-   the remainder;
+   steps, one iteration from a FIRE-minimized state): the batched route,
+   K2's launches 50 + 1 + 1 of each (the 4 replicas together), the O(N)
+   columns against the plain sweep plus the remainder;
 16. the rest of the catalog: (a) ``scripts.test_platforms.run_sweep`` on
    the card over every system of ``get_available_testsystems()`` less
    ``_SLOW``, each built by its default constructor: cuda/f32 and cpu/f32
@@ -172,7 +174,23 @@ nonzero exit. Phases:
    against a float64 recomputation over a fresh blocked list and against
    K2's energy (a second bind in forced sweep mode), ms a rebuild and a
    step; (e) ``scripts.benchmark_alchemy.main([])`` (512 particles, 100
-   iterations) and its µs an evaluation.
+   iterations) and its µs an evaluation;
+17. replicas as one batched axis: (a) K2's replica axis at the main
+   paths' shapes: the ladder's 9 final replicas as one batch of 9 (each
+   at its state's lambdas) and the matrix's 81 (replica, state) pairs on
+   the 9 sort sets, the standard variant on 4 configurations of
+   PMEWaterBox(6.223): each launch twice for the same bits, against
+   single launches for the same bits and against the plain version, the
+   bound pass over the 9 sets on a rebuild; device ms of a batched launch
+   beside a single one and the bound of B evaluations; (b) the eager loop
+   on the ladder through a SequenceMove (the Langevin move, 10 steps, and
+   a displacement), which the batched route does not take; (c) 3 replicas
+   of the ladder, 50 steps, batched and one by one with the same
+   generators: the final U and F (2e-4); (d)
+   ``scripts.demo_free_energy.main`` at a cut depth (``DEMO_CUT``): exit
+   0, the three routes within 6 sigma, seconds a route; (e)
+   ``parallel.atom_shard`` on PMEWaterBox(3.6), 5,184 atoms, over 4
+   blocks on the card, against the bound integrator's energy and forces.
 
 Phase 1 also prints ``utils.platforms.device_report()``.
 
@@ -898,8 +916,9 @@ def count_rebuilds(bound, state, k, n_steps):
     rings = collections.deque(maxlen=interval)
 
     def recording(xT, L, rebuild, nblk):
+        # the path's one replica: a batch of one sort set
         flags.append(torch.as_tensor(rebuild, device=xT.device).reshape(()))
-        rings.append(xT)
+        rings.append(xT.reshape(3, -1))
         return measure(xT, L, rebuild, nblk)
 
     before = k.launches["sweep_bound"]
@@ -2580,7 +2599,7 @@ def phase_multistate_re(dev, smi):
     k = bound._sweep_kernel
     assert set(k.launches) == {"sweep_bound", "sweep_forces_alch"}
     finals = []
-    move._on_integration_end = finals.append
+    move._on_integration_end = finals.append   # one batched state a run
     have_storage, why = storage_modules()
     tmp = tempfile.TemporaryDirectory()
     reporter = None
@@ -2606,21 +2625,32 @@ def phase_multistate_re(dev, smi):
         f"{n} replicas; create (the initial 9 x 9 matrix) {t_create:.2f} s, "
         f"FIRE ({MS_FIRE_STEPS} steps a replica, sweep forces, SETTLE) "
         f"{t_min:.2f} s")
+    assert sampler.propagation_route == "batched"
     for key in k.launches:
         k.launches[key] = 0
+    k.batch_launches.clear()
     t0 = time.perf_counter()
     sampler.run(MS_ITERATIONS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(k.launches)
-    per_iteration = n * (MS_STEPS + 1) + n * n_states
-    say(f"phase 14a {MS_ITERATIONS} iterations in {wall:.2f} s; K2 "
-        f"launches {launches} (expected {per_iteration} of each an "
-        f"iteration: {n} x {MS_STEPS + 1} propagation + {n * n_states} "
-        f"matrix evaluations)")
+    by_batch = dict(k.batch_launches)
+    # the batched route: one launch of each kernel an evaluation for all
+    # the replicas (the initial state's and one a step), and one for every
+    # (replica, state) pair of the matrix
+    per_iteration = (MS_STEPS + 1) + 1
+    say(f"phase 14a {MS_ITERATIONS} iterations in {wall:.2f} s "
+        f"({sampler.propagation_route} route); K2 launches {launches} "
+        f"(expected {per_iteration} of each an iteration: {MS_STEPS + 1} "
+        f"propagation evaluations of {n} replicas + 1 of the {n * n_states} "
+        f"matrix pairs); by batch size {by_batch}")
     assert launches == {"sweep_bound": MS_ITERATIONS * per_iteration,
                         "sweep_forces_alch": MS_ITERATIONS * per_iteration}, \
         launches
+    assert by_batch == {
+        ("sweep_forces_alch", n): MS_ITERATIONS * (MS_STEPS + 1),
+        ("sweep_forces_alch", n * n_states): MS_ITERATIONS,
+        ("sweep_bound", n): MS_ITERATIONS * per_iteration}, by_batch
     u = sampler.energies_last_iteration
     s = sampler.replica_states
     assert u.shape == (n, n_states) and np.isfinite(u).all()
@@ -2628,8 +2658,8 @@ def phase_multistate_re(dev, smi):
     # u[n, s_n] against beta U of each replica's own final integrator state
     beta = sampler._stacked_states.beta.numpy()
     own = 0.0
-    for r, st in enumerate(finals[-n:]):
-        u_run = beta[s[r]] * float(st.potentials[0])
+    for r in range(n):
+        u_run = beta[s[r]] * float(finals[-1].potentials[0][r])
         own = max(own, float(abs(u[r, s[r]] - u_run) / abs(u_run)))
     say(f"phase 14a u[n, s_n] against beta U of each replica's final "
         f"integrator state: worst rel {own:.2e}")
@@ -2668,9 +2698,12 @@ def phase_multistate_re(dev, smi):
     it_s = wall / MS_ITERATIONS
     ns_day = n * MS_STEPS * 0.002e-3 / it_s * 86400.0
     held, nb = k2_held_ms(bound, sampler, dev)
-    k2_lo = per_iteration * (held["sweep_forces_alch"] + held["sweep_bound"])
-    k2_hi = per_iteration * (held["sweep_forces_alch"]
-                             + held["sweep_bound_rebuild"])
+    # the K2 device time of the eager loop's evaluations (one replica or
+    # one pair a launch), which the batched launches of phase 17a replace
+    evaluations = n * (MS_STEPS + 1) + n * n_states
+    k2_lo = evaluations * (held["sweep_forces_alch"] + held["sweep_bound"])
+    k2_hi = evaluations * (held["sweep_forces_alch"]
+                           + held["sweep_bound_rebuild"])
     say(f"phase 14a {it_s:.3f} s an iteration ({ns_day:.3f} ns/day over "
         f"the {n} replicas): mixing {split['mixing']:.4f} s, propagation "
         f"{split['propagation']:.3f} s, energy matrix "
@@ -2680,8 +2713,8 @@ def phase_multistate_re(dev, smi):
         f"stream held: sweep_forces_alch {held['sweep_forces_alch']:.5f} ms, "
         f"sweep_bound {held['sweep_bound_rebuild']:.5f} on a rebuild, "
         f"{held['sweep_bound']:.5f} without; so {k2_lo:.2f}-{k2_hi:.2f} ms "
-        f"of K2 device time an iteration ({per_iteration} evaluations; "
-        f"{smi})")
+        f"of K2 device time an iteration in single launches ({evaluations} "
+        f"evaluations; {smi})")
     return sampler, dict(
         atoms=system.n_particles, states=n_states, replicas=n,
         iterations=MS_ITERATIONS, steps_per_iteration=MS_STEPS,
@@ -2690,7 +2723,8 @@ def phase_multistate_re(dev, smi):
         matrix_worst_rel=worst, own_state_worst_rel=own,
         swaps=[int(acc.sum()) // 2, int(prop.sum()) // 2],
         k2_held_ms=held, k2_ms_per_iteration=[k2_lo, k2_hi],
-        storage_rel=analyzed, storage=("driven" if have_storage else why))
+        storage_rel=analyzed, storage=("driven" if have_storage else why),
+        batch_launches={f"{key} x{b}": c for (key, b), c in by_batch.items()})
 
 
 def phase_multistate_sams(dev, smi, re_sampler):
@@ -2718,7 +2752,8 @@ def phase_multistate_sams(dev, smi, re_sampler):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(k.launches)
-    per_iteration = (MS_STEPS + 1) + len(states)
+    # the batch of one replica; the matrix's 9 pairs in one launch
+    per_iteration = (MS_STEPS + 1) + 1
     hist = sampler._histogram
     logZ = sampler.logZ
     say(f"phase 14b SAMS: {SAMS_ITERATIONS} iterations in {wall:.2f} s "
@@ -2747,7 +2782,7 @@ def phase_multistate_pt(dev, smi):
     move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
                                 n_steps=PT_STEPS)
     finals = []
-    move._on_integration_end = finals.append
+    move._on_integration_end = finals.append   # one batched state a run
     sampler = ParallelTemperingSampler(
         mcmc_moves=move, number_of_iterations=PT_ITERATIONS,
         online_analysis_interval=None, replica_mixing_scheme="swap-neighbors",
@@ -2783,7 +2818,7 @@ def phase_multistate_pt(dev, smi):
         for col, st in enumerate(sampler._thermodynamic_states):
             dense = float(st.reduced_potential(ss))
             worst = max(worst, float(abs(u[r, col] - dense) / abs(dense)))
-        u_run = beta[s[r]] * float(finals[-n:][r].potentials[0])
+        u_run = beta[s[r]] * float(finals[-1].potentials[0][r])
         own = max(own, float(abs(u[r, s[r]] - u_run) / abs(u_run)))
     acc = sampler._n_accepted.numpy()
     prop = sampler._n_proposed.numpy()
@@ -3057,22 +3092,32 @@ def phase_pt_water(dev, smi):
     bounds = [move._bound(st) for st in sampler._thermodynamic_states]
     kernels = {id(b._sweep_kernel): b._sweep_kernel for b in bounds}
     assert all(b.sweep_mode and b._fused is None for b in bounds)
+    assert sampler.propagation_route == "batched"
     for k in kernels.values():
         for key in k.launches:
             k.launches[key] = 0
+        k.batch_launches.clear()
     t0 = time.perf_counter()
     sampler.run(1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {key: sum(k.launches[key] for k in kernels.values())
                 for key in ("sweep_bound", "sweep_forces")}
-    want = n * (PT_WATER_STEPS + 1) + n
+    by_batch = collections.Counter()
+    for k in kernels.values():
+        by_batch.update(k.batch_launches)
+    # the batched route: one bound integrator (state 0's) evaluates the
+    # replicas together, at each replica's own kT
+    want = (PT_WATER_STEPS + 1) + 1
     say(f"phase 15b PT on PMEWaterBox({WATER_EDGE}), temperatures "
         f"{PT_WATER_TEMPERATURES} K, {n} replicas x {PT_WATER_STEPS} steps: "
         f"set-up (create, FIRE) {t_setup:.2f} s, one iteration {wall:.2f} s "
         f"({smi}); K2 launches {launches} (expected {want} of each: "
-        f"{n} x {PT_WATER_STEPS + 1} propagation + {n} O(N) energies)")
+        f"{PT_WATER_STEPS + 1} propagation evaluations of the {n} replicas "
+        f"+ 1 of their O(N) energies); by batch size {dict(by_batch)}")
     assert launches == {"sweep_bound": want, "sweep_forces": want}, launches
+    assert dict(by_batch) == {("sweep_bound", n): want,
+                              ("sweep_forces", n): want}, by_batch
     u = sampler.energies_last_iteration
     assert u.shape == (n, n) and np.isfinite(u).all()
     beta = sampler._stacked_sampled.beta.numpy()
@@ -3086,7 +3131,10 @@ def phase_pt_water(dev, smi):
         f"remainder: worst rel {worst:.2e}")
     assert worst <= REL_TOL, worst
     return dict(replicas=n, steps=PT_WATER_STEPS, setup_s=t_setup,
-                iteration_s=wall, launches=launches, worst_rel=worst)
+                iteration_s=wall, launches=launches, worst_rel=worst,
+                batch_launches={f"{key} x{b}": c
+                                for (key, b), c in by_batch.items()},
+                by_batch=by_batch)
 
 
 # -- phase 16: the rest of the catalog, GBSA and neighbour mode ---------------
@@ -3453,6 +3501,365 @@ def phase_catalog(dev, smi):
     return out
 
 
+# -- phase 17: replicas as one batched axis, the demo, atom sharding ---------
+
+BATCH_STEPS = 50          # 17c: steps of the batched-against-eager check
+BATCH_REPLICAS = 3
+EAGER_STEPS = 10          # 17b: the eager loop's short run
+SHARD_EDGE = 3.6          # 17e: PMEWaterBox(3.6), 5,184 atoms
+SHARD_BLOCKS = 4
+# 17d: demo_free_energy at a cut depth (the JAX script's: 600 x 200 REMD
+# steps, 2 x 256 protocols of 4,000 + 6,000 NCMC steps, 400 x 100 Widom
+# steps); every route keeps its 4,000 equilibration steps from the start's
+# clashes
+DEMO_CUT = ["--n-iter", "120", "--steps-per-iter", "50",
+            "--n-protocols", "32", "--n-steps-eq", "4000",
+            "--n-steps-neq", "1000", "--n-snapshots", "64",
+            "--steps-between", "50", "--n-insertions", "64",
+            "--n-eq-widom", "4000"]
+
+
+def once_ms(fn):
+    """Wall ms of one synchronized call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def sort_sets(term, x, box, k, params_of):
+    """The kernels' batched inputs of configurations ``x`` (R, N, 3) at
+    boxes (R, 3, 3): the R sort sets (xT, excl, L) and each evaluation's
+    (par, lam) at the parameter dicts ``params_of`` (one an evaluation;
+    ``rep`` maps them to their sets)."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    perm, inv = tsw.sort_for_sweep(x, box, k.n_pad)
+    _, xT = tsw.sorted_positions(x, box, perm.long(), k.n_pad, torch.float32)
+    sigma, sqrt_eps, charge, code = tsw.term_params(term)
+    par = tsw.sorted_params(sigma, sqrt_eps, charge, perm.long(), k.n_pad,
+                            torch.float32, code)
+    excl, max_sep = tsw.build_exclusion_bitfield(term.exception_index, inv,
+                                                 k.n_pad, k.mask_rows)
+    assert int(max_sep.max()) <= k.mask_shells
+    L = torch.diagonal(box, dim1=-2, dim2=-1).to(torch.float32).contiguous()
+    lam = None
+    if k.alchemical:
+        lam = torch.stack([term.sweep_lambdas(p, xT)[0] for p in params_of])
+    return xT.contiguous(), par, excl, L, lam
+
+
+def batch_bound_ms(xT, L, k, nb, rep, alchemical):
+    """The least time of one batched force launch (ms, by): each
+    evaluation's pairs once (its set's window at its bound), the sets'
+    inputs read once, each evaluation's parameters, class scalars and
+    outputs once."""
+    rep = rep.tolist()
+    counts = {}
+    for r in set(rep):
+        S = min(int(nb[r]) * k.bs, k.n_pad // 2)
+        counts[r] = sweep_pairs(xT[r], L[r], k, S)
+    tested = sum(counts[r][0] for r in rep)
+    inside = sum(counts[r][1] for r in rep)
+    R, B = xT.shape[0], len(rep)
+    n_par = 4 if alchemical else 3
+    n_bytes = (R * 4 * (3 * k.n_pad + k.mask_rows * k.n_pad + 3 + 1)
+               + B * 4 * (n_par * k.n_pad + (k.n_lam if alchemical else 0)
+                          + 3 * k.n_pad + 1 + 1))
+    ops = tested * OPS_DIST + inside * (OPS_PAIR_ALCH if alchemical
+                                        else OPS_PAIR)
+    return bound_ms(n_bytes, ops), tested, inside
+
+
+def check_batch(k, plain, xT, par, excl, L, lam, rep, label):
+    """One batched launch of each kernel against its plain version, a
+    second launch and single launches: (nb, F, U, worst abs and relative
+    error, plain ms)."""
+    R = xT.shape[0]
+    dev = xT.device
+    flags = torch.ones((R,), dtype=torch.bool, device=dev)
+    zero = torch.zeros((R,), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flags, zero)
+    nb2 = k.measure_bound(xT, L, flags, zero)
+    singles = torch.cat([k.measure_bound(xT[r], L[r], flags[r], zero[r])
+                         for r in range(R)])
+    nb_ref = plain.measure_bound(xT, L, flags, zero)
+    assert torch.equal(nb, nb2) and torch.equal(nb, singles), label
+    assert torch.equal(nb.cpu(), nb_ref.cpu()), (label, nb, nb_ref)
+    rep_k = None if rep is None else rep.to(torch.int32)
+    F, U = k.sweep(xT, par, excl, L, nb, lam, rep_k)
+    F2, U2 = k.sweep(xT, par, excl, L, nb, lam, rep_k)
+    assert torch.equal(F, F2) and torch.equal(U, U2), label
+    sets = range(par.shape[0]) if rep is None else rep.tolist()
+    for b, r in enumerate(sets):
+        F1, U1 = k.sweep(xT[r], par[b], excl[r], L[r], nb[r:r + 1],
+                         None if lam is None else lam[b])
+        assert torch.equal(F[b], F1) and torch.equal(U[b:b + 1], U1), \
+            (label, b)
+    p_ms, (F_ref, U_ref) = once_ms(
+        lambda: plain.sweep(xT, par, excl, L, nb, lam, rep_k))
+    f_err = float((F - F_ref).abs().max())
+    f_rel = f_err / float(F_ref.abs().max())
+    u_rel = float(((U.double() - U_ref.double()).abs()
+                   / U_ref.double().abs()).max())
+    assert f_rel <= REL_TOL and u_rel <= REL_TOL, (label, f_rel, u_rel)
+    return nb, F, U, (f_err, f_rel, u_rel), p_ms
+
+
+def phase_batched_kernels(dev, smi, re_sampler, launches14, launches15):
+    """17a: K2 with a replica axis at the main paths' shapes: the
+    alchemical ladder's 9 replicas as the propagation's batch (B = R = 9)
+    and the matrix's 81 (replica, state) pairs (B = 81 on R = 9), and the
+    standard variant on 4 configurations of PMEWaterBox(6.223): each
+    launch twice for the same bits, against single launches for the same
+    bits and against the plain version; the batched launches' device times
+    beside a single launch's and the bounds of B evaluations."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    bound = re_sampler._matrix_bound()
+    k = bound._sweep_kernel
+    plain = tsw.PlainSweepNonbonded.like(k)
+    term = bound._sweep_alch
+    sss = re_sampler.sampler_states
+    s = re_sampler.replica_states
+    R = len(sss)
+    params = re_sampler._params_on(sss[0].positions.device,
+                                   sss[0].positions.dtype)
+    x = torch.stack([ss.positions for ss in sss])
+    box = torch.stack([ss.box_vectors for ss in sss])
+    before = dict(k.launches)
+    entries, out = [], {}
+    cases = [("propagation", None, [params[int(s[r])] for r in range(R)]),
+             ("energy matrix",
+              torch.arange(R, device=dev).repeat_interleave(R),
+              [params[c] for _ in range(R) for c in range(R)])]
+    for label, rep, params_of in cases:
+        xT, par, excl, L, lam = sort_sets(term, x, box, k, params_of)
+        if rep is not None:
+            par = par[rep].contiguous()
+        B = par.shape[0]
+        nb, F, U, errs, p_ms = check_batch(k, plain, xT, par, excl, L, lam,
+                                           rep, label)
+        rep_k = None if rep is None else rep.to(torch.int32)
+        ms = launch_ms(lambda: k.sweep(xT, par, excl, L, nb, lam, rep_k),
+                       "sweep_forces_alch_f32", reps=20)
+        one_ms = launch_ms(lambda: k.sweep(xT[0], par[0], excl[0], L[0],
+                                           nb[0:1], lam[0]),
+                           "sweep_forces_alch_f32", reps=20)
+        (b_ms, b_by), tested, inside = batch_bound_ms(
+            xT, L, k, nb, torch.arange(R) if rep is None else rep.cpu(),
+            True)
+        say(f"phase 17a sweep_forces_alch, {label}: B = {B} evaluations on "
+            f"R = {R} sort sets, one launch {ms:.4f} ms device (one "
+            f"evaluation alone {one_ms:.4f} ms, x{B} = {B * one_ms:.3f}); "
+            f"twice and against {B} single launches: the same bits; against "
+            f"the plain version max|dF| {errs[0]:.3e} (rel {errs[1]:.2e}), "
+            f"U rel {errs[2]:.2e}, plain {p_ms:.1f} ms; bound {b_ms:.4f} ms "
+            f"by {b_by} ({tested:.0f} pair tests, {inside:.0f} inside) "
+            f"({smi})")
+        entries.append(dict(
+            name=f"sweep_forces_alch (batch of {B}, {label})", route="cuda",
+            source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+            launches=launches14[("sweep_forces_alch", B)],
+            max_abs_err=errs[0], ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        out[label] = dict(B=B, ms=ms, one_ms=one_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, f_rel=errs[1], u_rel=errs[2])
+    # the bound kernel over the 9 sets, on a rebuild of each
+    flags = torch.ones((R,), dtype=torch.bool, device=dev)
+    zero = torch.zeros((R,), dtype=torch.int32, device=dev)
+    nb = k.measure_bound(xT, L, flags, zero)
+    b_ms = launch_ms(lambda: k.measure_bound(xT, L, flags, zero),
+                     "sweep_bound_f32", reps=20)
+    p_ms, _ = once_ms(lambda: plain.measure_bound(xT, L, flags, zero))
+    floor = sum(bound_floor_tests(xT[r], L[r], k, int(nb[r]))
+                for r in range(R))
+    bb = bound_ms(4 * R * (3 * k.n_pad + 3 + 2 + 1), floor * OPS_DIST)
+    say(f"phase 17a sweep_bound on a rebuild of {R} sort sets: one launch "
+        f"{b_ms:.5f} ms device, plain {p_ms:.1f} ms, bound {bb[0]:.6f} ms "
+        f"by {bb[1]} ({floor} tile tests no scan can skip) ({smi})")
+    entries.append(dict(
+        name=f"sweep_bound (batch of {R} sort sets, rebuild)", route="cuda",
+        source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+        launches=launches14[("sweep_bound", R)], max_abs_err=0.0, ms=b_ms,
+        plain_ms=p_ms, bound_ms=bb[0], bound_by=bb[1], library_ms=None))
+    out["bound"] = dict(R=R, ms=b_ms, plain_ms=p_ms, bound_ms=bb[0])
+    k.launches.update(before)   # the comparisons' launches are not the path's
+
+    # the standard variant: PMEWaterBox(6.223), 4 configurations
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    bw = w.system
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+
+    kw = BAOABIntegrator(temperature=WATER_T).bind(bw)._sweep_kernel
+    plain_w = tsw.PlainSweepNonbonded.like(kw)
+    g = torch.Generator(device=dev).manual_seed(170)
+    xw = torch.stack([w.positions + 2e-3 * torch.randn(
+        w.positions.shape, generator=g, device=dev) for _ in range(4)])
+    boxw = bw.default_box.expand(4, 3, 3)
+    xT, par, excl, L, _ = sort_sets(bw.terms[0], xw, boxw, kw, [{}] * 4)
+    nbw, F, U, errs, p_ms = check_batch(kw, plain_w, xT, par, excl, L, None,
+                                        None, "standard")
+    ms = launch_ms(lambda: kw.sweep(xT, par, excl, L, nbw),
+                   "sweep_forces_f32", reps=20)
+    one_ms = launch_ms(lambda: kw.sweep(xT[0], par[0], excl[0], L[0],
+                                        nbw[0:1]), "sweep_forces_f32", reps=20)
+    (b_ms, b_by), tested, inside = batch_bound_ms(xT, L, kw, nbw,
+                                                  torch.arange(4), False)
+    say(f"phase 17a sweep_forces, PMEWaterBox({WATER_EDGE}) x 4: one launch "
+        f"{ms:.4f} ms device (one evaluation alone {one_ms:.4f} ms); the "
+        f"same bits twice and against 4 single launches; against the plain "
+        f"version max|dF| {errs[0]:.3e} (rel {errs[1]:.2e}), U rel "
+        f"{errs[2]:.2e}, plain {p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({smi})")
+    entries.append(dict(
+        name="sweep_forces (batch of 4, PT on the water box)", route="cuda",
+        source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+        launches=launches15[("sweep_forces", 4)], max_abs_err=errs[0],
+        ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    out["standard"] = dict(B=4, ms=ms, one_ms=one_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, f_rel=errs[1], u_rel=errs[2])
+    return entries, out
+
+
+def phase_eager_loop(dev, smi, re_sampler):
+    """17b: the eager loop on the ladder, driven by a move tree the batched
+    route does not take (a SequenceMove of the Langevin move and a
+    displacement): one iteration, each replica its own apply."""
+    from openmmtools_tpu_torch.mcmc import (
+        LangevinSplittingDynamicsMove,
+        MCDisplacementMove,
+        SequenceMove,
+    )
+    from openmmtools_tpu_torch.multistate import ReplicaExchangeSampler
+
+    states = re_sampler._thermodynamic_states
+    langevin = LangevinSplittingDynamicsMove(
+        timestep=0.002, collision_rate=1.0, n_steps=EAGER_STEPS,
+        splitting="V R O R V")
+    move = SequenceMove([langevin, MCDisplacementMove(atom_subset=[0, 1, 2])])
+    k = langevin._bound(states[0])._sweep_kernel
+    sampler = ReplicaExchangeSampler(
+        mcmc_moves=move, number_of_iterations=1,
+        online_analysis_interval=None, rng_seed=171)
+    sampler.create(states, re_sampler.sampler_states)
+    assert sampler.propagation_route == "eager"
+    k.batch_launches.clear()
+    t0 = time.perf_counter()
+    sampler.run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sampler.n_replicas
+    by_batch = dict(k.batch_launches)
+    u = sampler.energies_last_iteration
+    assert np.isfinite(u).all()
+    assert by_batch.get(("sweep_forces_alch", 1), 0) >= n * (EAGER_STEPS + 1)
+    say(f"phase 17b the eager loop ({sampler.propagation_route} route: a "
+        f"SequenceMove of the Langevin move, {EAGER_STEPS} steps, and a "
+        f"displacement of the first water) on the ladder's {n} replicas: "
+        f"one iteration in {wall:.2f} s ({smi}); K2 launches by batch size "
+        f"{by_batch}")
+    return dict(route=sampler.propagation_route, iteration_s=wall,
+                batch_launches={f"{key} x{b}": c
+                                for (key, b), c in by_batch.items()})
+
+
+def phase_batched_against_eager(dev, smi, re_sampler):
+    """17c: 3 replicas of the ladder, 50 steps, through the batched program
+    and one by one with the same generators: the final U and forces."""
+    move = water_move()
+    states = re_sampler._thermodynamic_states
+    bound = move._bound(states[0])
+    idx = [0, 4, 8]
+    sss = [re_sampler.sampler_states[i] for i in idx]
+    ts = [states[int(re_sampler.replica_states[i])] for i in idx]
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(172 + i)
+                for i in range(BATCH_REPLICAS)]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = bound.initial_state_batch(sss, gens(), thermodynamic_states=ts)
+    batch = bound.run(batch, BATCH_STEPS)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = [bound.run(bound.initial_state(ss, g, thermodynamic_state=st),
+                       BATCH_STEPS) for ss, g, st in zip(sss, gens(), ts)]
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    u_rel = f_rel = 0.0
+    for b, st in enumerate(eager):
+        u_rel = max(u_rel, abs(float(batch.potentials[0][b])
+                               - float(st.potentials[0]))
+                    / abs(float(st.potentials[0])))
+        f_rel = max(f_rel, max_rel(batch.forces[0][b], st.forces[0]))
+    say(f"phase 17c {BATCH_REPLICAS} replicas of the ladder x {BATCH_STEPS} "
+        f"steps: batched {t_batch:.2f} s, eager {t_eager:.2f} s; final U "
+        f"worst rel {u_rel:.2e}, F worst rel {f_rel:.2e} of scale ({smi})")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL, (u_rel, f_rel)
+    return dict(batched_s=t_batch, eager_s=t_eager, u_rel=u_rel,
+                f_rel=f_rel)
+
+
+def phase_demo(smi):
+    """17d: scripts.demo_free_energy at the cut depth DEMO_CUT on the card:
+    exit 0 (the three routes within 6 sigma) and its summary."""
+    import contextlib
+    import io
+
+    from openmmtools_tpu_torch.scripts import demo_free_energy
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = demo_free_energy.main(DEMO_CUT)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        say(f"phase 17d demo_free_energy: {line}")
+    summary = json.loads(lines[-1])
+    say(f"phase 17d demo_free_energy at {' '.join(DEMO_CUT)}: exit {rc} in "
+        f"{wall:.1f} s; seconds a route {summary['seconds']} ({smi})")
+    assert rc == 0, summary
+    return dict(summary, wall_s=wall)
+
+
+def phase_atom_shard(dev, smi):
+    """17e: parallel.atom_shard on PMEWaterBox(3.6) over a 4-block mesh on
+    the one card, against the bound integrator's energy_forces_at."""
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.parallel import replica_mesh
+    from openmmtools_tpu_torch.parallel.atom_shard import (
+        make_sharded_energy_force_fn,
+    )
+
+    w = PMEWaterBox(box_edge=SHARD_EDGE, device=dev)
+    system = w.system
+    mesh = replica_mesh(devices=[dev] * SHARD_BLOCKS, axis_name="atom")
+    fn = make_sharded_energy_force_fn(system, mesh)
+    x, box = w.positions, system.default_box
+    ms, (u, f) = once_ms(lambda: fn(x, box, {}))
+    ms, (u, f) = once_ms(lambda: fn(x, box, {}))
+    bound = BAOABIntegrator(temperature=WATER_T).bind(system)
+    assert bound.sweep_mode
+    u_ref, f_ref = bound.energy_forces_at(x, box, {})
+    u_rel = abs(float(u) - float(u_ref)) / abs(float(u_ref))
+    f_rel = max_rel(f.to(f_ref.dtype), f_ref)
+    say(f"phase 17e atom_shard on PMEWaterBox({SHARD_EDGE}) "
+        f"({system.n_particles} atoms) over {SHARD_BLOCKS} blocks of "
+        f"{-(-system.n_particles // SHARD_BLOCKS)} rows: {ms:.1f} ms an "
+        f"evaluation; U {float(u):.3f} vs the sweep path {float(u_ref):.3f} "
+        f"(rel {u_rel:.2e}), F rel {f_rel:.2e} ({smi})")
+    assert u_rel <= REL_TOL and f_rel <= REL_TOL, (u_rel, f_rel)
+    return dict(atoms=system.n_particles, blocks=SHARD_BLOCKS, ms=ms,
+                u_rel=u_rel, f_rel=f_rel)
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3472,20 +3879,34 @@ def main():
     mcmc["extras"] = phase_extras(dev, smi, sampler, ts)
     mcmc["water_ghmc"] = phase_water_ghmc(dev, smi)
     re_sampler, multistate = phase_multistate_re(dev, smi)
+    launches14 = collections.Counter(
+        re_sampler._matrix_bound()._sweep_kernel.batch_launches)
     multistate["sams"] = phase_multistate_sams(dev, smi, re_sampler)
     multistate["pt"] = phase_multistate_pt(dev, smi)
     equilibration = phase_equilibration(dev, smi)
     equilibration["pt_water"] = phase_pt_water(dev, smi)
+    launches15 = equilibration["pt_water"].pop("by_batch")
     catalog = phase_catalog(dev, smi)
+    t0 = time.perf_counter()
+    batched_kernels, batched = phase_batched_kernels(dev, smi, re_sampler,
+                                                     launches14, launches15)
+    batched["eager_loop"] = phase_eager_loop(dev, smi, re_sampler)
+    batched["against_eager"] = phase_batched_against_eager(dev, smi,
+                                                           re_sampler)
+    batched["demo"] = phase_demo(smi)
+    batched["atom_shard"] = phase_atom_shard(dev, smi)
+    batched["seconds"] = time.perf_counter() - t0
+    say(f"phase 17 in {batched['seconds']:.1f} s")
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
                     "cell_path": cell_rate, "mcmc_path": mcmc,
                     "multistate_path": multistate,
                     "equilibration_path": equilibration,
-                    "catalog_path": catalog, "card": smi}, default=str))
+                    "catalog_path": catalog, "batched_path": batched,
+                    "card": smi}, default=str))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
-                      + [dense_kernel] + cell_kernels}))
+                      + [dense_kernel] + cell_kernels + batched_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,15 +13,25 @@
 // pad lanes (pad slots are masked by index), no split loop over the
 // exclusion coverage.
 //
+// Every entry point takes a batch: R sort sets (a replica's sorted
+// positions, exclusion bitfield, box, rebuild flag and bound, each set's
+// arrays back to back) and B evaluations, evaluation b reading the sort set
+// rep[b] with its own parameters (and class scalars). Propagation passes
+// B = R and rep the identity; the multistate energy matrix one evaluation a
+// (replica, state) pair, rep[b] the replica. Each evaluation computes what
+// the TPU kernel computes, on its own; a batch of one is the single call.
+//
 // Three C entry points:
 //
-//  * sweep_bound_f32: sweep_bound_kernel, one cooperative launch a call. It
-//    reads the rebuild flag from device memory; without a rebuild one thread
-//    passes the bound it was given on and every block returns. On a rebuild
-//    it writes 1 + the last block of shell_block shells that holds a pair of
-//    real slots within w = rc + skin (0 without one). Nothing reads the flag
-//    on the host, so a step never waits on the device. Both variants share
-//    it; its design is set out below the force kernel's.
+//  * sweep_bound_f32: sweep_bound_kernel, one cooperative launch a call for
+//    all R sets. It reads the rebuild flags from device memory; where no set
+//    rebuilds, the blocks of the first block pass each bound on and every
+//    block returns. Otherwise it writes, for each set that rebuilds, 1 + the
+//    last block of shell_block shells that holds a pair of real slots within
+//    w = rc + skin (0 without one), and the bound it was given for each set
+//    that does not. Nothing reads a flag on the host, so a step never waits
+//    on the device. Both variants share it; its design is set out below the
+//    force kernel's.
 //  * sweep_forces_f32: sweep_forces_kernel<false> sums each sorted slot i's
 //    FULL ring neighbourhood i +- s, s <= S = min(bound * shell_block,
 //    n_pad/2), without Newton's third law: no atomics, a deterministic
@@ -121,7 +131,8 @@
 //    slots of non-finite x (they can hold no hit); a tile without a member
 //    gets width -1. One grid barrier, then each block copies the arcs (8
 //    bytes a tile) into its shared memory where they fit in the 48 KB a
-//    block gets without asking (STAGE_MAX: up to about 188,000 slots);
+//    block gets without asking (STAGE_MAX: up to about 188,000 slots, all
+//    sets of a batch together);
 //    past that every read of an arc goes to L2 (__ldcg), so no ring size is
 //    refused.
 //  * Groups scan far to near (phase 2). A warp takes a group, the tile g of
@@ -143,10 +154,15 @@
 //    goes to the device-wide int by atomicMax, so the other warps skip what
 //    cannot beat it. A maximum does not depend on the order in which it is
 //    found, so every launch gives the same int.
-//  * One launch. The last block to draw an integer ticket writes nblk = 1 +
-//    the best block, re-arming the best to -1 (atomicExch) and the ticket
-//    to 0; the arcs need no re-arming. The wrapper keeps these two words
-//    and the arcs on its object across calls.
+//  * One launch for the batch. The blocks walk (set, tile) pairs grid-stride
+//    in both phases, skipping the sets that do not rebuild; each set has its
+//    arcs and its best block. No block may leave before the grid barrier
+//    unless no set rebuilds, which every block reads alike. The last block
+//    to draw an integer ticket writes each set's nblk = 1 + its best block
+//    (or its bound, where it does not rebuild), re-arming the bests to -1
+//    (atomicExch) and the ticket to 0; the arcs need no re-arming. The
+//    wrapper keeps these R + 1 words and the arcs on its object across
+//    calls. The grid is the co-resident block count whatever R is.
 //
 // What bounds it: on a fresh water ring a group's arc lies within W of
 // about a third of its partner tiles, and its scan stops within a few
@@ -287,58 +303,83 @@ __device__ __forceinline__ float4 partner(const float* __restrict__ x, int j,
                  : make_float4(nan, nan, nan, 0.0f);
 }
 
-// words[0]: the best block found so far (-1 between launches); words[1]:
-// the blocks' ticket (0 between launches). arcs: n_pad / GROUP float2 of
-// scratch. Launched cooperatively; STAGED: with n_pad / GROUP float2 of
-// dynamic shared memory a block, into which every block copies the arcs
-// (else each arc is read from L2 where it is needed).
+// R sort sets, set r's positions at x + 3 r n_pad, its box at L + 3 r.
+// words[r]: set r's best block found so far (-1 between launches);
+// words[R]: the blocks' ticket (0 between launches). arcs: R n_pad / GROUP
+// float2 of scratch. Launched cooperatively; STAGED: with R n_pad / GROUP
+// float2 of dynamic shared memory a block, into which every block copies
+// the arcs (else each arc is read from L2 where it is needed).
 template <bool STAGED>
 __global__ void __launch_bounds__(BOUND_BLOCK)
-sweep_bound_kernel(const float* __restrict__ x, int n, int n_pad,
-                   const float* __restrict__ L, float w2, int bs,
+sweep_bound_kernel(const float* __restrict__ x_all, int n, int n_pad, int R,
+                   const float* __restrict__ L_all, float w2, int bs,
                    const unsigned char* __restrict__ rebuild,
-                   const int* __restrict__ bound, float2* arcs, int* words,
-                   int* __restrict__ nblk) {
+                   const int* __restrict__ bound, float2* arcs_all,
+                   int* words, int* __restrict__ nblk) {
     extern __shared__ float2 s_arcs[];            // every tile's arc
     __shared__ float4 staged[BOUND_WARPS][GROUP]; // a warp's partner tile
     __shared__ bool last;
-    if (rebuild[0] == 0) {   // every block returns, none at the barrier
-        if (blockIdx.x == 0 && threadIdx.x == 0) nblk[0] = bound[0];
+    // every block reads every flag alike: all return before the barrier,
+    // or none does
+    int any = 0;
+    for (int r = threadIdx.x; r < R; r += BOUND_BLOCK)
+        any |= rebuild[r] != 0;
+    if (!__syncthreads_or(any)) {
+        if (blockIdx.x == 0)
+            for (int r = threadIdx.x; r < R; r += BOUND_BLOCK)
+                nblk[r] = bound[r];
         return;
     }
     const int lane = threadIdx.x & 31;
     const int n_tiles = n_pad / GROUP;
     const int half = n_pad / 2;
     const int reach = half / GROUP;   // partner tiles g + 0 .. g + reach
-    const float Lx = L[0], Ly = L[1], Lz = L[2];
-    const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
     const int warp0 = blockIdx.x * BOUND_WARPS + (threadIdx.x >> 5);
     const int n_warps = gridDim.x * BOUND_WARPS;
+    const int n_work = R * n_tiles;   // (set, tile) pairs
 
-    // phase 1: the tiles' arcs, then one grid barrier
-    for (int t = warp0; t < n_tiles; t += n_warps) {
-        const float2 arc = tile_arc(x, t, n, Lx, hx);
-        if (lane == 0) arcs[t] = arc;
+    // phase 1: the tiles' arcs of every set that rebuilds, then one grid
+    // barrier
+    for (int job = warp0; job < n_work; job += n_warps) {
+        const int r = job / n_tiles;
+        if (rebuild[r] == 0) continue;
+        const float2 arc = tile_arc(x_all + static_cast<size_t>(r) * 3 * n_pad,
+                                    job - r * n_tiles, n, L_all[3 * r],
+                                    0.5f * L_all[3 * r]);
+        if (lane == 0) arcs_all[job] = arc;
     }
     cg::this_grid().sync();
-    // written in this launch by other blocks: read from L2
-    auto arc_of = [&](int t) {
-        return STAGED ? s_arcs[t] : __ldcg(arcs + t);
-    };
     if (STAGED) {
-        for (int t = threadIdx.x; t < n_tiles; t += BOUND_BLOCK)
-            s_arcs[t] = __ldcg(arcs + t);
+        for (int t = threadIdx.x; t < n_work; t += BOUND_BLOCK)
+            s_arcs[t] = __ldcg(arcs_all + t);
         __syncthreads();
     }
 
-    // phase 2: each group scans its partner tiles far to near
-    const float W = sqrtf(w2) * (1.0f + 1e-5f) + 1e-5f * Lx;
-    const float inv_Lx = 1.0f / Lx;
     const float nan = __int_as_float(0x7fc00000);
     float4* const tile = staged[threadIdx.x >> 5];
-    volatile int* const best = words;
-    int top = -1;   // the best block this warp found
-    for (int g = warp0; g < n_tiles; g += n_warps) {
+    int top = -1;     // the best block this warp found in set top_r
+    int top_r = -1;
+    // phase 2: each group scans its partner tiles far to near
+    for (int job = warp0; job < n_work; job += n_warps) {
+        const int r = job / n_tiles;
+        if (rebuild[r] == 0) continue;
+        if (r != top_r) {
+            top = -1;
+            top_r = r;
+        }
+        const int g = job - r * n_tiles;
+        const float* const x = x_all + static_cast<size_t>(r) * 3 * n_pad;
+        const float Lx = L_all[3 * r], Ly = L_all[3 * r + 1],
+                    Lz = L_all[3 * r + 2];
+        const float hx = 0.5f * Lx, hy = 0.5f * Ly, hz = 0.5f * Lz;
+        const float W = sqrtf(w2) * (1.0f + 1e-5f) + 1e-5f * Lx;
+        const float inv_Lx = 1.0f / Lx;
+        // written in this launch by other blocks: read from L2
+        const int base = r * n_tiles;
+        auto arc_of = [&](int t) {
+            return STAGED ? s_arcs[base + t] : __ldcg(arcs_all + base + t);
+        };
+        volatile int* const best = words + r;
         const float2 ga = arc_of(g);
         if (ga.y < 0.0f) continue;   // no member: no hit
         // this lane's slot (a pad slot, NaN, tests nothing)
@@ -404,23 +445,23 @@ sweep_bound_kernel(const float* __restrict__ x, int n, int n_pad,
                     FULL_MASK, s_hit > 0 ? (s_hit - 1) / bs : -1);
                 if (blk > top) {
                     top = blk;
-                    if (lane == 0) atomicMax(words, top);
+                    if (lane == 0) atomicMax(words + r, top);
                 }
             }
         }
     }
 
-    // the last block to finish writes the bound and re-arms the words
+    // the last block to finish writes the bounds and re-arms the words
     __threadfence();   // this warp's atomicMax lands before the ticket
     __syncthreads();
     if (threadIdx.x == 0)
-        last = atomicAdd(words + 1, 1) == static_cast<int>(gridDim.x) - 1;
+        last = atomicAdd(words + R, 1) == static_cast<int>(gridDim.x) - 1;
     __syncthreads();
-    if (last && threadIdx.x == 0) {
-        __threadfence();
-        nblk[0] = atomicExch(words, -1) + 1;
-        atomicExch(words + 1, 0);
-    }
+    if (!last) return;
+    __threadfence();
+    for (int r = threadIdx.x; r < R; r += BOUND_BLOCK)
+        nblk[r] = rebuild[r] != 0 ? atomicExch(words + r, -1) + 1 : bound[r];
+    if (threadIdx.x == 0) atomicExch(words + R, 0);
 }
 
 struct Physics {
@@ -596,13 +637,16 @@ __device__ __forceinline__ void add_pair(
 }
 
 // Real is the energy total's type: float for the standard variant, double
-// for the alchemical one (whose work sums differences of totals)
+// for the alchemical one). Evaluation b = blockIdx.y reads the sort set
+// rep[b] (positions, bitfield, box, bound) and its own parameters and class
+// scalars, and writes its own F, partials, ticket and U.
 template <bool ALCH, typename Real>
 __global__ void __launch_bounds__(FORCE_BLOCK, MIN_BLOCKS)
 sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
                     const int* __restrict__ excl, int n, int n_pad,
                     int mask_rows, int bs, const float* __restrict__ L,
-                    const int* __restrict__ nblk, Physics ph, Alch al,
+                    const int* __restrict__ nblk,
+                    const int* __restrict__ rep, Physics ph, Alch al,
                     float* __restrict__ F, float* e_part,
                     unsigned int* __restrict__ ticket, Real* __restrict__ U) {
     // two tiles of TILE_ROWS partners, then a queue of QUEUE + 1 ints a
@@ -613,6 +657,24 @@ sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
     __shared__ Real red[WARPS];
     __shared__ bool last;
 
+    // this evaluation's arrays
+    {
+        const size_t b = blockIdx.y;
+        const int r = rep[b];
+        x += static_cast<size_t>(r) * 3 * n_pad;
+        excl += static_cast<size_t>(r) * mask_rows * n_pad;
+        L += 3 * r;
+        nblk += r;
+        par += b * (ALCH ? 4 : 3) * n_pad;
+        F += b * 3 * n_pad;
+        e_part += b * gridDim.x;
+        ticket += b;
+        U += b;
+        if (ALCH) {
+            const int R1 = al.n_regions + 1;
+            al.lam += b * 3 * (R1 * (R1 + 1) / 2 - 1);
+        }
+    }
     const int half = n_pad / 2;
     const int S = min(max(nblk[0], 0) * bs, half);
     const int warp = threadIdx.x >> 5;
@@ -778,20 +840,21 @@ sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
 template <bool ALCH, typename Real>
 int launch_forces(const float* x, const float* par, const int* excl, int n,
                   int n_pad, int mask_rows, int bs, const float* L,
-                  const int* nblk, const Physics& ph, const Alch& al,
-                  float* e_part, unsigned int* ticket, float* F, Real* U,
-                  void* stream) {
-    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad)
+                  const int* nblk, int B, const int* rep, const Physics& ph,
+                  const Alch& al, float* e_part, unsigned int* ticket,
+                  float* F, Real* U, void* stream) {
+    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || B < 1 || B > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     // past the 48 KB a block gets without asking
     const cudaError_t err = cudaFuncSetAttribute(
         sweep_forces_kernel<ALCH, Real>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, FORCE_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    sweep_forces_kernel<ALCH, Real><<<n_pad / WARPS, FORCE_BLOCK, FORCE_SMEM,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        x, par, excl, n, n_pad, mask_rows, bs, L, nblk, ph, al, F, e_part,
-        ticket, U);
+    sweep_forces_kernel<ALCH, Real>
+        <<<dim3(n_pad / WARPS, B), FORCE_BLOCK, FORCE_SMEM,
+           static_cast<cudaStream_t>(stream)>>>(x, par, excl, n, n_pad,
+                                                mask_rows, bs, L, nblk, rep,
+                                                ph, al, F, e_part, ticket, U);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -799,20 +862,23 @@ int launch_forces(const float* x, const float* par, const int* excl, int n,
 
 extern "C" {
 
-// The block bound nblk (1,) int: on rebuild (the bool rebuild[0] set) 1 +
-// the last block of bs shells with a pair of real slots within sqrt(w2),
-// else bound[0]; one cooperative launch either way. x (3, n_pad) sorted
-// positions wrapped into the box; arcs holds n_pad / 32 float2 of scratch,
-// words 2 ints that are (-1, 0) on entry and again on exit. Any n_pad: the
-// arcs are staged in shared memory up to STAGE_MAX bytes, else read from L2.
-int sweep_bound_f32(const float* x, int n, int n_pad, const float* L, float w2,
-                    int bs, const unsigned char* rebuild, const int* bound,
-                    float2* arcs, int* words, int* nblk, void* stream) {
-    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || bs <= 0)
+// The block bounds nblk (R,) int of R sort sets: for set r, on rebuild (the
+// bool rebuild[r] set) 1 + the last block of bs shells with a pair of real
+// slots within sqrt(w2), else bound[r]; one cooperative launch either way.
+// x (R, 3, n_pad) sorted positions wrapped into the box, L (R, 3); arcs
+// holds R n_pad / 32 float2 of scratch, words R + 1 ints that are (-1, ...,
+// -1, 0) on entry and again on exit. Any n_pad and R: the arcs are staged in
+// shared memory up to STAGE_MAX bytes, else read from L2.
+int sweep_bound_f32(const float* x, int n, int n_pad, int R, const float* L,
+                    float w2, int bs, const unsigned char* rebuild,
+                    const int* bound, float2* arcs, int* words, int* nblk,
+                    void* stream) {
+    if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || bs <= 0 || R < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_tiles = n_pad / GROUP;
-    const bool staged = sizeof(float2) * n_tiles <= STAGE_MAX;
-    const size_t smem = staged ? sizeof(float2) * n_tiles : 0;
+    const size_t arc_bytes = sizeof(float2) * n_tiles * static_cast<size_t>(R);
+    const bool staged = arc_bytes <= STAGE_MAX;
+    const size_t smem = staged ? arc_bytes : 0;
     const void* kernel =
         staged ? reinterpret_cast<const void*>(sweep_bound_kernel<true>)
                : reinterpret_cast<const void*>(sweep_bound_kernel<false>);
@@ -827,7 +893,7 @@ int sweep_bound_f32(const float* x, int n, int n_pad, const float* L, float w2,
         return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     const int wanted = (n_tiles + BOUND_WARPS - 1) / BOUND_WARPS;
     const int blocks = wanted < max_blocks ? wanted : max_blocks;
-    void* args[] = {&x, &n, &n_pad, &L, &w2, &bs, &rebuild, &bound,
+    void* args[] = {&x, &n, &n_pad, &R, &L, &w2, &bs, &rebuild, &bound,
                     &arcs, &words, &nblk};
     err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(BOUND_BLOCK),
                                       args, smem,
@@ -836,34 +902,39 @@ int sweep_bound_f32(const float* x, int n, int n_pad, const float* L, float w2,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Forces F (3, n_pad) and energy U (1,) of the bounded sweep at the bound
-// nblk (1,) int read on the device, in one launch. x, par (3, n_pad) sorted
-// positions and [sigma, sqrt(eps), charge]; excl (mask_rows, n_pad) the
-// exception bitfield; e_part holds n_pad / 16 floats of scratch, and ticket
-// is an unsigned int that is 0 on entry and is 0 again on exit.
+// Forces F (B, 3, n_pad) and energies U (B,) of B evaluations of the
+// bounded sweep, in one launch. The sort sets: x (R, 3, n_pad) sorted
+// positions, excl (R, mask_rows, n_pad) the exception bitfields, L (R, 3)
+// and the bounds nblk (R,) int read on the device; evaluation b reads the
+// set rep[b] (int, on the device) and its own par[b] (3, n_pad) [sigma,
+// sqrt(eps), charge]. e_part holds B n_pad / 16 floats of scratch, and
+// ticket B unsigned ints that are 0 on entry and are 0 again on exit.
 int sweep_forces_f32(const float* x, const float* par, const int* excl, int n,
                      int n_pad, int mask_rows, int bs, const float* L,
-                     const int* nblk, float rc2, int coulomb_rf, float alpha,
-                     float k_rf, float c_rf, int use_switch, int switch_coulomb,
-                     float r_switch, float inv_span, float ke, float* e_part,
+                     const int* nblk, int B, const int* rep, float rc2,
+                     int coulomb_rf, float alpha, float k_rf, float c_rf,
+                     int use_switch, int switch_coulomb, float r_switch,
+                     float inv_span, float ke, float* e_part,
                      unsigned int* ticket, float* F, float* U, void* stream) {
     const Physics ph{rc2, coulomb_rf, alpha, k_rf, c_rf, use_switch,
                      switch_coulomb, r_switch, inv_span, ke};
     const Alch al{nullptr, 0, 0};
     return launch_forces<false>(x, par, excl, n, n_pad, mask_rows, bs, L,
-                                nblk, ph, al, e_part, ticket, F, U, stream);
+                                nblk, B, rep, ph, al, e_part, ticket, F, U,
+                                stream);
 }
 
-// The alchemical variant: as sweep_forces_f32, with par (4, n_pad) [sigma,
-// sqrt(eps), charge, region code], lam (3 C,) the class scalars on the
-// device (C = (R+1)(R+2)/2 - 1 <= 152), n_regions R and coulomb_plain (the
-// 'coulomb' PME treatment), and the energy U (1,) a double: the float32
-// partials summed in double, so that the difference of two evaluations
-// (the nonequilibrium work) is not rounded to a float32 total's ulp
-// (0.03 kJ/mol at -3.2e5 kJ/mol).
+// The alchemical variant: as sweep_forces_f32, with par (B, 4, n_pad)
+// [sigma, sqrt(eps), charge, region code], lam (B, 3 C) each evaluation's
+// class scalars on the device (C = (R+1)(R+2)/2 - 1 <= 152 for n_regions
+// R), coulomb_plain (the 'coulomb' PME treatment), and the energies U (B,)
+// doubles: the float32 partials summed in double, so that the difference
+// of two evaluations (the nonequilibrium work) is not rounded to a float32
+// total's ulp (0.03 kJ/mol at -3.2e5 kJ/mol).
 int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
                           int n, int n_pad, int mask_rows, int bs,
-                          const float* L, const int* nblk, float rc2,
+                          const float* L, const int* nblk, int B,
+                          const int* rep, float rc2,
                           int coulomb_rf, float alpha, float k_rf, float c_rf,
                           int use_switch, int switch_coulomb, float r_switch,
                           float inv_span, float ke, const float* lam,
@@ -877,7 +948,8 @@ int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
                      switch_coulomb, r_switch, inv_span, ke};
     const Alch al{lam, n_regions, coulomb_plain};
     return launch_forces<true>(x, par, excl, n, n_pad, mask_rows, bs, L,
-                               nblk, ph, al, e_part, ticket, F, U, stream);
+                               nblk, B, rep, ph, al, e_part, ticket, F, U,
+                               stream);
 }
 
 }  // extern "C"

@@ -34,6 +34,21 @@ on a CUDA device" in place of "the backend is a TPU":
 A subclass whose bound class brings its own ``step`` (the integrators of
 :mod:`openmmtools_tpu_torch.integrators.extras`) takes neither path.
 
+Replicas as one batched axis (the JAX package's ``jax.vmap`` of the step
+program over replicas): :meth:`BoundIntegrator.initial_state_batch` stacks
+B configurations into one state whose tensors carry a leading axis (kT,
+box and each global parameter one a replica, the generators a tuple, one a
+replica), and the same step program advances them together. Sweep mode
+sorts each configuration and evaluates all of them in one launch of each
+sweep kernel; the remainder around it, the generic program's energy and
+the constraints run under ``torch.func.vmap`` (the kernels are opaque to
+it, so it never wraps them), with autograd of the summed energies giving
+each replica's forces, since replicas do not interact. The fused path
+(K1) and neighbour mode advance a batch one replica at a time; so does
+Jacobi SHAKE, whose iteration count is read on the host.
+:meth:`BoundIntegrator.energies_batch` evaluates B (configuration,
+parameters) pairs, the multistate energy matrix, the same way.
+
 Constraints follow OpenMM's SETTLE + CCMA architecture: SETTLE for rigid
 waters, cluster M-SHAKE/M-RATTLE for the remaining small clusters, Jacobi
 SHAKE/RATTLE where clustering fails (:mod:`openmmtools_tpu_torch.ops.constraints`).
@@ -47,9 +62,10 @@ token (alchemical perturbation) belongs to the nonequilibrium integrators of
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -171,7 +187,8 @@ class IntegratorState:
     sweep_excl: Optional[torch.Tensor] = None   # (mask_rows, n_pad) int32
     sweep_par: Optional[torch.Tensor] = None    # (n_par, n_pad) sorted parameters
     sweep_overflow: Optional[torch.Tensor] = None  # () bool, sticky
-    generator: Optional[torch.Generator] = static_field(default=None)
+    # the noise source; a tuple of one generator a replica in a batch
+    generator: Any = static_field(default=None)
 
     @property
     def temperature(self):
@@ -180,16 +197,112 @@ class IntegratorState:
 
 def draw_uniform(generator, shape, like):
     """Uniforms in [0, 1) of ``like``'s dtype, drawn on the generator's
-    device and moved to ``like``'s."""
+    device and moved to ``like``'s. A tuple of generators (a batch) draws
+    row b of ``shape`` from generator b."""
+    if isinstance(generator, (tuple, list)):
+        return torch.stack([draw_uniform(g, shape[1:], like)
+                            for g in generator])
     return torch.rand(shape, generator=generator, dtype=like.dtype,
                       device=generator.device).to(like.device)
 
 
 def draw_normal(generator, shape, like):
     """Standard normals of ``like``'s dtype, drawn on the generator's device
-    and moved to ``like``'s."""
+    and moved to ``like``'s. A tuple of generators (a batch) draws row b of
+    ``shape`` from generator b: one draw a replica."""
+    if isinstance(generator, (tuple, list)):
+        return torch.stack([draw_normal(g, shape[1:], like)
+                            for g in generator])
     return torch.randn(shape, generator=generator, dtype=like.dtype,
                        device=generator.device).to(like.device)
+
+
+# bytes a torch.func.vmap chunk of the batched energies may hold: the
+# dense program holds a dozen or so (N, N) tensors a configuration, the
+# reciprocal space (N, 2 kmax + 2, 2 kmax + 2) tables
+_VMAP_BYTES = 1 << 31
+
+
+def _vmap_chunk(per_item_bytes):
+    """Configurations a vmap chunk evaluates at once."""
+    return max(1, _VMAP_BYTES // max(1, int(per_item_bytes)))
+
+
+def _box_lengths(box):
+    """The edges (..., 3) of a box (..., 3, 3)."""
+    return torch.diagonal(box, dim1=-2, dim2=-1)
+
+
+def batched_value_and_grad(fn, x):
+    """``(fn(x), d sum(fn) / dx)`` for ``fn`` mapping a batch (B, N, 3) to
+    energies (B,): each replica's gradient, since no energy reads another
+    replica's positions; a zero gradient where ``fn`` does not depend on
+    ``x``."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        u = fn(xx)
+        if not u.requires_grad:
+            return u.detach(), torch.zeros_like(x)
+        (g,) = torch.autograd.grad(u.sum(), xx)
+    return u.detach(), g
+
+
+def _per_item(fn, params, batch, *args, chunk=None):
+    """``fn(params_b, *args_b)`` for every b, under ``torch.func.vmap``
+    over the leading axis of ``params`` (a dict of (B,) tensors) and of
+    ``args``, ``chunk`` at a time (None: all); with no parameters and no
+    args ``fn`` is evaluated once and broadcast to ``batch`` rows."""
+    if not params and not args:
+        out = fn({})
+        if isinstance(out, tuple):
+            return tuple(o.expand((batch,) + o.shape) for o in out)
+        return out.expand((batch,) + out.shape)
+    return torch.func.vmap(fn, chunk_size=chunk)(params, *args)
+
+
+def stack_states(states):
+    """One batched IntegratorState of single states (every tensor stacked
+    on a new leading axis, the generators a tuple); the integer counters
+    must agree."""
+    out = {}
+    for f in dataclasses.fields(IntegratorState):
+        vals = [getattr(s, f.name) for s in states]
+        first = vals[0]
+        if f.name == "generator":
+            out[f.name] = tuple(vals)
+        elif isinstance(first, torch.Tensor):
+            out[f.name] = torch.stack(vals)
+        elif isinstance(first, tuple):
+            out[f.name] = tuple(torch.stack(c) for c in zip(*vals))
+        elif isinstance(first, dict):
+            out[f.name] = {k: torch.stack([torch.as_tensor(v[k])
+                                           for v in vals]) for k in first}
+        else:
+            if any(v != first for v in vals):
+                raise IntegratorError(f"replicas disagree on {f.name}")
+            out[f.name] = first
+    return IntegratorState(**out)
+
+
+def unstack_states(state):
+    """The single states of a batched IntegratorState, in order."""
+    n = state.positions.shape[0]
+    out = []
+    for b in range(n):
+        fields = {}
+        for f in dataclasses.fields(IntegratorState):
+            v = getattr(state, f.name)
+            if f.name == "generator":
+                v = v[b]
+            elif isinstance(v, torch.Tensor):
+                v = v[b]
+            elif isinstance(v, tuple):
+                v = tuple(t[b] for t in v)
+            elif isinstance(v, dict):
+                v = {k: t[b] for k, t in v.items()}
+            fields[f.name] = v
+        out.append(IntegratorState(**fields))
+    return out
 
 
 def thermalize_velocities(masses, kT, generator, dtype=torch.float32):
@@ -431,7 +544,13 @@ class BoundIntegrator:
 
     def _eval_group(self, g, x, box, params, nbr=None):
         """(U, F) of force group ``g``: over the list in neighbour mode
-        (autograd forces), else the group's dense function."""
+        (autograd forces), else the group's dense function; a batch (B, N,
+        3) by the dense energy under vmap, each replica's forces by
+        autograd of the summed energies."""
+        if x.dim() == 3:
+            u, grad = batched_value_and_grad(
+                lambda xx: self._dense_energies(g, xx, box, None, params), x)
+            return u, -grad
         if self.neighbor_mode and nbr is not None:
             u, grad = value_and_grad(
                 lambda xx: self._neighbor_energy(xx, box, params, nbr), x)
@@ -606,17 +725,22 @@ class BoundIntegrator:
         if fuse:
             cols += [exc[:, 0], exc[:, 1]]
         self._sweep_rows = (torch.cat(cols).long() if cols else None)
+        # a batch's remainder under vmap, in chunks that bound the
+        # reciprocal space's (N, 2 kmax + 2, 2 kmax + 2) tables
+        n = self.system.n_particles
+        side = max([2 * int(t.kmax) + 2 for t in other
+                    if isinstance(t, EwaldReciprocalTerm)
+                    and t.kmax is not None] + [1])
+        self._rest_chunk = _vmap_chunk(32 * n * side * side)
 
     def _resort_sweep(self, state: IntegratorState) -> IntegratorState:
         """Re-sort the sweep ring by current x; invalidates the block bound
         (the next force evaluation rebuilds) and re-scatters the exception
-        bitfield for the new order."""
+        bitfield for the new order. A batch sorts each replica; their
+        bitfield overflow flags are ORed into one."""
         k = self._sweep_kernel
-        term = self._sweep_term
         box = state.box if state.box is not None else self.system.default_box
-        x = state.positions
-        if self._vsites is not None:
-            x = self._vsites.reconstruct(x)
+        x = self._reconstruct(state.positions)
         perm, inv = sweep_nb.sort_for_sweep(x, box, k.n_pad)
         excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
             self._sweep_pairs, inv, k.n_pad, k.mask_rows)
@@ -627,13 +751,13 @@ class BoundIntegrator:
         par = sweep_nb.sorted_params(
             sigma, sqrt_eps, charge, perm.long(), k.n_pad,
             k.input_dtype(state.positions), code)
-        overflow = max_sep > k.mask_shells
+        overflow = torch.any(max_sep > k.mask_shells)
         if state.sweep_overflow is not None:
             overflow = overflow | state.sweep_overflow
         return state.replace(
             sweep_perm=perm, sweep_inv=inv,
             sweep_snap=torch.zeros_like(state.positions),
-            sweep_nblk=torch.full((), -1, dtype=torch.int32,
+            sweep_nblk=torch.full(tuple(x.shape[:-2]), -1, dtype=torch.int32,
                                   device=state.positions.device),
             sweep_excl=excl, sweep_par=par, sweep_overflow=overflow)
 
@@ -700,68 +824,130 @@ class BoundIntegrator:
             tot = tot + t.energy(xx, box, params)
         return tot
 
-    def _sweep_eval(self, x, box, params, sw, forces=True):
+    def _reconstruct(self, x):
+        """The virtual sites rebuilt from their parents (x itself without
+        sites); a batch rebuilds each replica's."""
+        if self._vsites is None:
+            return x
+        if x.dim() == 3:
+            return torch.func.vmap(self._vsites.reconstruct)(x)
+        return self._vsites.reconstruct(x)
+
+    def _spread(self, x, f):
+        """Forces ``f`` on the reconstructed positions of ``x`` as forces on
+        ``x`` (``VirtualSites.spread_forces``, a batch at once)."""
+        if x.dim() == 2:
+            return self._vsites.spread_forces(x, f)
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._reconstruct(xx), xx,
+                                       grad_outputs=f)
+        return g
+
+    def _rest_energies(self, x, box, params):
+        """:meth:`_sweep_rest_energy` of a batch (B,), under vmap."""
+        return torch.func.vmap(self._sweep_rest_energy,
+                               chunk_size=self._rest_chunk)(x, box, params)
+
+    def _sweep_eval(self, x, box, params, sw, forces=True, rep=None):
         """Energy and forces of the sweep's force group: the sweep kernel
         for the NonbondedTerm's standard pairs plus the remainder with
         autograd forces (``forces=False``: the remainder's energy alone,
         and F None). ``sw`` is a dict of the sweep state; returns (u, F,
-        new_sw), u in float64. The rebuild flag stays on the device."""
+        new_sw), u in float64. The rebuild flag stays on the device.
+
+        A batch: ``x`` (R, N, 3), ``box`` (R, 3, 3), ``sw`` the R sort sets
+        and ``params`` a dict of (B,) tensors, one evaluation a row; the
+        evaluation b takes the configuration ``rep[b]`` (the identity where
+        ``rep`` is None, B = R; only energies with ``rep``). One launch of
+        each sweep kernel evaluates all B; u is (B,), F (B, N, 3). A single
+        evaluation is the batch of one."""
+        if x.dim() == 3:
+            return self._sweep_eval_batch(x, box, params, sw, forces, rep)
+        u, f, new_sw = self._sweep_eval_batch(
+            x[None], box[None],
+            {k: torch.as_tensor(v, dtype=x.dtype, device=x.device).reshape(1)
+             for k, v in (params or {}).items()},
+            {k: v[None] for k, v in sw.items()}, forces)
+        return (u[0], None if f is None else f[0],
+                {k: v[0] for k, v in new_sw.items()})
+
+    def _sweep_eval_batch(self, x, box, params, sw, forces=True, rep=None):
         x_in = x
-        if self._vsites is not None:
-            x = self._vsites.reconstruct(x)
+        x = self._reconstruct(x)
         k = self._sweep_kernel
         term = self._sweep_term
         n = self.system.n_particles
         dtype = k.input_dtype(x)
         perm = sw["perm"].long()
         y, xT = sweep_nb.sorted_positions(x, box, perm, k.n_pad, dtype)
-        disp = minimum_image(y - sw["snap"], box)
-        moved = torch.max(torch.sum(disp * disp, dim=-1)) > (0.5 * k.skin) ** 2
+        lengths = _box_lengths(box)
+        disp = y - sw["snap"]
+        disp = disp - lengths[:, None, :] * torch.round(
+            disp / lengths[:, None, :])
+        moved = torch.amax(torch.sum(disp * disp, dim=-1), dim=-1) > (
+            0.5 * k.skin) ** 2
         rebuild = (sw["nblk"] < 0) | moved
 
-        par = sw["par"]
+        par = sw["par"] if rep is None else sw["par"][rep]
+        batch = par.shape[0]
         lj_scale = None
         lam = lam_s_cls = None
         alch = self._sweep_alch
         if alch is not None:
-            # the kernel's per-class scalars, from the parameters by tensor
-            # operations on the device; 'exact' scales the charges by region
-            lam, lam_s_cls, charge_scale = alch.sweep_lambdas(params, xT)
-            lam = lam.to(dtype).contiguous()
-            if charge_scale is not None:
-                par = sweep_nb.scale_charges_by_code(par, charge_scale)
+            # the kernel's per-class scalars of each evaluation, from its
+            # parameters by tensor operations on the device; 'exact' scales
+            # the charges by region
+            def scalars(p):
+                out = alch.sweep_lambdas(p, xT)
+                return out if out[2] is not None else out[:2]
+
+            out = _per_item(scalars, params, batch)
+            lam, lam_s_cls = out[0].to(dtype).contiguous(), out[1]
+            if len(out) == 3:
+                par = sweep_nb.scale_charges_by_code(par, out[2])
         elif (term.lj_scale_param is not None
                 or term.charge_scale_param is not None):
             # global charge/lj scale parameters fold into the per-atom
             # rows: q -> q scale and sqrt_eps -> sqrt_eps sqrt(lj_scale)
-            one = torch.ones((), dtype=dtype, device=x.device)
+            one = torch.ones((batch,), dtype=dtype, device=x.device)
             scale = [one, one, one]
             if term.lj_scale_param is not None:
-                lj_scale = (params or {}).get(term.lj_scale_param, 1.0)
-                scale[1] = torch.sqrt(torch.as_tensor(
-                    lj_scale, dtype=dtype, device=x.device))
+                lj_scale = params.get(term.lj_scale_param)
+                if lj_scale is None:
+                    lj_scale = torch.ones((batch,), dtype=x.dtype,
+                                          device=x.device)
+                scale[1] = torch.sqrt(lj_scale.to(dtype))
             if term.charge_scale_param is not None:
-                scale[2] = torch.as_tensor(
-                    (params or {}).get(term.charge_scale_param, 1.0),
-                    dtype=dtype, device=x.device)
-            par = par * torch.stack(scale)[:, None]
-        L = torch.diagonal(box)
-        F_s, u_s, nblk = k.evaluate(xT, par, sw["excl"],
-                                    L.to(dtype).contiguous(), rebuild,
-                                    sw["nblk"], lam)
+                q_scale = params.get(term.charge_scale_param)
+                if q_scale is not None:
+                    scale[2] = q_scale.to(dtype)
+            par = par * torch.stack(scale, dim=-1)[:, :, None]
+        L = lengths.to(dtype).contiguous()
+        rep_k = None
+        if rep is not None:
+            rep_k = rep.to(device=x.device, dtype=torch.int32)
+        F_s, u_s, nblk = k.evaluate(xT, par.contiguous(), sw["excl"], L,
+                                    rebuild, sw["nblk"], lam, rep_k)
+        if rep is None:
+            x_r, box_r, lengths_r = x, box, lengths
+        else:
+            x_r, box_r, lengths_r = x[rep], box[rep], lengths[rep]
         if forces:
-            F_direct = F_s.t()[sw["inv"].long()].to(x.dtype)
-            u_r, g_r = value_and_grad(
-                lambda xx: self._sweep_rest_energy(xx, box, params), x)
+            inv = sw["inv"].long()[..., None].expand(x.shape)
+            F_direct = torch.gather(F_s.transpose(-1, -2), -2, inv).to(
+                x.dtype)
+            u_r, g_r = batched_value_and_grad(
+                lambda xx: self._rest_energies(xx, box, params), x)
         else:
             with torch.no_grad():
-                u_r = self._sweep_rest_energy(x, box, params)
+                u_r = self._rest_energies(x_r, box_r, params)
         # the parts add up in float64, as OpenMM's mixed precision sums
         # energies: a float32 total of 24,000 waters (-3.2e5 kJ/mol) moves
         # in steps of 0.03 kJ/mol, and the nonequilibrium work is a sum of
         # differences of such totals
-        u = u_s[0].to(torch.float64) + u_r.to(torch.float64)
-        volume = torch.prod(L.to(torch.float64))
+        u = u_s.to(torch.float64) + u_r.to(torch.float64)
+        volume = torch.prod(lengths_r.to(torch.float64), dim=-1)
         if self._sweep_disp_avg is not None:
             tail = (2.0 * math.pi * n * n / volume) * self._sweep_disp_avg
             if lj_scale is not None:
@@ -769,19 +955,19 @@ class BoundIntegrator:
             u = u + tail
         elif self._sweep_disp_class is not None:
             # class sums (env-env first) weighted by lam_s^a per class
-            weights = torch.cat([torch.ones((1,), dtype=torch.float64,
+            weights = torch.cat([torch.ones((batch, 1), dtype=torch.float64,
                                             device=x.device),
-                                 lam_s_cls.to(torch.float64)])
+                                 lam_s_cls.to(torch.float64)], dim=-1)
             u = u + (2.0 * math.pi * n * n / volume) * torch.sum(
-                self._sweep_disp_class * weights)
+                self._sweep_disp_class * weights, dim=-1)
         new_sw = dict(sw)
-        new_sw["snap"] = torch.where(rebuild, y, sw["snap"])
-        new_sw["nblk"] = nblk.reshape(())
+        new_sw["snap"] = torch.where(rebuild[:, None, None], y, sw["snap"])
+        new_sw["nblk"] = nblk
         if not forces:
             return u, None, new_sw
         f = F_direct - g_r
         if self._vsites is not None:
-            f = self._vsites.spread_forces(x_in, f)
+            f = self._spread(x_in, f)
         return u, f, new_sw
 
     # -- energies at other parameters (the multistate energy matrix) -------
@@ -803,18 +989,17 @@ class BoundIntegrator:
         bool, None off sweep mode) and the parameter dicts as tensors on
         ``x``'s device. Raises where the dense O(N^2) sum would serve a
         system of ``DENSE_LIMIT`` atoms or more on the card: there sweep
-        mode should have engaged."""
+        mode should have engaged. ``x`` may be a batch (R, N, 3) with its
+        boxes (R, 3, 3)."""
         if box is None:
             box = self.system.default_box
-        n = self.system.n_particles
-        if (self._fused is None and not self.sweep_mode
-                and x.device.type == "cuda" and n >= DENSE_LIMIT):
-            raise IntegratorError(
-                f"sweep mode is off for a {n}-atom system on the card; the "
-                "energies would take the dense O(N^2) sum")
+            if x.dim() == 3 and box is not None:
+                box = box.expand((x.shape[0],) + box.shape)
+        self._refuse_dense(x)
         sw = overflow = None
         if self.sweep_mode:
-            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            zero = torch.zeros(tuple(x.shape[:-2]), dtype=x.dtype,
+                               device=x.device)
             state = self._resort_sweep(IntegratorState(
                 positions=x, velocities=x, kT=zero, box=box))
             sw, overflow = self._sweep_dict(state), state.sweep_overflow
@@ -822,6 +1007,14 @@ class BoundIntegrator:
                         for k, v in (params or {}).items()}
                        for params in params_list]
         return box, sw, overflow, params_list
+
+    def _refuse_dense(self, x):
+        n = self.system.n_particles
+        if (self._fused is None and not self.sweep_mode
+                and x.device.type == "cuda" and n >= DENSE_LIMIT):
+            raise IntegratorError(
+                f"sweep mode is off for a {n}-atom system on the card; the "
+                "energies would take the dense O(N^2) sum")
 
     def check_sweep_overflow(self, flag):
         """Raise while ``flag`` (a device bool, or None off sweep mode) is
@@ -835,25 +1028,72 @@ class BoundIntegrator:
                 f"{self._sweep_kernel.mask_shells}; forces are wrong. "
                 "Disable sweep mode (integrator.sweep=None).")
 
+    def energies_batch(self, x, box, rep, params):
+        """Potential energies (B,) float64 of B (configuration, parameters)
+        pairs, and the overflow flag of the configurations' fresh sorts (a
+        device bool, None off sweep mode): ``x`` (R, N, 3) configurations
+        with their boxes (R, 3, 3) (None: the default box), ``rep`` (B,)
+        int64 the configuration of each pair, ``params`` a dict of (B,)
+        tensors, each pair's global parameters. By the path the step program
+        takes: in sweep mode one sort of each configuration, then ONE launch
+        of each sweep kernel for all B pairs and the rest of each force
+        group under vmap; on the fused path K1's force kernel once a
+        configuration (it reads no global parameter); else each force
+        group's dense function under vmap. The caller checks the flag
+        (:meth:`check_sweep_overflow`)."""
+        default = self.system.default_box
+        if box is None and default is not None:
+            box = default.expand((x.shape[0],) + default.shape)
+        self._refuse_dense(x)
+        rep = torch.as_tensor(rep, device=x.device).long()
+        if self._fused is not None:
+            u = torch.stack([self._fused_energy_forces(x[r], box[r])[0]
+                             for r in range(x.shape[0])])
+            return u.to(torch.float64)[rep], None
+        box, sw, overflow, _ = self._path_inputs(x, box, [])
+        total = torch.zeros((rep.shape[0],), dtype=torch.float64,
+                            device=x.device)
+        for g in self.groups:
+            if sw is not None and g == self._sweep_group:
+                u, _, sw = self._sweep_eval(x, box, params, sw, forces=False,
+                                            rep=rep)
+            else:
+                with torch.no_grad():
+                    u = self._dense_energies(g, x[rep], box, rep, params)
+            total = total + u.to(torch.float64)
+        return total, overflow
+
+    def _dense_energies(self, g, x, box, rep, params):
+        """Force group ``g``'s dense energy of a batch ``x`` (B, N, 3) at
+        ``params`` (B,), under vmap; ``box`` (R, 3, 3) indexed by ``rep``
+        (None: the identity), or None for a non-periodic system."""
+        n = self.system.n_particles
+        chunk = _vmap_chunk(128 * n * n)
+        if box is None:
+            return _per_item(lambda p, xx: self._e_fns[g](xx, None, p),
+                             params, x.shape[0], x, chunk=chunk)
+        box = box if rep is None else box[rep]
+        return _per_item(lambda p, xx, bb: self._e_fns[g](xx, bb, p),
+                         params, x.shape[0], x, box, chunk=chunk)
+
     def energies_and_overflow_at(self, x, box, params_list):
         """:meth:`energies_at` without its host read: (U (K,) float64, the
-        fresh sort's overflow flag, a device bool or None). A caller that
-        evaluates many configurations ORs the flags and checks once
-        (:meth:`check_sweep_overflow`)."""
-        box, sw, overflow, params_list = self._path_inputs(x, box,
-                                                           params_list)
-        if self._fused is not None:
-            u = self._fused_energy_forces(x, box)[0].to(torch.float64)
-            return u.expand(len(params_list)).clone(), overflow
-        out = []
-        for params in params_list:
-            total = torch.zeros((), dtype=torch.float64, device=x.device)
-            for g in self.groups:
-                u, _, sw = self._group_energy_forces(g, x, box, params, sw,
-                                                     forces=False)
-                total = total + u.to(torch.float64)
-            out.append(total)
-        return torch.stack(out), overflow
+        fresh sort's overflow flag, a device bool or None), the K sets of
+        parameters evaluated as one batch of K pairs (:meth:`energies_batch`).
+        A caller that evaluates many configurations ORs the flags and checks
+        once (:meth:`check_sweep_overflow`)."""
+        if box is None:
+            box = self.system.default_box
+        params = {}
+        if params_list:
+            names = list((params_list[0] or {}).keys())
+            params = {k: torch.stack([torch.as_tensor(
+                (p or {})[k], dtype=x.dtype, device=x.device)
+                for p in params_list]) for k in names}
+        rep = torch.zeros((len(params_list),), dtype=torch.long,
+                          device=x.device)
+        return self.energies_batch(x[None], None if box is None else box[None],
+                                   rep, params)
 
     def energies_at(self, x, box, params_list) -> torch.Tensor:
         """Potential energies (K,) float64 of one configuration ``x`` at K
@@ -948,10 +1188,23 @@ class BoundIntegrator:
         return total
 
     def _kinetic(self, env: _Env):
-        return 0.5 * torch.sum(self.masses[:, None] * env.v * env.v)
+        ke = self.masses[:, None] * env.v * env.v
+        if ke.dim() == 3:
+            return 0.5 * torch.sum(ke, dim=(-2, -1))
+        return 0.5 * torch.sum(ke)
+
+    def _per_replica(self, fn, a, b):
+        """``fn`` of a batch, replica by replica: under vmap, except for
+        Jacobi SHAKE/RATTLE, which iterate to a tolerance read on the
+        host."""
+        if self._rest_constraints is not None and self._clusters is None:
+            return torch.stack([fn(ai, bi) for ai, bi in zip(a, b)])
+        return torch.func.vmap(fn)(a, b)
 
     # -- constraint dispatch: SETTLE + M-SHAKE on disjoint partitions -----
     def _constrain_positions(self, x_new, x_old):
+        if x_new.dim() == 3:
+            return self._per_replica(self._constrain_positions, x_new, x_old)
         if self._settle is not None:
             x_new = constraints.settle_positions(x_new, x_old, self._settle,
                                                  self.masses)
@@ -967,6 +1220,8 @@ class BoundIntegrator:
         return x_new
 
     def _constrain_velocities(self, x, v):
+        if v.dim() == 3:
+            return self._per_replica(self._constrain_velocities, x, v)
         if self._settle is not None:
             v = constraints.settle_velocities(x, v, self._settle, self.masses)
         if self._rest_constraints is not None:
@@ -1014,7 +1269,7 @@ class BoundIntegrator:
         integ = self.integrator
         if integ.measure_heat:
             ke_old = self._kinetic(env)
-        sigma = torch.sqrt(env.kT * self.inv_mass)[:, None]
+        sigma = torch.sqrt(env.kT[..., None] * self.inv_mass)[..., None]
         noise = draw_normal(env.generator, env.v.shape, env.v)
         env.v = self.ou_a * env.v + self.ou_b * sigma * noise
         if self.system.constraints.n_constraints > 0 and not skip_constrain:
@@ -1033,10 +1288,11 @@ class BoundIntegrator:
         # Metropolize on the block's SHADOW work: the energy change not
         # accounted for by H-step protocol work
         shadow = (e_new - e_old) - (env.protocol_work - w0)
-        u = draw_uniform(env.generator, (), e_new)
+        u = draw_uniform(env.generator, e_new.shape, e_new)
         accept = u < torch.exp(-shadow / env.kT)
-        env.x = torch.where(accept, env.x, x0)
-        env.v = torch.where(accept, env.v, -v0)   # momentum flip on rejection
+        acc = accept[..., None, None]
+        env.x = torch.where(acc, env.x, x0)
+        env.v = torch.where(acc, env.v, -v0)   # momentum flip on rejection
         if self._h_in_block:
             # the global parameters moved inside the block: the stashed U/F
             # belong to the old lambda, so recompute at (the kept x, the
@@ -1048,7 +1304,7 @@ class BoundIntegrator:
         else:
             for g in self.groups:
                 env.U[g] = torch.where(accept, env.U[g], U0[g])
-                env.F[g] = torch.where(accept, env.F[g], F0[g])
+                env.F[g] = torch.where(acc, env.F[g], F0[g])
         env.n_accepted = env.n_accepted + accept.to(torch.int64)
         env.n_proposed = env.n_proposed + 1
         env.stash = None
@@ -1178,6 +1434,72 @@ class BoundIntegrator:
             heat=zero, shadow_work=zero, protocol_work=zero,
             n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
             step_count=0, generator=generator)
+        return self._with_initial_forces(state)
+
+    def initial_state_batch(self, sampler_states: Sequence[SamplerState],
+                            generators: Sequence[torch.Generator],
+                            temperatures=None,
+                            thermodynamic_states=None,
+                            global_params=None) -> IntegratorState:
+        """One batched state of B replicas (the batched step program's
+        input): replica b at ``sampler_states[b]``, drawing from
+        ``generators[b]``, at the temperature and global parameters of
+        ``thermodynamic_states[b]`` (else ``temperatures`` and
+        ``global_params``, one a replica or one for all; else the
+        integrator's temperature). Each replica's kT, box and global
+        parameters ride in the state, so one bound integrator serves
+        replicas at different temperatures and parameters; missing
+        velocities are thermalized from the replica's own generator. The
+        forces come from one batched evaluation (in sweep mode one launch
+        of each sweep kernel); the fused path and neighbour mode build each
+        replica's state on its own and stack them."""
+        n_rep = len(sampler_states)
+        if thermodynamic_states is not None:
+            temperatures = [ts.temperature for ts in thermodynamic_states]
+            global_params = [dict(ts.global_params)
+                             for ts in thermodynamic_states]
+        if temperatures is None:
+            temperatures = self.integrator.temperature
+        if not isinstance(temperatures, (list, tuple)):
+            temperatures = [temperatures] * n_rep
+        if not isinstance(global_params, (list, tuple)):
+            global_params = [global_params] * n_rep
+        if self._fused is not None or self.neighbor_mode:
+            return stack_states([
+                self.initial_state(ss, gen, temperature=t, global_params=p)
+                for ss, gen, t, p in zip(sampler_states, generators,
+                                         temperatures, global_params)])
+        x = torch.stack([ss.positions for ss in sampler_states])
+        like = x[0]
+        kT = torch.stack([torch.as_tensor(kB * t, dtype=x.dtype,
+                                          device=x.device)
+                          for t in temperatures])
+        boxes = [ss.box_vectors if ss.box_vectors is not None
+                 else self.system.default_box for ss in sampler_states]
+        box = None if boxes[0] is None else torch.stack(boxes)
+        names = list((global_params[0] or {}).keys())
+        params = {k: torch.stack([torch.as_tensor(
+            (p or {})[k], dtype=x.dtype, device=x.device)
+            for p in global_params]) for k in names}
+        v = torch.stack([
+            ss.velocities if ss.velocities is not None
+            else thermalize_velocities(self.masses, kT[b], gen,
+                                       dtype=like.dtype)
+            for b, (ss, gen) in enumerate(zip(sampler_states, generators))])
+        zero = torch.zeros((n_rep,), dtype=x.dtype, device=x.device)
+        izero = torch.zeros((n_rep,), dtype=torch.int64, device=x.device)
+        state = IntegratorState(
+            positions=x, velocities=v, kT=kT, box=box, global_params=params,
+            heat=zero, shadow_work=zero, protocol_work=zero,
+            n_accepted=izero, n_proposed=izero, lambda_=zero, lambda_step=0,
+            step_count=0, generator=tuple(generators))
+        return self._with_initial_forces(state)
+
+    def _with_initial_forces(self, state: IntegratorState) -> IntegratorState:
+        """``state`` with the forces and potentials of its positions (a
+        fresh sort in sweep mode, a list built here in neighbour mode), so
+        that the first V substep is exact."""
+        x, box, params = state.positions, state.box, state.global_params
         if self._fused is not None:
             u, f = self._fused_energy_forces(x, box)
             return state.replace(forces=(f,), potentials=(u,))
@@ -1245,7 +1567,13 @@ class BoundIntegrator:
         full interaction evaluated at bonded distance. In neighbour mode the
         state carries the list's sticky overflow flag (``nbr_overflow``), as
         in the JAX package, and the caller reads it once (the MCMC moves
-        raise on it)."""
+        raise on it). A batched state (:meth:`initial_state_batch`) advances
+        its replicas together through the step program; on the fused path
+        and in neighbour mode one replica at a time."""
+        if state.positions.dim() == 3 and (self._fused is not None
+                                           or self.neighbor_mode):
+            return stack_states([self.run(s, n_steps)
+                                 for s in unstack_states(state)])
         if self._fused is None:
             state = self.run_program(n_steps)(state)
             if self.sweep_mode:
@@ -1283,6 +1611,15 @@ class BoundIntegrator:
     def sampler_state_from(self, state: IntegratorState) -> SamplerState:
         return SamplerState(positions=state.positions,
                             velocities=state.velocities, box_vectors=state.box)
+
+    def sampler_states_from(self, state: IntegratorState
+                            ) -> List[SamplerState]:
+        """The replicas of a batched state as sampler states, in order."""
+        return [SamplerState(positions=state.positions[b],
+                             velocities=state.velocities[b],
+                             box_vectors=(None if state.box is None
+                                          else state.box[b]))
+                for b in range(state.positions.shape[0])]
 
 
 class LangevinIntegrator:
@@ -1338,8 +1675,9 @@ class LangevinIntegrator:
 
     def bind(self, system: System) -> BoundIntegrator:
         # content hash, not id(): structurally identical systems share one
-        # bound integrator, and a recreated system never aliases a stale key
-        key = system.fingerprint
+        # bound integrator, and a recreated system never aliases a stale key;
+        # the same system on another device (a replica mesh) binds anew
+        key = (system.fingerprint, str(system.device))
         bound = self._bound.get(key)
         if bound is None:
             self._bound[key] = bound = self._bound_class(self, system)

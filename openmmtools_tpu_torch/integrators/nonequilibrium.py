@@ -17,6 +17,10 @@ card. Lambda itself and every parameter derived from it are device tensors
 (``torch.full`` of the scheduled value, then the alchemical functions as
 tensor expressions), which the sweep kernel's class scalars are computed
 from on the device.
+
+A batch of protocols (``initial_state_batch``) runs them all at the same
+step of the same schedule, each with its own noise; ``protocol_work`` is
+(B,).
 """
 from __future__ import annotations
 
@@ -39,15 +43,20 @@ class BoundNonequilibriumIntegrator(BoundIntegrator):
     :meth:`perturb`."""
 
     def _lambda_at(self, lambda_step, like):
-        """The scheduled lambda after ``lambda_step`` H steps, as a 0-d
-        tensor of ``like``'s type and device."""
+        """The scheduled lambda after ``lambda_step`` H steps, as a tensor
+        of ``like``'s type and device: 0-d for positions ``like`` (N, 3),
+        one entry a replica for a batch (B, N, 3), every protocol of a
+        batch being at the same step of the same schedule."""
         value = self.integrator._schedule(lambda_step, max(1, self.n_H))
-        return torch.full((), value, dtype=like.dtype, device=like.device)
+        return torch.full(tuple(like.shape[:-2]), value, dtype=like.dtype,
+                          device=like.device)
 
     def _parameters_at(self, lam, like):
-        """The alchemical functions evaluated at ``lam``, as tensors."""
+        """The alchemical functions evaluated at ``lam``, as tensors of
+        ``lam``'s shape."""
         return {name: torch.as_tensor(math_eval(expr, {"lambda": lam}),
-                                      dtype=like.dtype, device=like.device)
+                                      dtype=like.dtype,
+                                      device=like.device).expand(lam.shape)
                 for name, expr in self.integrator.alchemical_functions.items()}
 
     def _invalidate(self, env):
@@ -61,7 +70,8 @@ class BoundNonequilibriumIntegrator(BoundIntegrator):
             return
         # reset work and lambda at the start of each cycle
         if env.step_count % cycle == 0:
-            zero = torch.zeros((), dtype=env.x.dtype, device=env.x.device)
+            zero = torch.zeros(tuple(env.x.shape[:-2]), dtype=env.x.dtype,
+                               device=env.x.device)
             env.protocol_work = zero
             env.shadow_work = zero
             env.heat = zero

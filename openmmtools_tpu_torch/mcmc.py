@@ -23,6 +23,13 @@ On NaN an integrator move retries up to ``n_restart_attempts`` times, the
 last with fresh velocities, then writes the failing state to
 ``nan-error-logs/`` and raises :class:`IntegratorMoveError`.
 
+An integrator move also applies to many replicas at once
+(:meth:`BaseIntegratorMove.apply_batch`): one bound integrator advances
+them as one batch, each replica at its own state's temperature and global
+parameters and drawing from its own generator (the JAX package's vmap of
+the move over replicas). A replica that comes back with NaN is redone by
+the single-replica move, from its next attempt on.
+
 Moves serialize through ``utils.serialization``: their parameters,
 statistics and generator states, not their caches of bound integrators.
 """
@@ -44,6 +51,7 @@ from openmmtools_tpu_torch.integrators.langevin import (
     draw_normal,
     draw_uniform,
 )
+from openmmtools_tpu_torch.ops.fused_langevin import brings_own_step
 from openmmtools_tpu_torch.states import (
     CompoundThermodynamicState,
     SamplerState,
@@ -274,12 +282,62 @@ class BaseIntegratorMove(MCMCMove):
         return integ.bind(_resolve(thermodynamic_state).system)
 
     def _on_integration_end(self, final_state):
-        """Hook: harvest statistics from the final integrator state."""
+        """Hook: harvest statistics from the final integrator state (one
+        replica's, or a batch's)."""
+
+    def batches(self, thermodynamic_state) -> bool:
+        """Whether :meth:`apply_batch` advances replicas as one batch: the
+        bound integrator runs this module's step program
+        (``brings_own_step`` marks a class that replaces it)."""
+        bound = self._bound(thermodynamic_state)
+        return not brings_own_step(type(bound))
+
+    def apply_batch(self, thermodynamic_states, sampler_states,
+                    generators) -> list:
+        """Apply the move to B replicas as one batch: replica b at
+        ``thermodynamic_states[b]`` (all of one system), drawing from
+        ``generators[b]``. One bound integrator (that of the first state)
+        serves them all: each replica's kT and global parameters ride in
+        the batched state. Returns the B new sampler states. A replica that
+        went to NaN is redone alone, by :meth:`apply`'s restarts from the
+        second attempt on; the others keep the batch's result."""
+        states = [_resolve(ts) for ts in thermodynamic_states]
+        bound = self._bound(states[0])
+        sampler_states = [ss.replace(velocities=None)
+                          if self.reassign_velocities else ss
+                          for ss in sampler_states]
+        state = bound.initial_state_batch(sampler_states, generators,
+                                          thermodynamic_states=states)
+        state = bound.run(state, self.n_steps)
+        if state.nbr_overflow is not None and bool(state.nbr_overflow.any()):
+            raise MCMCMoveError(
+                "neighbor-list capacity exceeded during integration; "
+                "increase neighbor_skin/k_max or density changed "
+                "drastically")
+        out = bound.sampler_states_from(state)
+        ok = torch.stack([~ss.has_nan() for ss in out]).cpu()
+        if bool(ok.any()):
+            keep = torch.nonzero(ok).reshape(-1).to(state.n_accepted.device)
+            self._on_integration_end(state.replace(
+                n_accepted=state.n_accepted[keep],
+                n_proposed=state.n_proposed[keep]))
+        for b in torch.nonzero(~ok).reshape(-1).tolist():
+            logger.warning("NaN in %s (replica %d of a batch); restarting "
+                           "it alone", type(self).__name__, b)
+            out[b] = self._attempts(states[b], sampler_states[b],
+                                    generators[b], first=1)
+        return out
 
     def _apply(self, thermodynamic_state, sampler_state, generator,
                context_cache):
+        return self._attempts(thermodynamic_state, sampler_state, generator)
+
+    def _attempts(self, thermodynamic_state, sampler_state, generator,
+                  first=0):
+        """Integrate, restarting on NaN: attempts ``first`` ..
+        ``n_restart_attempts``, the last with fresh velocities."""
         bound = self._bound(thermodynamic_state)
-        for attempt in range(self.n_restart_attempts + 1):
+        for attempt in range(first, self.n_restart_attempts + 1):
             ss = sampler_state
             if self.reassign_velocities or attempt == self.n_restart_attempts:
                 ss = ss.replace(velocities=None)
@@ -383,8 +441,8 @@ class _MetropolizedIntegratorMove(BaseIntegratorMove):
         self.n_proposed = 0
 
     def _on_integration_end(self, final_state):
-        self.n_accepted += int(final_state.n_accepted)
-        self.n_proposed += int(final_state.n_proposed)
+        self.n_accepted += int(final_state.n_accepted.sum())
+        self.n_proposed += int(final_state.n_proposed.sum())
 
     @property
     def fraction_accepted(self):

@@ -5,12 +5,13 @@ One reference state at K temperatures: the states differ only in beta, so
 an iteration's energy matrix evaluates U(x_n) once a replica, and the base
 sampler's assembly gives u_k = beta_k (U + p_k V) (paralleltempering.py:
 175-238). U(x_n) comes from the first integrator move's bound integrator
-(``energies_at``) where it is in sweep mode or the system has
-``DENSE_LIMIT`` atoms or more: on the card that is the sweep kernel, and
-a large system never takes the dense sum. Otherwise (a small system, the
-fused LJ path, no integrator move) it is the system's dense energy at the
-replica's state. The initial matrix (create, minimize) takes the generic
-path.
+(``energies_batch``, every replica of a block at its own state in one
+batch) where it is in sweep mode or the system has ``DENSE_LIMIT`` atoms
+or more: on the card that is one launch of each sweep kernel for all the
+replicas, and a large system never takes the dense sum. Otherwise (a small
+system, the fused LJ path, no integrator move) it is the system's dense
+energy at the replica's state. The initial matrix (create, minimize) takes
+the generic path.
 """
 from __future__ import annotations
 
@@ -70,21 +71,34 @@ class ParallelTemperingSampler(ReplicaExchangeSampler):
         """Every state: the O(N) matrix has no window."""
         return super()._columns(state_index, windowed=False)
 
-    def _potentials(self, ss, cols, state_index, windowed):
+    def _block_potentials(self, device, replicas, cols_of, windowed):
         """An iteration's O(N) potentials: U(x_n) once at the replica's own
         state, for every column (see the module docstring for the path);
         the matrix of create and minimize takes the generic path."""
         if not windowed:
-            return super()._potentials(ss, cols, state_index, windowed)
-        system = self._thermodynamic_states[0].system
-        x = ss.positions
-        params = self._params_on(x.device, x.dtype)[state_index]
-        bound = self._matrix_bound()
+            return super()._block_potentials(device, replicas, cols_of,
+                                             windowed)
+        system = self._states_on(device)[0].system
+        sss = [self._sampler_states[n] for n in replicas]
+        own = [int(self._replica_states[n]) for n in replicas]
+        bound = self._matrix_bound(device)
         if bound is not None and (bound.sweep_mode
                                   or system.n_particles >= DENSE_LIMIT):
-            U, overflow = bound.energies_and_overflow_at(
-                x, ss.box_vectors, [params])
-            return U.expand(len(cols)), overflow
-        refuse_dense(system, x, "parallel tempering's O(N) energies")
-        U = make_energy_fn(system)(x, ss.box_vectors, params)
-        return U.to(torch.float64).expand(len(cols)), None
+            x = torch.stack([ss.positions for ss in sss])
+            boxes = [ss.box_vectors for ss in sss]
+            table = self._param_table(x.device, x.dtype)
+            own_t = torch.as_tensor(own, device=x.device)
+            U, overflow = bound.energies_batch(
+                x, None if boxes[0] is None else torch.stack(boxes),
+                torch.arange(len(sss), device=x.device),
+                {k: v[own_t] for k, v in table.items()})
+            return [u.expand(len(cols)) for u, cols in zip(U, cols_of)], \
+                overflow
+        out = []
+        for ss, s, cols in zip(sss, own, cols_of):
+            x = ss.positions
+            refuse_dense(system, x, "parallel tempering's O(N) energies")
+            params = self._params_on(x.device, x.dtype)[s]
+            U = make_energy_fn(system)(x, ss.box_vectors, params)
+            out.append(U.to(torch.float64).expand(len(cols)))
+        return out, None

@@ -1,29 +1,42 @@
 """MultiStateSampler: N replicas x K thermodynamic states (counterpart of
 ``multistate/sampler.py``).
 
-An iteration runs as the reference runs it (multistatesampler.py), as
-eager host loops around the device work:
+An iteration runs as the reference runs it (multistatesampler.py):
 
 1. mix: the subclass's mixing (replica exchange, SAMS jumps) on the host,
    on CPU tensors, from the N x K energy matrix of the previous iteration;
-2. propagate: each replica applies its state's move,
-   ``moves[s].apply(state_s, sampler_state_n, generator=...)``; any
-   ``MCMCMove`` is accepted, one for all states or one a state;
+2. propagate: where every state has the same integrator move (a
+   ``BaseIntegratorMove`` whose bound integrator runs the package's step
+   program) and the states share one system, the replicas advance as one
+   batch (``propagation_route`` "batched": ``move.apply_batch``, the JAX
+   package's vmap of the move over replicas: in sweep mode one launch of
+   each sweep kernel a force evaluation for all replicas); any other move
+   tree (``SequenceMove``, ``WeightedMove``, the Metropolized moves, a
+   move a state) keeps the eager loop ("eager"), each replica applying its
+   state's move, ``moves[s].apply(state_s, sampler_state_n,
+   generator=...)``. The route follows from the moves' types, fixed before
+   the run;
 3. energies: u[n, k] = beta_k (U_k(x_n) + p_k V_n) at the post-move boxes.
    For the sampled states and the unsampled states that share their
-   system, U_k comes from ``BoundIntegrator.energies_at`` of the first
-   integrator move's bound integrator, the path its step program takes
-   (in sweep mode one sort of x_n, then the sweep kernel at each state's
-   global parameters); without an integrator move, the dense energy.
-   Unsampled states with a system of their own are evaluated by the first
-   integrator move's integrator bound to their system through the global
-   context cache (``cache.py``), the same path on their own system; their
-   own dense ``reduced_potential`` serves only without an integrator move.
-   A sweep path's exclusion-bitfield overflow flags are read once a matrix,
-   an OR over the replicas. With ``locality`` only the 2L+1 states around a
-   replica's state are evaluated; the rest of its row is +inf. The matrix
-   comes to the host once an iteration, in the positions' dtype;
+   system, U_k comes from ``BoundIntegrator.energies_batch`` of the first
+   integrator move's bound integrator, the path its step program takes,
+   over every (replica, column) pair at once (in sweep mode one sort of
+   each x_n, then ONE launch of each sweep kernel for all pairs); without
+   an integrator move, the dense energy. Unsampled states with a system of
+   their own are evaluated by the first integrator move's integrator bound
+   to their system through the global context cache (``cache.py``), the
+   same path on their own system; their own dense ``reduced_potential``
+   serves only without an integrator move. A sweep path's
+   exclusion-bitfield overflow flags are read once a matrix, an OR over
+   the replicas. With ``locality`` only the 2L+1 states around a replica's
+   state are evaluated; the rest of its row is +inf. The matrix comes to
+   the host once an iteration, in the positions' dtype;
 4. NaN check, report, online analysis, timing.
+
+With a ``mesh`` (``create(..., mesh=...)``, a
+:class:`~openmmtools_tpu_torch.parallel.ReplicaMesh`) the replicas live on
+the mesh's devices in contiguous blocks, and propagation and energies run
+block by block, each on its device with the system moved there.
 
 Randomness is a pure function of (rng_seed, iteration): iteration i's
 mixing draws come from a CPU ``torch.Generator`` seeded from (rng_seed, i)
@@ -64,6 +77,11 @@ from openmmtools_tpu_torch.mcmc import (
 from openmmtools_tpu_torch.multistate.mbar import mbar_free_energies
 from openmmtools_tpu_torch.multistate.reporter import MultiStateReporter
 from openmmtools_tpu_torch.multistate.utils import SimulationNaNError
+from openmmtools_tpu_torch.parallel.mesh import (
+    canonical_device,
+    on_device,
+    replica_sharding,
+)
 from openmmtools_tpu_torch.states import (
     SamplerState,
     is_state_compatible,
@@ -230,6 +248,9 @@ class MultiStateSampler:
         self._timing: Dict[str, float] = {}
         self._stats_baseline = None
         self._device_params: Dict[Any, List[Dict[str, torch.Tensor]]] = {}
+        self._device_states: Dict[str, List[Any]] = {}
+        self._mesh = None
+        self._sharding = None
         self.phase_seconds: Dict[str, List[float]] = \
             collections.defaultdict(list)
 
@@ -275,14 +296,47 @@ class MultiStateSampler:
     def is_completed(self) -> bool:
         return self._is_completed(self.number_of_iterations)
 
+    @property
+    def mesh(self):
+        """The replica mesh given to ``create`` (None: every replica where
+        its positions are)."""
+        return self._mesh
+
+    @property
+    def propagation_route(self) -> str:
+        """How an iteration propagates the replicas: "batched" when every
+        state has the same integrator move, its bound integrator runs the
+        package's step program (``BaseIntegratorMove.batches``) and the
+        states share one system, so that one batch advances all of them
+        (``apply_batch``); "eager" otherwise, one ``apply`` a replica."""
+        moves = self._moves_per_state()
+        move = moves[0]
+        states = self._thermodynamic_states
+        fingerprint = states[0].system.fingerprint
+        if (isinstance(move, BaseIntegratorMove)
+                and all(m is move for m in moves)
+                and all(ts.system is states[0].system
+                        or ts.system.fingerprint == fingerprint
+                        for ts in states)
+                and move.batches(states[0])):
+            return "batched"
+        return "eager"
+
     # ------------------------------------------------------------------
     # setup
     # ------------------------------------------------------------------
     def create(self, thermodynamic_states: Sequence, sampler_states,
                storage=None, initial_thermodynamic_states=None,
-               unsampled_thermodynamic_states=None):
+               unsampled_thermodynamic_states=None, mesh=None):
         """Bind states and storage, thermalize missing velocities once, and
-        take the initial energy matrix (multistatesampler.py:537)."""
+        take the initial energy matrix (multistatesampler.py:537). With a
+        ``mesh`` (:func:`~openmmtools_tpu_torch.parallel.replica_mesh`) the
+        replicas are placed on its devices in contiguous blocks (the JAX
+        package's replica sharding)."""
+        self._mesh = mesh
+        self._sharding = (None if mesh is None
+                          else replica_sharding(mesh, mesh.axis_name))
+        self._device_states = {}
         self._thermodynamic_states = [_resolve(ts)
                                       for ts in thermodynamic_states]
         self._moves_per_state()   # validate the moves now, not at run
@@ -346,6 +400,10 @@ class MultiStateSampler:
                 v = thermalize_velocities(system.masses, kT, gen, dtype=dtype)
             states.append(SamplerState(positions=ss.positions, velocities=v,
                                        box_vectors=box))
+        if mesh is not None:
+            for device, idx in self._sharding.blocks(len(states)):
+                for i in idx:
+                    states[i] = states[i].to(device=device)
         self._n_accepted = torch.zeros((k, k), dtype=torch.int64)
         self._n_proposed = torch.zeros((k, k), dtype=torch.int64)
         self._rng_iteration = 0
@@ -498,13 +556,51 @@ class MultiStateSampler:
                 total[:len(r)] += np.asarray(r, dtype=np.int64)
         return total
 
-    def _matrix_bound(self):
+    def _matrix_bound(self, device=None):
         """The bound integrator whose path evaluates the energy matrix: that
-        of the first integrator move of state 0's move, or None."""
+        of the first integrator move of state 0's move (on ``device``'s copy
+        of the system), or None."""
         move = first_integrator_move(self._moves_per_state()[0])
         if move is None:
             return None
-        return move._bound(self._thermodynamic_states[0])
+        return move._bound(self._states_on(device)[0])
+
+    def _states_on(self, device=None):
+        """The sampled thermodynamic states with their system on
+        ``device`` (None: as given), each system moved once."""
+        if device is None:
+            return self._thermodynamic_states
+        device = canonical_device(device)
+        key = str(device)
+        states = self._device_states.get(key)
+        if states is None:
+            moved = {}
+
+            def on(ts):
+                if ts.system.device == device:
+                    return ts
+                if id(ts.system) not in moved:
+                    moved[id(ts.system)] = ts.system.to(device=device)
+                return ts.replace(system=moved[id(ts.system)])
+
+            states = self._device_states[key] = [
+                on(ts) for ts in self._thermodynamic_states]
+        return states
+
+    def _blocks(self):
+        """(device, replica indices) of each block of replicas: the mesh's
+        contiguous blocks, else runs of replicas on one device."""
+        if self._mesh is not None:
+            return [(device, list(idx)) for device, idx
+                    in self._sharding.blocks(self.n_replicas)]
+        out = []
+        for n, ss in enumerate(self._sampler_states):
+            device = ss.positions.device
+            if out and out[-1][0] == device:
+                out[-1][1].append(n)
+            else:
+                out.append((device, [n]))
+        return out
 
     # ------------------------------------------------------------------
     # one iteration
@@ -528,13 +624,24 @@ class MultiStateSampler:
              self._n_proposed) = mixed
         t1 = time.perf_counter()
         moves = self._moves_per_state()
-        propagated = []
-        for n, ss in enumerate(self._sampler_states):
-            s = int(self._replica_states[n])
-            gen = torch.Generator(device=ss.positions.device).manual_seed(
-                derived_seed(self._rng_seed, i, n))
-            propagated.append(moves[s].apply(self._thermodynamic_states[s],
-                                             ss, generator=gen))
+        propagated = list(self._sampler_states)
+        batched = self.propagation_route == "batched"
+        for device, idx in self._blocks():
+            states = self._states_on(device)
+            gens = [torch.Generator(device=device).manual_seed(
+                derived_seed(self._rng_seed, i, n)) for n in idx]
+            s_of = [int(self._replica_states[n]) for n in idx]
+            with on_device(device):
+                if batched:
+                    out = moves[0].apply_batch(
+                        [states[s] for s in s_of],
+                        [self._sampler_states[n] for n in idx], gens)
+                else:
+                    out = [moves[s].apply(states[s], self._sampler_states[n],
+                                          generator=gen)
+                           for n, s, gen in zip(idx, s_of, gens)]
+            for n, ss in zip(idx, out):
+                propagated[n] = ss
         self._sampler_states = propagated
         t2 = time.perf_counter()
         self._energies = self._energy_matrix(windowed=True)
@@ -559,24 +666,49 @@ class MultiStateSampler:
                 for k in range(stacked.n_states)]
         return self._device_params[key]
 
-    def _potentials(self, ss: SamplerState, cols: List[int],
-                    state_index: int, windowed: bool):
-        """(U (len(cols),) float64, overflow) of one configuration at the
-        stacked states ``cols``, by the bound integrator's path or, without
-        an integrator move, the dense energy; ``overflow`` is the sweep
-        path's exclusion-bitfield flag (a device bool, None off sweep
-        mode), which the matrix checks once for all replicas."""
-        x, box = ss.positions, ss.box_vectors
-        params = self._params_on(x.device, x.dtype)
-        bound = self._matrix_bound()
-        if bound is not None:
-            return bound.energies_and_overflow_at(x, box,
-                                                  [params[c] for c in cols])
-        system = self._thermodynamic_states[0].system
-        refuse_dense(system, x, "the energy matrix without an integrator move")
-        u_fn = make_energy_fn(system)
-        return torch.stack([u_fn(x, box, params[c]).to(torch.float64)
-                            for c in cols]), None
+    def _param_table(self, device, dtype):
+        """Each global parameter of the stacked states as one (Ktot,)
+        tensor on ``device`` (made once)."""
+        key = ("table", device, dtype)
+        if key not in self._device_params:
+            self._device_params[key] = {
+                name: v.to(device=device, dtype=dtype)
+                for name, v in self._stacked_states.global_params.items()}
+        return self._device_params[key]
+
+    def _block_potentials(self, device, replicas: List[int],
+                          cols_of: List[List[int]], windowed: bool):
+        """(U, overflow) of a block of replicas on ``device``: U a list of
+        (len(cols),) float64 tensors, one a replica, at the stacked states
+        of its columns; ``overflow`` the sweep path's exclusion-bitfield
+        flag (a device bool, None off sweep mode), which the matrix checks
+        once for all replicas. By the bound integrator's path, every
+        (replica, column) pair of the block in one batch
+        (``energies_batch``), or, without an integrator move, the dense
+        energy of each pair."""
+        sss = [self._sampler_states[n] for n in replicas]
+        x = torch.stack([ss.positions for ss in sss])
+        boxes = [ss.box_vectors for ss in sss]
+        box = None if boxes[0] is None else torch.stack(boxes)
+        bound = self._matrix_bound(device)
+        if bound is None:
+            system = self._states_on(device)[0].system
+            refuse_dense(system, x, "the energy matrix without an "
+                         "integrator move")
+            u_fn = make_energy_fn(system)
+            params = self._params_on(x.device, x.dtype)
+            return [torch.stack([
+                u_fn(ss.positions, ss.box_vectors, params[c]).to(
+                    torch.float64) for c in cols])
+                for ss, cols in zip(sss, cols_of)], None
+        rep = torch.as_tensor([j for j, cols in enumerate(cols_of)
+                               for _ in cols], device=x.device)
+        cols = torch.as_tensor([c for cols in cols_of for c in cols],
+                               device=x.device)
+        params = {k: v[cols] for k, v in
+                  self._param_table(x.device, x.dtype).items()}
+        U, overflow = bound.energies_batch(x, box, rep, params)
+        return list(torch.split(U, [len(c) for c in cols_of])), overflow
 
     def _unsampled_bound(self, thermodynamic_state):
         """The bound integrator that evaluates an unsampled state with a
@@ -630,15 +762,20 @@ class MultiStateSampler:
         states with a system of their own) stay on its device until one
         copy brings them all to the host."""
         stacked = self._stacked_states
-        bound = self._matrix_bound()
-        cols_of, parts, flags = [], [], []
+        cols_of = [self._columns(int(s), windowed)
+                   for s in self._replica_states]
+        potentials, flags = [None] * self.n_replicas, []
         with torch.no_grad():
-            for ss, s in zip(self._sampler_states, self._replica_states):
-                cols = self._columns(int(s), windowed)
-                cols_of.append(cols)
-                u, flag = self._potentials(ss, cols, int(s), windowed)
+            for device, idx in self._blocks():
+                with on_device(device):
+                    U, flag = self._block_potentials(
+                        device, idx, [cols_of[n] for n in idx], windowed)
+                flags.append((flag, self._matrix_bound(device)))
+                for n, u in zip(idx, U):
+                    potentials[n] = u
+            parts = []
+            for ss, u in zip(self._sampler_states, potentials):
                 parts.append(u)
-                flags.append((flag, bound))
                 if stacked.pressure is not None:
                     parts.append(volume(ss.box_vectors).to(
                         torch.float64).reshape(1))
@@ -745,11 +882,11 @@ class MultiStateSampler:
         any result is not finite."""
         from openmmtools_tpu_torch.integrators.minimize import fire_minimize
 
-        system = self._thermodynamic_states[0].system
-        bound = self._matrix_bound()
         out = []
         for ss, s in zip(self._sampler_states, self._replica_states):
             x, box = ss.positions, ss.box_vectors
+            system = self._states_on(x.device)[0].system
+            bound = self._matrix_bound(x.device)
             params = self._params_on(x.device, x.dtype)[int(s)]
             energy_forces = constrain = None
             if bound is not None:
@@ -760,10 +897,11 @@ class MultiStateSampler:
             else:
                 refuse_dense(system, x, "minimization without an integrator "
                              "move")
-            x_min, _ = fire_minimize(system, x, box, params,
-                                     max_steps=max_iterations,
-                                     energy_forces=energy_forces,
-                                     constrain=constrain)
+            with on_device(x.device):
+                x_min, _ = fire_minimize(system, x, box, params,
+                                         max_steps=max_iterations,
+                                         energy_forces=energy_forces,
+                                         constrain=constrain)
             out.append(x_min)
         if not all(bool(torch.isfinite(x).all()) for x in out):
             logger.warning("minimization produced non-finite positions; "

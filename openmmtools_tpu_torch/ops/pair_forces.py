@@ -17,8 +17,8 @@ Force convention: F_i = sum_j w(r_ij) * d_ij with d_ij = x_i - x_j
 
 Semantics (cutoff, switch, exceptions) match
 :func:`openmmtools_tpu_torch.ops.nonbonded.all_pairs_energy`. The row-blocked
-mode of the JAX function (``row_start``/``row_block``) belongs to atom
-sharding and is not ported yet.
+mode (``row_start``/``row_block``/``n_valid``) serves atom sharding
+(:mod:`openmmtools_tpu_torch.parallel.atom_shard`).
 """
 from __future__ import annotations
 
@@ -54,28 +54,49 @@ def dense_pair_energy_forces(
     shift_rf=True,
     switch_coulomb=False,
     exclude_index=None,
+    row_start=None,
+    row_block=None,
+    n_valid=None,
 ):
     """Energy and forces of the dense all-pairs LJ+Coulomb sum.
 
     Returns ``(U, F)``: ``U`` scalar and ``F`` (N, 3), the value and
     ``-grad`` of :func:`ops.nonbonded.all_pairs_energy`. ``charges=None``
     skips all Coulomb math (uncharged LJ systems).
+
+    Row-blocked mode (atom sharding): with ``row_start`` and ``row_block``
+    (host ints) only the (row_block, N) plane of the rows row_start ..
+    row_start + row_block - 1 against every column is formed; ``U`` is that
+    plane's half-sum, summed in float64 (the blocks' values add up to the
+    total, whose parts cancel to a few parts in 10^4 on water) and ``F``
+    (row_block, 3) the owned rows' exact forces. ``n_valid`` masks the rows
+    and columns from ``n_valid`` on (the zero padding of N up to a whole
+    number of blocks).
     """
     n = x.shape[0]
     dtype = x.dtype
     if n < 2:
-        return torch.zeros((), dtype=dtype, device=x.device), torch.zeros_like(x)
+        rows = n if row_block is None else int(row_block)
+        return (torch.zeros((), dtype=dtype, device=x.device),
+                torch.zeros((rows, 3), dtype=dtype, device=x.device))
 
     q = charges if charge_scale is None or charges is None \
         else charges * charge_scale
     eps = epsilons if lj_scale is None else epsilons * lj_scale
+
+    if row_start is None:
+        b, lo = n, 0
+        x_i = x
+    else:
+        b, lo = int(row_block), int(row_start)
+        x_i = x[lo:lo + b]
 
     ds = []
     r2 = None
     if periodic:
         Ld = torch.diagonal(box)
     for c in range(3):
-        d = x[:, c][:, None] - x[None, :, c]
+        d = x_i[:, c][:, None] - x[None, :, c]
         if periodic:
             d = d - Ld[c] * torch.round(d * (1.0 / Ld[c]))
         ds.append(d)
@@ -83,18 +104,26 @@ def dense_pair_energy_forces(
 
     # ordered pairs (i != j): each unordered pair counted twice, so energy
     # is halved below while the force row-sums come out exact
-    mask = ~torch.eye(n, dtype=torch.bool, device=x.device)
+    if row_start is None:
+        mask = ~torch.eye(n, dtype=torch.bool, device=x.device)
+    else:
+        row = torch.arange(lo, lo + b, device=x.device)[:, None]
+        col = torch.arange(n, device=x.device)[None, :]
+        mask = row != col
+        if n_valid is not None and n_valid < n:
+            mask = mask & (row < n_valid) & (col < n_valid)
     if cutoff is not None and method != "no_cutoff":
         mask = mask & (r2 < cutoff * cutoff)
     if exclude_index is not None and exclude_index.shape[0] > 0:
-        mask = mask & _exclusion_keep(exclude_index, n, x.device)
+        keep = _exclusion_keep(exclude_index, n, x.device)
+        mask = mask & (keep if row_start is None else keep[lo:lo + b])
 
     # clamp masked-out entries to a safe distance (double-where pattern)
     inv_r2 = torch.where(mask, 1.0 / torch.clamp(r2, min=1e-12), 0.0)
 
     seps = torch.sqrt(eps)
-    sig_ij = 0.5 * (sigmas[:, None] + sigmas[None, :])
-    eps_ij = seps[:, None] * seps[None, :]
+    sig_ij = 0.5 * (sigmas[lo:lo + b][:, None] + sigmas[None, :])
+    eps_ij = seps[lo:lo + b][:, None] * seps[None, :]
 
     s2 = sig_ij * sig_ij * inv_r2
     s6 = s2 * s2 * s2
@@ -108,18 +137,18 @@ def dense_pair_energy_forces(
     if q is None:
         e_c = w_c = None
     elif method in ("no_cutoff", "cutoff_nonperiodic_nocoulombmod"):
-        kqq = ONE_4PI_EPS0 * (q[:, None] * q[None, :])
+        kqq = ONE_4PI_EPS0 * (q[lo:lo + b][:, None] * q[None, :])
         e_c = kqq * inv_r
         w_c = kqq * inv_r2 * inv_r
     elif method in ("cutoff_periodic", "cutoff_nonperiodic"):
         k_rf, c_rf = reaction_field_constants(cutoff, dielectric)
         if not shift_rf:
             c_rf = 0.0
-        kqq = ONE_4PI_EPS0 * (q[:, None] * q[None, :])
+        kqq = ONE_4PI_EPS0 * (q[lo:lo + b][:, None] * q[None, :])
         e_c = kqq * (inv_r + k_rf * r2 - c_rf)
         w_c = kqq * (inv_r2 * inv_r - 2.0 * k_rf)
     elif method in ("pme", "ewald"):
-        kqq = ONE_4PI_EPS0 * (q[:, None] * q[None, :])
+        kqq = ONE_4PI_EPS0 * (q[lo:lo + b][:, None] * q[None, :])
         erfc_ar = torch.special.erfc(alpha * r)
         gauss = (2.0 * alpha / math.sqrt(math.pi)) * torch.exp(
             -(alpha * alpha) * r2)
@@ -155,8 +184,10 @@ def dense_pair_energy_forces(
     e_pair = torch.where(mask, e_pair_val, 0.0)
     w = torch.where(mask, w, 0.0)
 
-    U = 0.5 * torch.sum(e_pair)
     F = torch.stack([torch.sum(w * d, dim=1) for d in ds], dim=-1)
+    if row_start is not None:
+        return 0.5 * torch.sum(e_pair, dtype=torch.float64), F.to(dtype)
+    U = 0.5 * torch.sum(e_pair)
     return U.to(dtype), F.to(dtype)
 
 

@@ -175,24 +175,47 @@ def _sf_real_backward(q, tx, ty, tz, w, T, M, g):
 class _SFWeightedSumReal(torch.autograd.Function):
     """Real-basis W = sum_k w(k)|S(k)|^2 (same contract as
     :func:`_sf_weighted_sum`; ``w`` is the same signed Hermitian-half grid)
-    with the hand backward :func:`_sf_real_backward`."""
+    with the hand backward :func:`_sf_real_backward`. Under
+    ``torch.func.vmap`` (the batched step program's remainder, one
+    configuration a replica) each configuration is its own evaluation,
+    forward and backward (:meth:`vmap`)."""
 
     @staticmethod
-    def forward(ctx, q, tx, ty, tz, w, M):
+    def forward(q, tx, ty, tz, w, M):
         T, _, _, _ = _sf_forward_real(q, tx, ty, tz, M)
-        ctx.M = M
-        ctx.save_for_backward(q, tx, ty, tz, w, T)
-        return torch.sum(_real_weight_full(w, M) * T * T)
+        return torch.sum(_real_weight_full(w, M) * T * T), T
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        q, tx, ty, tz, w, M = inputs
+        ctx.M = M
+        ctx.save_for_backward(q, tx, ty, tz, w, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _g_T):
         q, tx, ty, tz, w, T = ctx.saved_tensors
         grads = _sf_real_backward(q, tx, ty, tz, w, T, ctx.M, g)
         return (*grads, None)
 
+    @staticmethod
+    def vmap(info, in_dims, q, tx, ty, tz, w, M):
+        """A batch as its configurations' single evaluations, one after
+        another: the contractions' rounding does not depend on the batch
+        (a batched matrix product may sum in another order), so a replica
+        of a batch follows the trajectory it follows alone."""
+        def item(t, dim, b):
+            return t if dim is None else t.select(dim, b)
+
+        outs = [_SFWeightedSumReal.apply(
+            *(item(t, d, b) for t, d in zip((q, tx, ty, tz, w), in_dims)),
+            M) for b in range(info.batch_size)]
+        return ((torch.stack([o[0] for o in outs]),
+                 torch.stack([o[1] for o in outs])), (0, 0))
+
 
 def _sf_weighted_sum_real(q, tx, ty, tz, w, M):
-    return _SFWeightedSumReal.apply(q, tx, ty, tz, w, M)
+    return _SFWeightedSumReal.apply(q, tx, ty, tz, w, M)[0]
 
 
 def _half_space_kvectors(n_max: Tuple[int, int, int]) -> np.ndarray:

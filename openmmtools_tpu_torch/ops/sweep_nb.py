@@ -32,7 +32,13 @@ partners ``i +- s`` of the sorted order for ``s`` up to ``bound * shell_block``
   uses plain 1/r for pairs with an alchemical member.
 
 :class:`SweepNonbonded` has the arguments and the ``forces`` contract of the
-TPU kernel ``openmmtools_tpu.ops.sweep_nb.SweepNonbonded``, both variants. On
+TPU kernel ``openmmtools_tpu.ops.sweep_nb.SweepNonbonded``, both variants,
+and a replica axis (the JAX package batches the kernel under ``jax.vmap``):
+one launch of each kernel evaluates a batch, R sort sets (a configuration's
+sorted positions, bitfield, box, rebuild flag and bound) and B evaluations,
+evaluation b on the set ``rep[b]`` with its own parameters and class
+scalars. Propagation takes B = R, the multistate energy matrix one
+evaluation a (replica, state) pair. A batch of one is the single call. On
 CUDA tensors its two wrappers, :meth:`SweepNonbonded.measure_bound` and
 :meth:`SweepNonbonded.sweep`, launch the hand-written kernels of
 ``csrc/sweep_nb.cu`` or raise; on CPU tensors they run the plain PyTorch
@@ -42,7 +48,8 @@ and the alchemical scalars stay device tensors that the kernels read, so a
 step never waits on the host.
 
 Launch shapes (``csrc/sweep_nb.cu`` says why): the bound kernel is one
-cooperative launch of at most the co-resident blocks of 4 warps. Its first
+cooperative launch of at most the co-resident blocks of 4 warps, whatever
+the batch, its blocks walking (set, tile) pairs. Its first
 phase gives each tile of 32 ring slots its periodic x-arc, measured from one
 of its members so that an atom that crossed the x face since the sort does
 not widen it; after one grid barrier a warp takes a tile's slots as a group
@@ -50,22 +57,23 @@ and scans its partner tiles from the farthest shell inward, skipping a tile
 whose arc lies beyond (cutoff + skin) (1 + 1e-5) + 1e-5 L of the group's or
 whose shells cannot beat the best block found so far (a device-wide int),
 and stops at its first hit. It never trusts the ring to be sorted: a stale
-ring only makes it test more tiles. Its scratch, the arcs and two ints (the
-best block and a ticket, re-armed by the last block), lives on the wrapper
-across calls. Its arcs are staged in shared memory up to about 188,000
-slots and read from L2 past that, so no ring size is refused.
+ring only makes it test more tiles. Its scratch, the arcs and R + 1 ints
+(each set's best block and a ticket, re-armed by the last block), lives on
+the wrapper across calls. Its arcs are staged in shared memory up to about
+188,000 slots of all sets together and read from L2 past that, so no ring
+size is refused.
 :func:`tile_arcs` and :func:`far_tiles` are plain versions of its cull, kept
 beside the plain bound and used by no path (the tests hold the kernel's scan
 against the plain bound with them, and ``chip_smoke.py`` counts the tile
 tests that the scan cannot skip). The force kernel, both variants, gives
 one warp to a sorted slot and 16 slots to a block (n_pad / 16 blocks, 1,504
-at 24,064 slots), in one launch: the block stages its shared partner window
-in shared memory, the lanes test 32 partners at once, and the pairs inside
-the cutoff are compacted into a per-warp queue (``__ballot_sync``) and
-evaluated 32 at a time, so both the distance tests and the pair arithmetic
-run at full warp width. Its scratch is one energy partial a block and an
-integer ticket kept at 0 (the last block sums the partials in a fixed
-order).
+at 24,064 slots; a grid row an evaluation of a batch), in one launch: the
+block stages its shared partner window in shared memory, the lanes test 32
+partners at once, and the pairs inside the cutoff are compacted into a
+per-warp queue (``__ballot_sync``) and evaluated 32 at a time, so both the
+distance tests and the pair arithmetic run at full warp width. Its scratch
+is one energy partial a block and an integer ticket an evaluation kept at 0
+(the last block of an evaluation sums its partials in a fixed order).
 
 Semantics kept from the TPU kernel: pad slots (``n <= i < n_pad``) take no
 part; the minimum image is one conditional shift per axis (exact for wrapped
@@ -79,6 +87,7 @@ compares float (g_i + g_j, g_i g_j) against each class.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -123,7 +132,13 @@ def measure_bound_reference(xT, L, rebuild, bound, *, n, cutoff, skin,
     """The block bound after this evaluation, as an int32 tensor (1,): on
     rebuild 1 + the last block of ``shell_block`` shells holding a pair of
     real slots within (cutoff + skin)^2, else ``bound``. The plain version of
-    ``sweep_bound_kernel``; ``xT`` (3, n_pad) sorted positions."""
+    ``sweep_bound_kernel``; ``xT`` (3, n_pad) sorted positions. A batch of R
+    sort sets (``xT`` (R, 3, n_pad), ``L`` (R, 3), ``rebuild`` and ``bound``
+    (R,)) gives the R bounds (R,), each set measured on its own."""
+    if xT.dim() == 3:
+        return torch.cat([measure_bound_reference(
+            xT[r], L[r], rebuild[r], bound[r], n=n, cutoff=cutoff, skin=skin,
+            shell_block=shell_block) for r in range(xT.shape[0])])
     dev = xT.device
     if not bool(rebuild):
         return torch.as_tensor(bound, dtype=torch.int32,
@@ -210,7 +225,8 @@ def class_index(n_regions, device=None):
 def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
                            shell_block, switch_width=None, dielectric=78.3,
                            alpha=None, shift_rf=True, switch_coulomb=False,
-                           n_regions=0, coulomb_plain=False, lam=None):
+                           n_regions=0, coulomb_plain=False, lam=None,
+                           rep=None):
     """Forces (3, n_pad) and energy (1,) of the bounded sweep: the plain
     version of ``sweep_forces_kernel``. ``xT`` (3, n_pad) sorted wrapped
     positions, ``par`` (3, n_pad) sorted [sigma, sqrt(eps), charge] (the
@@ -218,7 +234,27 @@ def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
     g as the 4th row, and ``lam`` the (3 C,) class scalars), ``excl``
     (mask_rows, n_pad) int32 bitfield, ``nblk`` (1,) the block bound; any
     floating dtype. Each slot sums its full ring neighbourhood i +- s. The
-    alchemical variant's energy is float64, as the kernel's."""
+    alchemical variant's energy is float64, as the kernel's.
+
+    A batch: R sort sets (``xT`` (R, 3, n_pad), ``excl`` (R, mask_rows,
+    n_pad), ``L`` (R, 3), ``nblk`` (R,)) and B evaluations, evaluation b on
+    the set ``rep[b]`` (the identity where ``rep`` is None) with its own
+    ``par[b]`` and ``lam[b]``; gives F (B, 3, n_pad) and U (B,), each
+    evaluation computed on its own."""
+    if xT.dim() == 3:
+        out = []
+        for b in range(par.shape[0]):
+            r = b if rep is None else int(rep[b])
+            out.append(sweep_forces_reference(
+                xT[r], par[b], excl[r], L[r], nblk[r:r + 1], n=n,
+                cutoff=cutoff, method=method, shell_block=shell_block,
+                switch_width=switch_width, dielectric=dielectric,
+                alpha=alpha, shift_rf=shift_rf,
+                switch_coulomb=switch_coulomb, n_regions=n_regions,
+                coulomb_plain=coulomb_plain,
+                lam=None if lam is None else lam[b]))
+        return (torch.stack([F for F, _ in out]),
+                torch.cat([U for _, U in out]))
     dev, dtype = xT.device, xT.dtype
     alch = n_regions > 0
     if alch:
@@ -332,9 +368,14 @@ class SweepNonbonded:
     count, and for the alchemical variant the region count and the
     'coulomb' PME treatment. Runtime inputs: sorted coordinates and
     parameters, box, exclusion bitfield, rebuild flag, current block bound
-    and the alchemical class scalars ``lam``. ``launches`` counts kernel
-    launches per kernel, on CUDA tensors only: ``sweep_bound`` and
-    ``sweep_forces`` (standard) or ``sweep_forces_alch`` (alchemical).
+    and the alchemical class scalars ``lam``. Both wrappers take one
+    evaluation or a batch (R sort sets, B evaluations, see
+    :meth:`measure_bound` and :meth:`sweep`), one launch either way.
+    ``launches`` counts kernel launches per kernel, on CUDA tensors only:
+    ``sweep_bound`` and ``sweep_forces`` (standard) or ``sweep_forces_alch``
+    (alchemical); ``batch_launches`` the same launches by (kernel, batch
+    size): sort sets for ``sweep_bound``, evaluations for the force
+    kernel.
     """
 
     def __init__(self, n_particles, method, cutoff, switch_width=None,
@@ -377,8 +418,12 @@ class SweepNonbonded:
         self.forces_kernel = ("sweep_forces_alch" if self.alchemical
                               else "sweep_forces")
         self.launches = {"sweep_bound": 0, self.forces_kernel: 0}
-        self._tickets = {}   # device -> the force kernel's ticket, kept at 0
-        self._bound_scratch = {}   # device -> the bound kernel's scratch
+        self.batch_launches = collections.Counter()
+        # device -> the force kernel's tickets, kept at 0, one an evaluation
+        self._tickets = {}
+        # (device, R) -> the bound kernel's scratch for R sort sets
+        self._bound_scratch = {}
+        self._identity = {}   # (device, B) -> rep of B evaluations on B sets
 
     def physics(self):
         """Keyword arguments of :func:`sweep_forces_reference` (``lam``
@@ -393,62 +438,93 @@ class SweepNonbonded:
 
     def measure_bound(self, xT, L, rebuild, bound):
         """The block bound (int32 (1,)) for this evaluation: re-measured when
-        the device flag ``rebuild`` (bool) is set, else ``bound`` (int32)."""
+        the device flag ``rebuild`` (bool) is set, else ``bound`` (int32).
+        A batch of R sort sets, ``xT`` (R, 3, n_pad), ``L`` (R, 3),
+        ``rebuild`` and ``bound`` (R,), gives the R bounds (R,) in one
+        launch."""
         if not kernels_for(xT, "sweep kernel"):
             return measure_bound_reference(
                 xT, L, rebuild, bound, n=self.n, cutoff=self.rc,
                 skin=self.skin, shell_block=self.bs)
         dev = xT.device
-        rebuild = torch.as_tensor(rebuild, dtype=torch.bool, device=dev)
-        bound = torch.as_tensor(bound, dtype=torch.int32, device=dev)
-        check_input(xT, torch.float32, (3, self.n_pad))
-        check_input(L, torch.float32, (3,))
-        check_input(rebuild.reshape(-1), torch.bool, (1,))
-        check_input(bound.reshape(-1), torch.int32, (1,))
-        scratch = self._bound_scratch.get(dev)
+        single = xT.dim() == 2
+        R = 1 if single else xT.shape[0]
+        lead = () if single else (R,)
+        rebuild = torch.as_tensor(rebuild, dtype=torch.bool,
+                                  device=dev).reshape(-1)
+        bound = torch.as_tensor(bound, dtype=torch.int32,
+                                device=dev).reshape(-1)
+        check_input(xT, torch.float32, lead + (3, self.n_pad))
+        check_input(L, torch.float32, lead + (3,))
+        check_input(rebuild, torch.bool, (R,))
+        check_input(bound, torch.int32, (R,))
+        scratch = self._bound_scratch.get((dev, R))
         if scratch is None:
-            # the tiles' arcs, and (best block, ticket) armed at (-1, 0)
-            scratch = self._bound_scratch[dev] = (
-                torch.empty((2 * self.n_pad // _GROUP,), dtype=torch.float32,
-                            device=dev),
-                torch.tensor([-1, 0], dtype=torch.int32, device=dev))
+            # the tiles' arcs, and (best block of each set, ticket) armed at
+            # (-1, ..., -1, 0)
+            words = torch.full((R + 1,), -1, dtype=torch.int32, device=dev)
+            words[R] = 0
+            scratch = self._bound_scratch[(dev, R)] = (
+                torch.empty((R * 2 * self.n_pad // _GROUP,),
+                            dtype=torch.float32, device=dev), words)
         arcs, words = scratch
-        nblk = torch.empty((1,), dtype=torch.int32, device=dev)
+        nblk = torch.empty((R,), dtype=torch.int32, device=dev)
         err = load_library().sweep_bound_f32(
-            xT.data_ptr(), self.n, self.n_pad, L.data_ptr(),
+            xT.data_ptr(), self.n, self.n_pad, R, L.data_ptr(),
             (self.rc + self.skin) ** 2, self.bs, rebuild.data_ptr(),
             bound.data_ptr(), arcs.data_ptr(), words.data_ptr(),
             nblk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         self.launches["sweep_bound"] += 1
+        self.batch_launches[("sweep_bound", R)] += 1
         check(err, "sweep_bound_f32")
         return nblk
 
-    def sweep(self, xT, par, excl, L, nblk, lam=None):
+    def sweep(self, xT, par, excl, L, nblk, lam=None, rep=None):
         """Forces (3, n_pad) and energy (1,) of sorted positions ``xT`` at
         the block bound ``nblk`` (int32 (1,), read on the device); the
         alchemical variant reads its class scalars from ``lam`` (n_lam,),
-        also on the device."""
+        also on the device.
+
+        A batch in one launch: R sort sets (``xT`` (R, 3, n_pad), ``excl``
+        (R, mask_rows, n_pad), ``L`` (R, 3), ``nblk`` (R,)) and B
+        evaluations, evaluation b on the set ``rep[b]`` (int32 (B,) on the
+        device; None: B = R, the identity) with its own ``par[b]`` and
+        ``lam[b]`` (``par`` (B, n_par, n_pad), ``lam`` (B, n_lam)); gives F
+        (B, 3, n_pad) and U (B,)."""
         if self.alchemical and lam is None:
             raise ValueError("the alchemical sweep needs its class scalars")
         if not kernels_for(xT, "sweep kernel"):
             return sweep_forces_reference(xT, par, excl, L, nblk, lam=lam,
-                                          **self.physics())
-        check_input(xT, torch.float32, (3, self.n_pad))
-        check_input(par, torch.float32, (self.n_par, self.n_pad))
-        check_input(excl, torch.int32, (self.mask_rows, self.n_pad))
-        check_input(L, torch.float32, (3,))
-        check_input(nblk, torch.int32, (1,))
+                                          rep=rep, **self.physics())
+        single = xT.dim() == 2
+        R = 1 if single else xT.shape[0]
+        B = 1 if single else par.shape[0]
+        sets, evals = ((), ()) if single else ((R,), (B,))
         dev = xT.device
-        e_part = torch.empty((self.n_pad // _WARPS,), dtype=torch.float32,
+        check_input(xT, torch.float32, sets + (3, self.n_pad))
+        check_input(par, torch.float32, evals + (self.n_par, self.n_pad))
+        check_input(excl, torch.int32, sets + (self.mask_rows, self.n_pad))
+        check_input(L, torch.float32, sets + (3,))
+        check_input(nblk, torch.int32, (R,))
+        if rep is None:
+            if B != R:
+                raise ValueError(f"{B} evaluations on {R} sort sets need rep")
+            rep = self._identity.get((dev, B))
+            if rep is None:
+                rep = self._identity[(dev, B)] = torch.arange(
+                    B, dtype=torch.int32, device=dev)
+        check_input(rep, torch.int32, (B,))
+        e_part = torch.empty((B * self.n_pad // _WARPS,), dtype=torch.float32,
                              device=dev)
         ticket = self._tickets.get(dev)
-        if ticket is None:
-            ticket = self._tickets[dev] = torch.zeros(1, dtype=torch.int32,
-                                                      device=dev)
-        F = torch.empty((3, self.n_pad), dtype=torch.float32, device=dev)
-        # the alchemical variant's energy total is a double (its differences
-        # are nonequilibrium work)
-        U = torch.empty((1,), dtype=(torch.float64 if self.alchemical
+        if ticket is None or ticket.shape[0] < B:
+            ticket = self._tickets[dev] = torch.zeros(
+                max(B, 1 if ticket is None else ticket.shape[0]),
+                dtype=torch.int32, device=dev)
+        F = torch.empty((B, 3, self.n_pad), dtype=torch.float32, device=dev)
+        # the alchemical variant's energy totals are doubles (their
+        # differences are nonequilibrium work)
+        U = torch.empty((B,), dtype=(torch.float64 if self.alchemical
                                      else torch.float32), device=dev)
         ewald = self.method in ("pme", "ewald")
         if ewald:
@@ -461,9 +537,10 @@ class SweepNonbonded:
         sw = self.switch_width
         args = [xT.data_ptr(), par.data_ptr(), excl.data_ptr(), self.n,
                 self.n_pad, self.mask_rows, self.bs, L.data_ptr(),
-                nblk.data_ptr(), self.rc * self.rc, int(not ewald),
-                self.alpha if ewald else 0.0, k_rf, c_rf, int(sw is not None),
-                int(self.switch_coulomb), 0.0 if sw is None else self.rc - sw,
+                nblk.data_ptr(), B, rep.data_ptr(), self.rc * self.rc,
+                int(not ewald), self.alpha if ewald else 0.0, k_rf, c_rf,
+                int(sw is not None), int(self.switch_coulomb),
+                0.0 if sw is None else self.rc - sw,
                 0.0 if sw is None else 1.0 / sw, ONE_4PI_EPS0]
         lib = load_library()
         if self.alchemical:
@@ -471,7 +548,7 @@ class SweepNonbonded:
                 raise ValueError(
                     f"the alchemical sweep kernel takes at most "
                     f"{_MAX_REGIONS} regions, got {self.n_regions}")
-            check_input(lam, torch.float32, (self.n_lam,))
+            check_input(lam, torch.float32, evals + (self.n_lam,))
             fn, name = lib.sweep_forces_alch_f32, "sweep_forces_alch_f32"
             args += [lam.data_ptr(), self.n_regions,
                      int(self.coulomb_pme_treatment)]
@@ -480,7 +557,10 @@ class SweepNonbonded:
         err = fn(*args, e_part.data_ptr(), ticket.data_ptr(), F.data_ptr(),
                  U.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         self.launches[self.forces_kernel] += 1
+        self.batch_launches[(self.forces_kernel, B)] += 1
         check(err, name)
+        if single:
+            return F[0], U
         return F, U
 
     def input_dtype(self, t):
@@ -489,11 +569,13 @@ class SweepNonbonded:
         return (torch.float32 if kernels_for(t, "sweep kernel")
                 else t.dtype)
 
-    def evaluate(self, xT, par, excl, L, rebuild, bound, lam=None):
+    def evaluate(self, xT, par, excl, L, rebuild, bound, lam=None, rep=None):
         """One force evaluation on the (3, n_pad) layout: the bound, then the
-        sweep at it. Returns (F (3, n_pad), U (1,), new_bound (1,) int32)."""
+        sweep at it. Returns (F (3, n_pad), U (1,), new_bound (1,) int32).
+        A batch (see :meth:`sweep`) gives (F (B, 3, n_pad), U (B,), the R
+        new bounds (R,)): one launch of each kernel."""
         nblk = self.measure_bound(xT, L, rebuild, bound)
-        F, U = self.sweep(xT, par, excl, L, nblk, lam)
+        F, U = self.sweep(xT, par, excl, L, nblk, lam, rep)
         return F, U, nblk
 
     def forces(self, x_sorted, par_sorted, box, excl, rebuild, bound,
@@ -539,9 +621,9 @@ class PlainSweepNonbonded(SweepNonbonded):
                                        cutoff=self.rc, skin=self.skin,
                                        shell_block=self.bs)
 
-    def sweep(self, xT, par, excl, L, nblk, lam=None):
+    def sweep(self, xT, par, excl, L, nblk, lam=None, rep=None):
         return sweep_forces_reference(xT, par, excl, L, nblk, lam=lam,
-                                      **self.physics())
+                                      rep=rep, **self.physics())
 
     def input_dtype(self, t):
         """The plain versions take the caller's own float type anywhere."""
@@ -566,16 +648,23 @@ _MAX_LAM = 3 * ((_MAX_REGIONS + 1) * (_MAX_REGIONS + 2) // 2 - 1)
 # ---------------------------------------------------------------------------
 
 
+def _box_lengths(box):
+    """The box edges (..., 1, 3) of a box (..., 3, 3), to broadcast against
+    positions (..., N, 3)."""
+    return torch.diagonal(box, dim1=-2, dim2=-1)[..., None, :]
+
+
 def sort_for_sweep(x, box, n_pad):
     """Wrap + x-sort positions; returns (perm, inv_perm), int32: perm maps a
-    sorted slot to its atom, inv_perm the reverse."""
-    n = x.shape[0]
-    L = torch.diagonal(box)
+    sorted slot to its atom, inv_perm the reverse. A batch (x (R, N, 3),
+    box (R, 3, 3)) sorts each configuration: (R, N) each."""
+    n = x.shape[-2]
+    L = _box_lengths(box)
     xw = x - L * torch.floor(x / L)
-    perm = torch.argsort(xw[:, 0], stable=True).to(torch.int32)
-    inv = torch.empty_like(perm)
-    inv[perm.long()] = torch.arange(n, dtype=torch.int32, device=x.device)
-    return perm, inv
+    perm = torch.argsort(xw[..., 0], dim=-1, stable=True)
+    inv = torch.empty_like(perm).scatter_(
+        -1, perm, torch.arange(n, device=x.device).expand_as(perm))
+    return perm.to(torch.int32), inv.to(torch.int32)
 
 
 def unique_pairs(pairs):
@@ -587,15 +676,19 @@ def unique_pairs(pairs):
 
 def scatter_exclusion_bitfield(pairs, inv_perm, n_pad, mask_rows):
     """:func:`build_exclusion_bitfield` for pairs already deduplicated by
-    :func:`unique_pairs`: no host synchronisation."""
+    :func:`unique_pairs`: no host synchronisation. A batch of orders
+    (``inv_perm`` (R, N)) gives one bitfield and one ``max_sep`` an order:
+    ((R, mask_rows, n_pad), (R,))."""
     dev = inv_perm.device
-    field = torch.zeros((mask_rows * n_pad,), dtype=torch.int32, device=dev)
+    lead = tuple(inv_perm.shape[:-1])
+    field = torch.zeros(lead + (mask_rows * n_pad,), dtype=torch.int32,
+                        device=dev)
     if pairs.shape[0] == 0:
-        return (field.reshape(mask_rows, n_pad),
-                torch.zeros((), dtype=torch.int32, device=dev))
+        return (field.reshape(lead + (mask_rows, n_pad)),
+                torch.zeros(lead, dtype=torch.int32, device=dev))
     pairs = pairs.to(dev).long()
-    si = inv_perm[pairs[:, 0]].long()
-    sj = inv_perm[pairs[:, 1]].long()
+    si = inv_perm[..., pairs[:, 0]].long()
+    sj = inv_perm[..., pairs[:, 1]].long()
     sep = torch.remainder(sj - si, n_pad)
     flip = sep > n_pad // 2
     lane = torch.where(flip, sj, si)
@@ -606,8 +699,9 @@ def scatter_exclusion_bitfield(pairs, inv_perm, n_pad, mask_rows):
     index = torch.where(keep, word * n_pad + lane, 0)
     value = torch.where(keep, torch.bitwise_left_shift(
         torch.ones_like(bit), bit), 0)
-    field.scatter_add_(0, index, value)
-    return field.reshape(mask_rows, n_pad), torch.max(sep).to(torch.int32)
+    field.scatter_add_(-1, index, value)
+    return (field.reshape(lead + (mask_rows, n_pad)),
+            torch.amax(sep, dim=-1).to(torch.int32))
 
 
 def build_exclusion_bitfield(pairs, inv_perm, n_pad, mask_rows):
@@ -634,36 +728,46 @@ _PAD_COORD = 1e6
 
 def sorted_positions(x, box, perm, n_pad, dtype=None):
     """Positions wrapped into the box in the sorted order: (y (N, 3) in
-    ``x``'s type, xT (3, n_pad) in ``dtype``, pad slots at 1e6)."""
-    L = torch.diagonal(box)
-    y = (x - L * torch.floor(x / L))[perm]
+    ``x``'s type, xT (3, n_pad) in ``dtype``, pad slots at 1e6). A batch
+    (x (R, N, 3), box (R, 3, 3), perm (R, N)) gives (R, N, 3) and
+    (R, 3, n_pad)."""
+    L = _box_lengths(box)
+    xw = x - L * torch.floor(x / L)
+    y = torch.gather(xw, -2, perm.long()[..., None].expand(xw.shape))
     dtype = y.dtype if dtype is None else dtype
-    pad = torch.full((3, n_pad - y.shape[0]), _PAD_COORD, dtype=dtype,
-                     device=y.device)
-    return y, torch.cat([y.t().to(dtype), pad], dim=1)
+    pad = torch.full(tuple(y.shape[:-2]) + (3, n_pad - y.shape[-2]),
+                     _PAD_COORD, dtype=dtype, device=y.device)
+    return y, torch.cat([y.transpose(-1, -2).to(dtype), pad], dim=-1)
 
 
 def sorted_params(sigma, sqrt_eps, charge, perm, n_pad, dtype=None,
                   code=None):
     """(3, n_pad) [sigma, sqrt(eps), charge] in the sorted order, 0 on the
     pad slots; with the region codes ``code`` (N,) a 4th row (the
-    alchemical variant; pad slots get 0, the environment)."""
+    alchemical variant; pad slots get 0, the environment). A batch of
+    orders (``perm`` (R, N)) gives (R, 3 or 4, n_pad)."""
     rows = [sigma, sqrt_eps, charge]
     if code is not None:
         rows.append(code.to(charge.dtype))
     par = torch.stack(rows)[:, perm]
+    if perm.dim() == 2:
+        par = par.transpose(0, 1)
     dtype = par.dtype if dtype is None else dtype
-    pad = torch.zeros((len(rows), n_pad - par.shape[1]), dtype=dtype,
-                      device=par.device)
-    return torch.cat([par.to(dtype), pad], dim=1)
+    pad = torch.zeros(tuple(par.shape[:-1]) + (n_pad - par.shape[-1],),
+                      dtype=dtype, device=par.device)
+    return torch.cat([par.to(dtype), pad], dim=-1)
 
 
 def scale_charges_by_code(par, scale):
     """The alchemical variant's (4, n_pad) ``par`` with its charge row
     scaled by ``scale`` (R+1,) at each slot's region code: the 'exact' PME
-    treatment's per-particle charge scaling in the kernels' layout."""
-    q = par[2] * scale.to(par.dtype)[par[3].long()]
-    return torch.stack([par[0], par[1], q, par[3]])
+    treatment's per-particle charge scaling in the kernels' layout. A batch
+    (``par`` (B, 4, n_pad), ``scale`` (B, R+1)) scales each row by its
+    own."""
+    code = par[..., 3, :].long()
+    q = par[..., 2, :] * torch.gather(scale.to(par.dtype), -1, code)
+    return torch.stack([par[..., 0, :], par[..., 1, :], q, par[..., 3, :]],
+                       dim=-2)
 
 
 def term_params(term):

@@ -1197,9 +1197,9 @@ def _alchemical_ladder(edge, dev):
 @pytest.mark.cuda
 def test_cuda_energies_at_matches_plain_sweep(cuda):
     """``energies_at`` on the 24,000-atom alchemical water box: one sort,
-    K2 at three lambda sets (one bound and one force launch each), against
-    the plain sweep plus the remainder; with sweep mode off it raises
-    instead of taking the dense sum."""
+    K2 at three lambda sets as one batch (one bound and one force launch
+    for the three), against the plain sweep plus the remainder; with sweep
+    mode off it raises instead of taking the dense sum."""
     from openmmtools_tpu_torch.integrators.langevin import IntegratorError
     from openmmtools_tpu_torch.ops import sweep_nb as tsw
 
@@ -1213,7 +1213,7 @@ def test_cuda_energies_at_matches_plain_sweep(cuda):
         k.launches[key] = 0
     got = bound.energies_at(x, box, sets)
     torch.cuda.synchronize()
-    assert k.launches == {"sweep_bound": 3, "sweep_forces_alch": 3}
+    assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 1}
     bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
     try:
         want = bound.energies_at(x, box, sets)
@@ -1229,9 +1229,10 @@ def test_cuda_energies_at_matches_plain_sweep(cuda):
 @pytest.mark.cuda
 def test_cuda_replica_exchange_iteration_counts_k2(cuda):
     """One replica-exchange iteration on a 3,000-atom alchemical water box:
-    each replica's move (5 steps, sweep mode) and its row of the matrix
-    launch K2's two kernels (3 x (5 + 1) + 3 x 3 of each); the mixing and
-    the matrix live on the host while the replicas live on the card."""
+    the replicas' moves (5 steps, sweep mode) as one batch and the 3 x 3
+    matrix as one batch launch K2's two kernels 5 + 1 + 1 times each; the
+    mixing and the matrix live on the host while the replicas live on the
+    card."""
     from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
     from openmmtools_tpu_torch.multistate import ReplicaExchangeSampler
     import openmmtools_tpu_torch.multistate.replicaexchange as re_module
@@ -1259,7 +1260,8 @@ def test_cuda_replica_exchange_iteration_counts_k2(cuda):
         sampler.run()
     finally:
         re_module.mix_all = mix
-    assert k.launches == {"sweep_bound": 27, "sweep_forces_alch": 27}
+    assert sampler.propagation_route == "batched"
+    assert k.launches == {"sweep_bound": 7, "sweep_forces_alch": 7}
     assert seen == [("cpu", "cpu")]
     assert sampler._energies.device.type == "cpu"
     assert all(ss.positions.device.type == "cuda"
@@ -1269,9 +1271,10 @@ def test_cuda_replica_exchange_iteration_counts_k2(cuda):
 
 @pytest.mark.cuda
 def test_cuda_parallel_tempering_launches_k1(cuda):
-    """Parallel tempering on LJ-2048: each replica's Langevin move takes
-    K1's fused path, one force and one chunk launch a replica an iteration;
-    the O(N) matrix equals each state's dense reduced potential."""
+    """Parallel tempering on LJ-2048: the batched route's bound integrator
+    (state 0's) takes K1's fused path one replica at a time, one force and
+    one chunk launch a replica an iteration; the O(N) matrix equals each
+    state's dense reduced potential."""
     from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
     from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
 
@@ -1289,8 +1292,9 @@ def test_cuda_parallel_tempering_launches_k1(cuda):
         for key in b._fused.launches:
             b._fused.launches[key] = 0
     sampler.run()
-    for b in bounds:
-        assert b._fused.launches == {"lj_forces": 2, "lj_chunk": 2}
+    total = {key: sum(b._fused.launches[key] for b in bounds)
+             for key in ("lj_forces", "lj_chunk")}
+    assert total == {"lj_forces": 3 * 2, "lj_chunk": 3 * 2}
     u = sampler.energies_last_iteration
     for r, ss in enumerate(sampler.sampler_states):
         for c, st in enumerate(sampler._thermodynamic_states):
@@ -1417,9 +1421,10 @@ def test_cuda_minimize_on_water_takes_k2(cuda):
 
 @pytest.mark.cuda
 def test_cuda_parallel_tempering_on_water_launches_k2(cuda):
-    """Parallel tempering on a 3,000-atom water box: each replica's move
-    and its O(N) energy through K2 (2 x (5 + 1) + 2 of each kernel an
-    iteration), the columns against the plain sweep plus the remainder."""
+    """Parallel tempering on a 3,000-atom water box: the replicas' moves
+    and their O(N) energies through K2 as batches (5 + 1 + 1 of each
+    kernel an iteration), the columns against the plain sweep plus the
+    remainder."""
     from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove
     from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
 
@@ -1441,7 +1446,7 @@ def test_cuda_parallel_tempering_on_water_launches_k2(cuda):
     torch.cuda.synchronize()
     total = {key: sum(kk.launches[key] for kk in kernels.values())
              for key in ("sweep_bound", "sweep_forces")}
-    assert total == {"sweep_bound": 14, "sweep_forces": 14}
+    assert total == {"sweep_bound": 7, "sweep_forces": 7}
     u = sampler.energies_last_iteration
     beta = sampler._stacked_sampled.beta.numpy()
     for r, ss in enumerate(sampler.sampler_states):
@@ -1620,3 +1625,166 @@ def test_cuda_virtual_sites_above_the_limit_take_k2(cuda):
         float(u64))
     assert float((state.forces[0].cpu().double() - f64).abs().max()) <= \
         REL * float(f64.abs().max())
+
+
+# -- replicas as one batched axis: K2's batch, the batched route, the mesh ----
+
+
+def _ladder_sets(edge, dev, n_rep, seed):
+    """K2's batched inputs on ``n_rep`` perturbed configurations of the
+    alchemical water box, each at one state of the ladder: (k, plain, xT,
+    par, excl, L, lam)."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w, states = _alchemical_ladder(edge, dev)
+    bound = BAOABIntegrator(temperature=300.0).bind(w.system)
+    k = bound._sweep_kernel
+    term = bound._sweep_alch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ins = []
+    for r in range(n_rep):
+        x = w.positions + 2e-3 * torch.randn(w.positions.shape, generator=g,
+                                              device=dev)
+        params = {n: torch.tensor(float(v), device=dev) for n, v in
+                  states[r % len(states)].global_params.items()}
+        xT, par, excl, L, _ = tsw.sorted_inputs(term, x, w.system.default_box,
+                                                k)
+        lam = term.sweep_lambdas(params, xT)[0].contiguous()
+        ins.append((xT, par, excl, L, lam))
+    stacked = [torch.stack([i[c] for i in ins]).contiguous()
+               for c in range(5)]
+    return (k, tsw.PlainSweepNonbonded.like(k), *stacked)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_k2_of_one_is_the_single_call(cuda):
+    """A batch of one sort set and one evaluation gives today's single
+    call's bound, forces and energy to the bit."""
+    k, _, xT, par, excl, L, lam = _ladder_sets(3.0, cuda, 1, 11)
+    flag = torch.ones((1,), dtype=torch.bool, device=cuda)
+    zero = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    nb = k.measure_bound(xT, L, flag, zero)
+    nb1 = k.measure_bound(xT[0], L[0], flag[0], zero[0])
+    assert torch.equal(nb, nb1)
+    F, U = k.sweep(xT, par, excl, L, nb, lam)
+    F1, U1 = k.sweep(xT[0], par[0], excl[0], L[0], nb1, lam[0])
+    assert F.shape == (1, 3, k.n_pad) and U.shape == (1,)
+    assert torch.equal(F[0], F1) and torch.equal(U, U1)
+    assert k.batch_launches[("sweep_forces_alch", 1)] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_batched_k2_of_nine_equals_nine_single_launches(cuda):
+    """B = 9 evaluations on 9 sort sets in one launch of each kernel: the
+    bits of 9 single launches, and the plain version's bounds and forces;
+    then 27 evaluations over the 9 sets (rep) likewise."""
+    k, plain, xT, par, excl, L, lam = _ladder_sets(3.0, cuda, 9, 12)
+    flags = torch.ones((9,), dtype=torch.bool, device=cuda)
+    bound0 = torch.zeros((9,), dtype=torch.int32, device=cuda)
+    # one set keeps its bound, the others rebuild
+    flags[4] = False
+    bound0[4] = 7
+    nb = k.measure_bound(xT, L, flags, bound0)
+    assert int(nb[4]) == 7
+    assert torch.equal(nb.cpu(), plain.measure_bound(xT, L, flags,
+                                                     bound0).cpu())
+    for r in range(9):
+        assert torch.equal(nb[r:r + 1], k.measure_bound(xT[r], L[r],
+                                                        flags[r], bound0[r]))
+    F, U = k.sweep(xT, par, excl, L, nb, lam)
+    for r in range(9):
+        F1, U1 = k.sweep(xT[r], par[r], excl[r], L[r], nb[r:r + 1], lam[r])
+        assert torch.equal(F[r], F1) and torch.equal(U[r:r + 1], U1)
+    F_ref, U_ref = plain.sweep(xT, par, excl, L, nb, lam)
+    assert _rel(F, F_ref) <= REL
+    assert float(((U - U_ref).abs() / U_ref.abs()).max()) <= REL
+    rep = torch.arange(9, device=cuda).repeat(3).to(torch.int32)
+    par27 = par[rep.long()].contiguous()
+    lam27 = torch.roll(lam[rep.long()], 1, dims=0).contiguous()
+    F27, U27 = k.sweep(xT, par27, excl, L, nb, lam27, rep)
+    for b in (0, 13, 26):
+        r = int(rep[b])
+        F1, U1 = k.sweep(xT[r], par27[b], excl[r], L[r], nb[r:r + 1],
+                         lam27[b])
+        assert torch.equal(F27[b], F1) and torch.equal(U27[b:b + 1], U1)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_route_of_a_ladder_against_its_eager_loop(cuda):
+    """Three replicas of the 3,000-atom alchemical ladder, 20 steps of 2 fs
+    through the batched program and one by one with the same generators:
+    the final U and forces within 2e-4 of scale."""
+    from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
+
+    w, states = _alchemical_ladder(3.0, cuda)
+    move = LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                         n_steps=20)
+    bound = move._bound(states[0])
+    ts = [states[0], states[1], states[2]]
+    ss = [w.sampler_state()] * 3
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(21 + i)
+                for i in range(3)]
+
+    batch = bound.run(bound.initial_state_batch(ss, gens(),
+                                                thermodynamic_states=ts), 20)
+    for b, (s, g, st) in enumerate(zip(ss, gens(), ts)):
+        one = bound.run(bound.initial_state(s, g, thermodynamic_state=st),
+                        20)
+        assert abs(float(batch.potentials[0][b]) - float(one.potentials[0])) \
+            <= REL * abs(float(one.potentials[0]))
+        assert _rel(batch.forces[0][b], one.forces[0]) <= REL
+
+
+@pytest.mark.cuda
+def test_cuda_replica_mesh_defaults_to_every_card(cuda):
+    from openmmtools_tpu_torch.parallel import replica_mesh
+
+    mesh = replica_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in mesh.devices)
+    assert replica_mesh(n_devices=1).devices == (torch.device("cuda", 0),)
+
+
+@pytest.mark.cuda
+def test_cuda_replica_mesh_over_every_card_matches_one_card(cuda):
+    """Six replicas of the 3,000-atom alchemical ladder on a mesh of every
+    card (contiguous blocks, each advanced as one batch on its card, the
+    system moved there) against the same sampler on one card: energies and
+    positions within 2e-4 after two iterations (the blocks' smaller
+    batches sum the float32 energies in another order: about 1e-6 of U
+    on four H100s)."""
+    from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
+    from openmmtools_tpu_torch.multistate import ReplicaExchangeSampler
+    from openmmtools_tpu_torch.parallel import replica_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    w, states = _alchemical_ladder(3.0, cuda)
+
+    def run(mesh):
+        move = LangevinSplittingDynamicsMove(timestep=0.002,
+                                             collision_rate=1.0, n_steps=5)
+        sampler = ReplicaExchangeSampler(mcmc_moves=move,
+                                         number_of_iterations=2,
+                                         online_analysis_interval=None,
+                                         rng_seed=4)
+        sampler.create(states, [w.sampler_state()] * 6,
+                       initial_thermodynamic_states=[0, 1, 2, 0, 1, 2],
+                       mesh=mesh)
+        sampler.minimize(max_iterations=5)
+        sampler.run()
+        return sampler
+
+    mesh = replica_mesh()
+    spread = run(mesh)
+    devices = {ss.positions.device for ss in spread.sampler_states}
+    assert len(devices) == min(6, mesh.size)
+    one = run(None)
+    assert spread.propagation_route == one.propagation_route == "batched"
+    u_s, u_1 = spread.energies_last_iteration, one.energies_last_iteration
+    assert np.abs(u_s - u_1).max() <= REL * np.abs(u_1).max()
+    assert (spread.replica_states == one.replica_states).all()
+    for a, b in zip(spread.sampler_states, one.sampler_states):
+        assert _rel(a.positions.to(b.positions.device), b.positions) <= REL

@@ -59,14 +59,19 @@ def water():
 
 @pytest.fixture
 def sweep_calls(monkeypatch):
-    """Sweep-path evaluations by the fingerprint of the bound system."""
+    """Sweep-path evaluations by the fingerprint of the bound system: one a
+    configuration of a single call, and B of a batched call (one a pair of
+    ``rep``, else one a configuration of the batch)."""
     calls = {}
     original = BoundIntegrator._sweep_eval
 
-    def counting(self, *args, **kwargs):
+    def counting(self, x, *args, **kwargs):
         key = self.system.fingerprint
-        calls[key] = calls.get(key, 0) + 1
-        return original(self, *args, **kwargs)
+        rep = kwargs.get("rep")
+        count = (1 if x.dim() == 2 else
+                 x.shape[0] if rep is None else len(rep))
+        calls[key] = calls.get(key, 0) + count
+        return original(self, x, *args, **kwargs)
 
     monkeypatch.setattr(BoundIntegrator, "_sweep_eval", counting)
     return calls
