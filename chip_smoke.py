@@ -29,9 +29,10 @@ nonzero exit. Phases:
    inputs to the same bits (the bound's to the same int);
 7. the explicit-solvent main path: PMEWaterBox(box_edge=6.223) (8,000
    rigid TIP3P waters, PME) -> BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind
-   (sweep mode, SETTLE) -> initial_state -> run, warmed up for 5,000 steps
+   (sweep mode, SETTLE) -> initial_state -> run, warmed up for 1,000 steps
    and timed in 1,000-step chunks that each end in a host fetch of the
-   positions; launch counts, steps/s and ns/day, the kinetic temperature, the
+   positions; launch counts, steps/s and ns/day, the kinetic temperature
+   (after the chunks: 4,000 steps or more from the lattice start), the
    rigid geometry, the final energy and forces against the plain versions,
    K2 and PME times (K2's beside its earlier kernels'), K2's queue drains
    a slot and its time with no pair inside the cutoff, how many of
@@ -62,7 +63,7 @@ nonzero exit. Phases:
    sweep path against the dense alchemical term;
 10. the NCMC path (Path B) on the same box:
    AlchemicalNonequilibriumLangevinIntegrator(lambda_electrostatics = 1 -
-   lambda, 500 steps, 'O { V R H R V } O') for one whole protocol, and a
+   lambda, 250 steps, 'O { V R H R V } O') for one whole protocol, and a
    10-step external perturbation (lambda_electrostatics 1 -> 0 in steps of
    0.1) whose protocol work is held against the same energy differences
    summed outside the integrator; steps/s and ns/day of the protocol, and
@@ -190,7 +191,34 @@ nonzero exit. Phases:
    ``scripts.demo_free_energy.main`` at a cut depth (``DEMO_CUT``): exit
    0, the three routes within 6 sigma, seconds a route; (e)
    ``parallel.atom_shard`` on PMEWaterBox(3.6), 5,184 atoms, over 4
-   blocks on the card, against the bound integrator's energy and forces.
+   blocks on the card, against the bound integrator's energy and forces;
+18. the Amber loader, in a temporary data directory that
+   ``models.amber.DEFAULT_DATA_DIR`` points at: (a) prmtops written here
+   (``write_prmtop``): the water-only one of PMEWaterBox(6.223), the
+   JAC-size stand-in (40 all-trans eicosanes in that box's waters less
+   those within 0.25 nm, GAFF c3/hc parameters; not DHFR) at
+   dhfr/JAC.prmtop + system.pdb, a vacuum hexane at
+   alanine-dipeptide-gbsa/, and the pure-Python parse of the stand-in
+   timed; (b) the loader's water system against PMEWaterBox(6.223) on K2:
+   U and F whole, of the reciprocal term (float64) and of the direct
+   space; (c) the slice's main path: DHFRExplicit(data_dir=<stand-in>) ->
+   BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind (sweep mode with K2's
+   standard variant, SETTLE on the waters and M-SHAKE on the CH clusters,
+   the reciprocal exclusion correction fused with the exception add-back)
+   -> the initial U and F against a CPU float64 plain evaluation ->
+   ``minimize`` (FIRE on K2, through the context cache) -> initial_state
+   -> 2,000 steps in 500-step chunks: K2's launches exactly 2,001 of each,
+   no bitfield overflow, the constraints to 1e-5, the final U and F against
+   CPU float64; steps/s, ns/day, a profile with K2's device ms and the busy
+   share, K2's bound on the path's own ring and on a fresh one against the
+   plain version's, and K2's force kernel at the final state against its
+   plain version, timed with its bound; (d) ``scripts.benchmark_dhfr`` at
+   the JAC convention (200 steps, ``--no-check``: (c) holds that system)
+   and with ``--reference-defaults`` (500 steps, its own check against CPU
+   float64); (e) ``scripts.benchmark_remd`` cut to 16 replicas x 50 steps
+   x 3 iterations on the vacuum stand-in: finite, the batched route; then
+   a profile of 20 batched steps of that configuration (ATen calls a step,
+   the constraints' host ms, the device's busy share).
 
 Phase 1 also prints ``utils.platforms.device_report()``.
 
@@ -231,7 +259,7 @@ RAGGED_N = 1_000         # a fluid whose last block of warps is ragged
 CELL_N_LARGE = 16_384    # the second size of the cell-list question
 WATER_EDGE = 6.223       # the JAC DHFR box: 20^3 TIP3P waters, 24,000 atoms
 WATER_T = 300.0
-WARMUP = 5_000
+WARMUP = 1_000           # phase 7; its temperature is read after the chunks
 WATER_CHUNK = 1_000
 REBUILD_STEPS = 1_000    # untimed water steps counting K2's rebuilds
 # the H100 SXM's published peaks (NVIDIA's data sheet): 3.35 TB/s of HBM,
@@ -258,7 +286,7 @@ ALCH_LAMBDAS = dict(lambda_electrostatics=0.0, lambda_sterics=0.5)
 K2_SLOT_A_THREAD_MS = {"sweep_forces": 1.2726, "sweep_forces_alch": 1.3896,
                        "sweep_bound": 0.6138}
 ALCH_WARMUP = 2_000
-NCMC_STEPS = 500
+NCMC_STEPS = 250
 PERTURB_STEPS = 10
 SMALL_EDGE = 3.0         # the box of the sweep-against-dense check: 3,000 atoms
 SPLITTINGS = ("V R O R V", "O V R V O", "V R R O R R V", "V R V")
@@ -762,12 +790,14 @@ def kinetic_temperature(masses, v, dof):
 
 def profile_steps(bound, state, n_steps, phase="phase 7"):
     """torch.profiler over ``n_steps`` steps with the step's parts marked:
-    K2 (the sweep wrapper and its kernels), SETTLE on positions and on
-    velocities, the PME structure-factor einsums forward and backward, and
-    the rest of the remainder (bonded terms, exception add-back, PME's other
-    terms, forward and autograd backward). Returns the state, the profiled
-    wall ms per step, the device's busy ms per step, per part (device ms,
-    host ms) per step, and the busiest kernels.
+    K2 (the sweep wrapper and its kernels; in sweep mode), the constraints
+    (SETTLE and M-SHAKE) on positions and on velocities, the PME
+    structure-factor einsums forward and backward, and the rest of the
+    remainder (bonded terms, exception add-back, PME's other terms, forward
+    and autograd backward). Returns the state, the profiled wall ms per
+    step, the device's busy ms per step, per part (device ms, host ms) per
+    step, the busiest kernels, and the ATen operator calls per step on the
+    host (nested calls included).
 
     Each device activity goes to the innermost marked range that was open on
     the host when it was launched: the launch's runtime call, found by its
@@ -781,12 +811,15 @@ def profile_steps(bound, state, n_steps, phase="phase 7"):
     import openmmtools_tpu_torch.integrators.langevin as lg
     from openmmtools_tpu_torch.ops import pme as tpme
 
-    marks = {"K2 sweep": (bound._sweep_kernel, "evaluate"),
-             "SETTLE positions": (bound, "_constrain_positions"),
-             "SETTLE velocities": (bound, "_constrain_velocities"),
+    k2 = getattr(bound, "_sweep_kernel", None)   # None off sweep mode
+    marks = {"K2 sweep": (k2, "evaluate"),
+             "constraints, positions": (bound, "_constrain_positions"),
+             "constraints, velocities": (bound, "_constrain_velocities"),
              "PME einsums, forward": (tpme, "_sf_forward_real"),
              "PME einsums, backward": (tpme, "_sf_real_backward"),
              "remainder, rest (fwd + bwd)": (lg, "value_and_grad")}
+    marks = {label: (obj, name) for label, (obj, name) in marks.items()
+             if obj is not None}
     originals = {}
     for label, (obj, name) in marks.items():
         fn = getattr(obj, name)
@@ -849,16 +882,20 @@ def profile_steps(bound, state, n_steps, phase="phase 7"):
         device["other" if t is None else part_at(t)] += e.duration_ns()
         by_name[e.name()[:60]] += e.duration_ns()
     host = defaultdict(float)
-    for lo, hi, name in ranges:
-        host[name] += hi - lo
+    ends = defaultdict(int)
+    for lo, hi, name in sorted(ranges):
+        if lo >= ends[name]:   # a recursive call is counted once
+            host[name] += hi - lo
+            ends[name] = hi
     per_step = 1e6 * n_steps
     parts = {label: (device[label] / per_step, host[label] / per_step)
              for label in list(marks) + ["other"]}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    aten = sum(e.name().startswith("aten::") for e in host_events) / n_steps
     say(f"{phase} profile: {len(work)} device activities, {linked} traced to "
-        f"their launch")
+        f"their launch; {aten:.0f} ATen operator calls a step on the host")
     return (state, 1e3 * wall / n_steps, busy_ns / per_step, parts,
-            [(name, ns / per_step) for name, ns in top])
+            [(name, ns / per_step) for name, ns in top], aten)
 
 
 def run_timed(bound, state, warmup, system, dof, label,
@@ -1070,7 +1107,7 @@ def phase_water(dev, smi, k6):
     state = bound.initial_state(w.sampler_state(),
                                 torch.Generator(device=dev).manual_seed(0))
     state, rates, steps = run_timed(bound, state, WARMUP, system, dof,
-                                    "phase 7")
+                                    "phase 7", temperature_last=True)
     launches = dict(k.launches)
     say(f"phase 7 main path: {steps} steps; launches {launches}")
     for kernel, count in launches.items():
@@ -1209,7 +1246,7 @@ def phase_water(dev, smi, k6):
     for key in k.launches:
         k.launches[key] = launches[key]
 
-    state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50)
+    state, wall_ms, busy_ms, parts, top, _ = profile_steps(bound, state, 50)
     step_ms = 1e3 / median
     say(f"phase 7 profile: K2 (bound + forces) device "
         f"{parts['K2 sweep'][0]:.4f} ms/step, the device busy {busy_ms:.4f} "
@@ -1475,8 +1512,8 @@ def phase_alchemical_path(dev, smi, k8):
         f"bound {b_ms:.4f} ms by {b_by} ({tested:.0f} pair tests, "
         f"{inside:.0f} pairs inside the cutoff) ({smi})")
 
-    state, wall_ms, busy_ms, parts, top = profile_steps(bound, state, 50,
-                                                        phase="phase 9")
+    state, wall_ms, busy_ms, parts, top, _ = profile_steps(
+        bound, state, 50, phase="phase 9")
     step_ms = 1e3 / median
     say(f"phase 9 profile: K2 (bound + forces) device "
         f"{parts['K2 sweep'][0]:.4f} ms/step, the device busy {busy_ms:.4f} "
@@ -3512,9 +3549,9 @@ SHARD_BLOCKS = 4
 # steps, 2 x 256 protocols of 4,000 + 6,000 NCMC steps, 400 x 100 Widom
 # steps); every route keeps its 4,000 equilibration steps from the start's
 # clashes
-DEMO_CUT = ["--n-iter", "120", "--steps-per-iter", "50",
+DEMO_CUT = ["--n-iter", "60", "--steps-per-iter", "50",
             "--n-protocols", "32", "--n-steps-eq", "4000",
-            "--n-steps-neq", "1000", "--n-snapshots", "64",
+            "--n-steps-neq", "500", "--n-snapshots", "64",
             "--steps-between", "50", "--n-insertions", "64",
             "--n-eq-widom", "4000"]
 
@@ -3860,6 +3897,840 @@ def phase_atom_shard(dev, smi):
                 u_rel=u_rel, f_rel=f_rel)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the Amber loader and the prmtop systems. The prmtop writer and
+# the stand-ins' constructors below are test data (the CPU tests import them):
+# they write the documented Amber formats that models/amber.py reads.
+# ---------------------------------------------------------------------------
+
+KCAL_KJ = 4.184
+AMBER_CHARGE = 18.2223
+PRMTOP_FORMATS = {"a": ("20a4", 20, 4), "i": ("10I8", 10, 8),
+                  "e": ("5E16.8", 5, 16)}
+# GAFF c3/hc and TIP3P: per type (name, R* Å, eps kcal/mol, mass, atomic
+# number, GB radius Å, GB screen)
+GAFF_TYPES = {
+    "c3": ("c3", 1.908, 0.1094, 12.01, 6, 1.7, 0.72),
+    "hc": ("hc", 1.487, 0.0157, 1.008, 1, 1.3, 0.85),
+}
+TIP3P_OW = ("OW", 0.31507, 0.635968, 15.99943, 8, 1.5, 0.85)   # sigma nm, kJ
+TIP3P_HW = ("HW", None, 0.0, 1.007947, 1, 0.8, 0.85)
+TIP3P_Q = (-0.834, 0.417)
+TIP3P_ROH = 0.9572                       # Å
+TIP3P_HOH = math.radians(104.52)
+# bonds (K kcal/mol/Å^2, r0 Å), angles (K kcal/mol/rad^2, theta0 deg),
+# torsions (K kcal/mol, n, phase deg)
+GAFF_BONDS = {"c3-c3": (303.1, 1.535), "c3-hc": (337.3, 1.092),
+              "OW-HW": (553.0, TIP3P_ROH),
+              "HW-HW": (553.0, 2.0 * TIP3P_ROH * math.sin(TIP3P_HOH / 2))}
+GAFF_ANGLES = {"c3-c3-c3": (63.21, 110.63), "c3-c3-hc": (46.37, 110.05),
+               "hc-c3-hc": (39.43, 108.35)}
+GAFF_CCCC = ((0.18, 3, 0.0), (0.25, 2, 180.0), (0.20, 1, 180.0))
+GAFF_XCCX = (0.156, 3, 0.0)
+IMPROPER = (0.1, 2, 180.0)       # one a chain, on its second carbon
+SCEE, SCNB = 1.2, 2.0
+
+
+class Topology:
+    """A molecular topology in Amber's terms, as lists: atoms (name,
+    residue, type, charge e), residues (label, first atom), bonds (i, j,
+    type name), angles (i, j, k, type name), torsions (i, j, k, l, (K, n,
+    phase deg), improper), and the LJ/mass/GB data of each atom type; the
+    positions in nm and the box edge in nm (None: not periodic)."""
+
+    def __init__(self):
+        self.names, self.residue_of, self.types, self.charges = [], [], [], []
+        self.residues = []
+        self.bonds, self.angles, self.torsions = [], [], []
+        self.type_data = {}
+        self.positions = []
+        self.box = None
+
+    def add_residue(self, label):
+        self.residues.append((label, len(self.names)))
+
+    def add_atom(self, name, type_data, charge, position):
+        self.type_data.setdefault(type_data[0], type_data)
+        self.names.append(name)
+        self.residue_of.append(len(self.residues) - 1)
+        self.types.append(type_data[0])
+        self.charges.append(charge)
+        self.positions.append(position)
+        return len(self.names) - 1
+
+    @property
+    def n_atoms(self):
+        return len(self.names)
+
+    def is_hydrogen(self, i):
+        return self.type_data[self.types[i]][4] == 1
+
+
+def _lj_sigma_eps(td):
+    """(sigma nm, eps kJ/mol) of a type: GAFF's R* in Å and kcal, TIP3P's
+    sigma in nm and kJ."""
+    name, size, eps = td[0], td[1], td[2]
+    if size is None or eps == 0.0:
+        return 0.0, 0.0
+    if name in GAFF_TYPES:
+        return 0.1 * 2.0 * size / 2.0 ** (1.0 / 6.0), eps * KCAL_KJ
+    return size, eps
+
+
+def _section(flag, kind, values):
+    fmt, per_line, width = PRMTOP_FORMATS[kind]
+    out = [f"%FLAG {flag:<74s}", f"%FORMAT({fmt})"]
+    if kind == "a":
+        fields = [f"{str(v):<4s}"[:4] for v in values]
+    elif kind == "i":
+        fields = [f"{int(v):8d}" for v in values]
+    else:
+        fields = [f"{float(v):16.8E}" for v in values]
+    lines = ["".join(fields[i:i + per_line])
+             for i in range(0, len(fields), per_line)]
+    return out + (lines or [""])
+
+
+def write_prmtop(path, top: Topology, title="stand-in"):
+    """Write ``top`` as an Amber prmtop: every section that
+    ``create_system_from_prmtop`` and ``AmberTopology`` read, in the
+    standard formats; charges times 18.2223, atom indices times 3, a
+    torsion's third index negative when its 1-4 pair is counted by another
+    term and its fourth when it is an improper."""
+    type_names = list(top.type_data)
+    ntypes = len(type_names)
+    tindex = {t: k for k, t in enumerate(type_names)}
+    # LJ tables over type pairs (Lorentz-Berthelot), A = 4 eps sig^12 and
+    # B = 4 eps sig^6 in kcal/mol and Å
+    se = [_lj_sigma_eps(top.type_data[t]) for t in type_names]
+    acoef, bcoef = [], []
+    nb_index = np.zeros((ntypes, ntypes), np.int64)
+    for j in range(ntypes):
+        for i in range(j + 1):
+            (si, ei), (sj, ej) = se[i], se[j]
+            eps = math.sqrt(ei * ej) / KCAL_KJ
+            sig = 0.5 * (si + sj) * 10.0 if eps > 0 else 0.0
+            acoef.append(4.0 * eps * sig ** 12)
+            bcoef.append(4.0 * eps * sig ** 6)
+            nb_index[i, j] = nb_index[j, i] = len(acoef)
+    # parameter types in order of first use
+    bond_types, angle_types, tors_types = {}, {}, {}
+
+    def type_of(table, key):
+        return table.setdefault(key, len(table) + 1)
+
+    def with_h(*atoms):
+        return any(top.is_hydrogen(a) for a in atoms)
+
+    bonds_h, bonds = [], []
+    for i, j, t in top.bonds:
+        row = (3 * i, 3 * j, type_of(bond_types, t))
+        (bonds_h if with_h(i, j) else bonds).append(row)
+    angles_h, angles = [], []
+    for i, j, k, t in top.angles:
+        row = (3 * i, 3 * j, 3 * k, type_of(angle_types, t))
+        (angles_h if with_h(i, j, k) else angles).append(row)
+    dih_h, dih = [], []
+    counted = set()
+    for i, j, k, l, term, improper in top.torsions:
+        if 0 in (k, l):      # -0 carries no flag: the reversed torsion does
+            i, j, k, l = l, k, j, i
+        key = (min(i, l), max(i, l))
+        no14 = improper or key in counted
+        if not improper:
+            counted.add(key)
+        row = (3 * i, 3 * j, -3 * k if no14 else 3 * k,
+               -3 * l if improper else 3 * l, type_of(tors_types, term))
+        (dih_h if with_h(i, j, k, l) else dih).append(row)
+
+    n_res = len(top.residues)
+    res_sizes = np.diff([first for _, first in top.residues] + [top.n_atoms])
+    pointers = [top.n_atoms, ntypes, len(bonds_h), len(bonds), len(angles_h),
+                len(angles), len(dih_h), len(dih), 0, 0, 0, n_res,
+                len(bonds), len(angles), len(dih), len(bond_types),
+                len(angle_types), len(tors_types), ntypes, 0, 0, 0, 0, 0, 0,
+                0, 0, 1 if top.box is not None else 0, int(res_sizes.max()),
+                0, 0]
+    td = [top.type_data[t] for t in top.types]
+    bt = sorted(bond_types, key=bond_types.get)
+    at = sorted(angle_types, key=angle_types.get)
+    tt = sorted(tors_types, key=tors_types.get)
+    lines = ["%VERSION  VERSION_STAMP = V0001.000  DATE = 01/01/26  00:00:00"]
+    sections = [
+        ("TITLE", "a", [title[i:i + 4] for i in range(0, len(title), 4)]),
+        ("POINTERS", "i", pointers),
+        ("ATOM_NAME", "a", top.names),
+        ("CHARGE", "e", [q * AMBER_CHARGE for q in top.charges]),
+        ("ATOMIC_NUMBER", "i", [d[4] for d in td]),
+        ("MASS", "e", [d[3] for d in td]),
+        ("ATOM_TYPE_INDEX", "i", [tindex[t] + 1 for t in top.types]),
+        ("NONBONDED_PARM_INDEX", "i", nb_index.reshape(-1)),
+        ("RESIDUE_LABEL", "a", [label for label, _ in top.residues]),
+        ("RESIDUE_POINTER", "i", [first + 1 for _, first in top.residues]),
+        ("BOND_FORCE_CONSTANT", "e", [GAFF_BONDS[t][0] for t in bt]),
+        ("BOND_EQUIL_VALUE", "e", [GAFF_BONDS[t][1] for t in bt]),
+        ("ANGLE_FORCE_CONSTANT", "e", [GAFF_ANGLES[t][0] for t in at]),
+        ("ANGLE_EQUIL_VALUE", "e",
+         [math.radians(GAFF_ANGLES[t][1]) for t in at]),
+        ("DIHEDRAL_FORCE_CONSTANT", "e", [t[0] for t in tt]),
+        ("DIHEDRAL_PERIODICITY", "e", [t[1] for t in tt]),
+        ("DIHEDRAL_PHASE", "e", [math.radians(t[2]) for t in tt]),
+        ("SCEE_SCALE_FACTOR", "e", [SCEE] * len(tt)),
+        ("SCNB_SCALE_FACTOR", "e", [SCNB] * len(tt)),
+        ("LENNARD_JONES_ACOEF", "e", acoef),
+        ("LENNARD_JONES_BCOEF", "e", bcoef),
+        ("BONDS_INC_HYDROGEN", "i", [v for r in bonds_h for v in r]),
+        ("BONDS_WITHOUT_HYDROGEN", "i", [v for r in bonds for v in r]),
+        ("ANGLES_INC_HYDROGEN", "i", [v for r in angles_h for v in r]),
+        ("ANGLES_WITHOUT_HYDROGEN", "i", [v for r in angles for v in r]),
+        ("DIHEDRALS_INC_HYDROGEN", "i", [v for r in dih_h for v in r]),
+        ("DIHEDRALS_WITHOUT_HYDROGEN", "i", [v for r in dih for v in r]),
+        ("AMBER_ATOM_TYPE", "a", top.types),
+        ("RADIUS_SET", "a", ["modi", "fied", " Bon", "di r", "adii"]),
+        ("RADII", "e", [d[5] for d in td]),
+        ("SCREEN", "e", [d[6] for d in td]),
+    ]
+    if top.box is not None:
+        sections.append(("BOX_DIMENSIONS", "e",
+                         [90.0] + [10.0 * top.box] * 3))
+    for flag, kind, values in sections:
+        lines += _section(flag, kind, values)
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+def write_inpcrd(path, positions_nm, box_nm=None):
+    """An Amber ASCII restart: title, atom count, 6F12.7 coordinates in Å,
+    and with ``box_nm`` the box record (three edges and 90° angles)."""
+    x = (10.0 * np.asarray(positions_nm, np.float64)).reshape(-1)
+    vals = list(x)
+    lines = ["stand-in", f"{len(x) // 3:6d}"]
+    lines += ["".join(f"{v:12.7f}" for v in vals[i:i + 6])
+              for i in range(0, len(vals), 6)]
+    if box_nm is not None:
+        lines.append("".join(f"{v:12.7f}" for v in
+                             [10.0 * box_nm] * 3 + [90.0] * 3))
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+def write_pdb(path, top: Topology):
+    """ATOM records (coordinates in Å, 8.3f)."""
+    lines = []
+    x = 10.0 * np.asarray(top.positions, np.float64)
+    for a in range(top.n_atoms):
+        res = top.residue_of[a]
+        lines.append(
+            f"ATOM  {(a + 1) % 100000:5d} {top.names[a]:<4s} "
+            f"{top.residues[res][0]:<3s}  {(res + 1) % 10000:4d}    "
+            f"{x[a, 0]:8.3f}{x[a, 1]:8.3f}{x[a, 2]:8.3f}  1.00  0.00")
+    lines.append("END")
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+def add_waters(top: Topology, oxygens_and_hydrogens):
+    """TIP3P waters (O, H1, H2 positions in nm, (W, 3, 3)): charges, the
+    O-H and H-H bonds (in BONDS_INC_HYDROGEN: constrained with h-bonds),
+    no angle."""
+    for o, h1, h2 in oxygens_and_hydrogens:
+        top.add_residue("WAT")
+        io = top.add_atom("O", TIP3P_OW, TIP3P_Q[0], o)
+        i1 = top.add_atom("H1", TIP3P_HW, TIP3P_Q[1], h1)
+        i2 = top.add_atom("H2", TIP3P_HW, TIP3P_Q[1], h2)
+        top.bonds += [(io, i1, "OW-HW"), (io, i2, "OW-HW"),
+                      (i1, i2, "HW-HW")]
+
+
+def water_box_topology(box_edge, device="cpu"):
+    """The waters of ``PMEWaterBox(box_edge)`` (port) as a Topology, with
+    its positions and box (a box under 2 nm takes a shorter cutoff, which
+    moves no water)."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+
+    w = PMEWaterBox(box_edge=box_edge, cutoff=min(1.0, 0.49 * box_edge),
+                    device=device)
+    top = Topology()
+    add_waters(top, w.positions.double().cpu().numpy().reshape(-1, 3, 3))
+    top.box = float(box_edge)
+    return top, w
+
+
+def alkane_chain(top: Topology, n_carbons, origin, improper=True):
+    """One all-trans alkane CnH(2n+2) along x from ``origin`` (nm), its
+    carbon zigzag in the x-y plane: GAFF c3/hc bonds, angles and torsions
+    (c3-c3-c3-c3 as three terms, X-c3-c3-X one), CH3 and CH2 groups
+    neutral, and one improper on the second carbon."""
+    bcc, bch = GAFF_BONDS["c3-c3"][1] / 10, GAFF_BONDS["c3-hc"][1] / 10
+    theta = math.radians(GAFF_ANGLES["c3-c3-c3"][1])
+    dx, dy = bcc * math.sin(theta / 2), bcc * math.cos(theta / 2)
+    carbons = [np.asarray(origin) + [k * dx, (k % 2) * dy, 0.0]
+               for k in range(n_carbons)]
+    top.add_residue("LIG")
+    c_idx, h_of = [], []
+    for k, c in enumerate(carbons):
+        end = k in (0, n_carbons - 1)
+        c_idx.append(top.add_atom(f"C{k + 1}", GAFF_TYPES["c3"],
+                                  -0.09 if end else -0.06, c))
+        nbrs = [carbons[m] for m in (k - 1, k + 1) if 0 <= m < n_carbons]
+        units = [(n - c) / np.linalg.norm(n - c) for n in nbrs]
+        away = -sum(units)
+        away /= np.linalg.norm(away)
+        z = np.array([0.0, 0.0, 1.0])
+        if end:
+            # CH3: one H in the zigzag plane, away from the chain, and two
+            # out of it, at the tetrahedral angle from the C-C bond
+            u = units[0]
+            perp = np.cross(z, u)
+            perp *= np.sign(np.dot(perp, away - np.dot(away, u) * u) or 1.0)
+            a = math.radians(GAFF_ANGLES["c3-c3-hc"][1])
+            dirs = [u * math.cos(a) + math.sin(a) * (
+                math.cos(phi) * perp + math.sin(phi) * z)
+                for phi in (0.0, 2 * math.pi / 3, -2 * math.pi / 3)]
+        else:
+            half = math.radians(GAFF_ANGLES["hc-c3-hc"][1]) / 2
+            dirs = [away * math.cos(half) + s * z * math.sin(half)
+                    for s in (1.0, -1.0)]
+        hs = [top.add_atom(f"H{k + 1}{m + 1}"[:4], GAFF_TYPES["hc"], 0.03,
+                           c + bch * d) for m, d in enumerate(dirs)]
+        h_of.append(hs)
+    neighbours = {a: [] for a in c_idx}
+    for k in range(n_carbons - 1):
+        top.bonds.append((c_idx[k], c_idx[k + 1], "c3-c3"))
+        neighbours[c_idx[k]].append(c_idx[k + 1])
+        neighbours[c_idx[k + 1]].append(c_idx[k])
+    for k, hs in enumerate(h_of):
+        for h in hs:
+            top.bonds.append((c_idx[k], h, "c3-hc"))
+            neighbours[c_idx[k]].append(h)
+            neighbours[h] = [c_idx[k]]
+
+    def angle_type(a, b, c):
+        ends = sorted("hc" if top.is_hydrogen(t) else "c3" for t in (a, c))
+        return {("c3", "c3"): "c3-c3-c3", ("c3", "hc"): "c3-c3-hc",
+                ("hc", "hc"): "hc-c3-hc"}[tuple(ends)]
+
+    for b in c_idx:
+        nb = neighbours[b]
+        for p in range(len(nb)):
+            for q in range(p + 1, len(nb)):
+                top.angles.append((nb[p], b, nb[q],
+                                   angle_type(nb[p], b, nb[q])))
+    for k in range(n_carbons - 1):
+        j, kk = c_idx[k], c_idx[k + 1]
+        for i in neighbours[j]:
+            if i == kk:
+                continue
+            for l in neighbours[kk]:
+                if l == j:
+                    continue
+                if top.is_hydrogen(i) or top.is_hydrogen(l):
+                    top.torsions.append((i, j, kk, l, GAFF_XCCX, False))
+                else:
+                    top.torsions += [(i, j, kk, l, t, False)
+                                     for t in GAFF_CCCC]
+    if improper and n_carbons >= 3:
+        top.torsions.append((c_idx[0], c_idx[2], c_idx[1], h_of[1][0],
+                             IMPROPER, True))
+    return c_idx[0], top.n_atoms
+
+
+def solvated_chains(n_chains, n_carbons, box_edge, clearance=0.25,
+                    spacing=0.48):
+    """The stand-in: ``n_chains`` all-trans alkanes along x, in a bundle on
+    a (y, z) grid ``spacing`` apart in the middle of the box, in the waters
+    of ``PMEWaterBox(box_edge)`` less those with an atom within
+    ``clearance`` nm of a solute atom. Returns the Topology."""
+    from scipy.spatial import cKDTree
+
+    top = Topology()
+    ny = max(1, int(math.ceil(math.sqrt(n_chains))))
+    nz = -(-n_chains // ny)
+    bcc = GAFF_BONDS["c3-c3"][1] / 10
+    length = (n_carbons - 1) * bcc * math.sin(
+        math.radians(GAFF_ANGLES["c3-c3-c3"][1]) / 2)
+    c = 0.5 * box_edge
+    for m in range(n_chains):
+        iy, iz = m % ny, m // ny
+        origin = [c - 0.5 * length, c + (iy - 0.5 * (ny - 1)) * spacing,
+                  c + (iz - 0.5 * (nz - 1)) * spacing]
+        alkane_chain(top, n_carbons, origin)
+    solute = np.asarray(top.positions)
+    water, _ = water_box_topology(box_edge)
+    wx = np.asarray(water.positions).reshape(-1, 3, 3)
+    tree = cKDTree(np.mod(solute, box_edge), boxsize=box_edge)
+    near = tree.query_ball_point(np.mod(wx.reshape(-1, 3), box_edge),
+                                 clearance)
+    clash = np.asarray([len(h) > 0 for h in near]).reshape(-1, 3).any(1)
+    add_waters(top, wx[~clash])
+    top.box = float(box_edge)
+    return top
+
+
+def vacuum_chain(n_carbons=6):
+    """One alkane in vacuum (GB radii and screens included)."""
+    top = Topology()
+    alkane_chain(top, n_carbons, [0.0, 0.0, 0.0])
+    return top
+
+
+def write_system(directory, prmtop, coordinates, top, kind="inpcrd",
+                 box_record=True):
+    """Write ``top`` as ``directory/prmtop`` and its positions as
+    ``directory/coordinates`` (an inpcrd, with the box record when the
+    system is periodic and ``box_record``, or a PDB)."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    write_prmtop(directory / prmtop, top)
+    if kind == "pdb":
+        write_pdb(directory / coordinates, top)
+    else:
+        write_inpcrd(directory / coordinates, top.positions,
+                     top.box if box_record else None)
+
+
+# the reference's data layout: (subdirectory, prmtop, coordinates) of each
+# file pair the prmtop systems read, and which stand-in fills it
+VACUUM_FILES = [("alanine-dipeptide-gbsa", "alanine-dipeptide.prmtop",
+                 "alanine-dipeptide.crd"),
+                ("cb7-b2", "complex-vacuum.prmtop", "complex-vacuum.inpcrd"),
+                ("T4-lysozyme-L99A-implicit", "complex.prmtop", "complex.crd"),
+                ("benzene-toluene-implicit", "complex.prmtop",
+                 "complex.inpcrd"),
+                ("benzene-toluene-implicit", "solvent.prmtop",
+                 "solvent.inpcrd")]
+EXPLICIT_FILES = [("alanine-dipeptide-explicit", "alanine-dipeptide.prmtop",
+                   "alanine-dipeptide.crd"),
+                  ("cb7-b2", "complex-explicit.prmtop",
+                   "complex-explicit.inpcrd"),
+                  ("dna_dodecamer_explicit", "prmtop", "inpcrd"),
+                  ("methanol-box", "methanol-box.prmtop",
+                   "methanol-box.crd")]
+
+
+def write_stand_in_tree(root, vacuum=None, explicit=None, dhfr=None):
+    """Fill ``root`` with stand-ins at the paths the prmtop systems read:
+    ``vacuum`` (default: one hexane) at every vacuum/implicit pair,
+    ``explicit`` (default: 2 hexanes in PMEWaterBox(2.0)'s waters) at every
+    explicit pair, and ``dhfr`` (default: ``explicit``) at
+    dhfr/JAC.prmtop + system.pdb. Returns the three topologies."""
+    vacuum = vacuum or vacuum_chain()
+    explicit = explicit or solvated_chains(2, 6, 2.0)
+    dhfr = dhfr or explicit
+    for sub, prmtop, crd in VACUUM_FILES:
+        write_system(pathlib.Path(root) / sub, prmtop, crd, vacuum)
+    for sub, prmtop, crd in EXPLICIT_FILES:
+        write_system(pathlib.Path(root) / sub, prmtop, crd, explicit)
+    write_system(pathlib.Path(root) / "dhfr", "JAC.prmtop", "system.pdb",
+                 dhfr, kind="pdb")
+    return vacuum, explicit, dhfr
+
+
+# -- phase 18: the loader's explicit-solvent path at JAC's size --------------
+
+JAC_CHAINS = 40          # 18a: all-trans eicosanes, C20H42, 62 atoms each
+JAC_CARBONS = 20
+JAC_STEPS = 2_000        # 18c: the main path's steps, in chunks
+JAC_CHUNK = 500
+JAC_MIN_ITERATIONS = 100
+STAND_IN = "JAC-size stand-in, not DHFR"
+JAC_U_REL = 1e-5         # 18b-18c: U against the reference
+DHFR_JAC_ARGS = ["--steps", "200", "--no-check"]
+DHFR_REFERENCE_ARGS = ["--steps", "500", "--reference-defaults"]
+REMD_CUT = ["--replicas", "16", "--steps", "50", "--iters", "3"]
+
+
+def plain64(system):
+    """A bound integrator of ``system`` in float64 on the CPU in sweep mode:
+    the kernels' plain versions (the card refuses the dense sum at this
+    size)."""
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+
+    bound = BAOABIntegrator(temperature=WATER_T, sweep="force").bind(
+        system.to(device="cpu", dtype=torch.float64))
+    assert bound.sweep_mode
+    return bound
+
+
+def plain64_u_f(bound64, x, box):
+    return bound64.energy_forces_at(x.detach().cpu().double(),
+                                    box.detach().cpu().double(), {})
+
+
+def phase_stand_ins(root, smi):
+    """18a: the water-only prmtop of PMEWaterBox(6.223), the JAC-size
+    stand-in at dhfr/ and the vacuum one at alanine-dipeptide-gbsa/; the
+    pure-Python parse of the stand-in, timed."""
+    from openmmtools_tpu_torch.models import amber
+
+    t0 = time.perf_counter()
+    water, _ = water_box_topology(WATER_EDGE)
+    (root / "water").mkdir(parents=True)
+    write_prmtop(root / "water" / "water.prmtop", water, "PMEWaterBox")
+    jac = solvated_chains(JAC_CHAINS, JAC_CARBONS, WATER_EDGE)
+    write_system(root / "dhfr", "JAC.prmtop", "system.pdb", jac, kind="pdb")
+    write_system(root / "alanine-dipeptide-gbsa", "alanine-dipeptide.prmtop",
+                 "alanine-dipeptide.crd", vacuum_chain())
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = amber.parse_prmtop(str(root / "dhfr" / "JAC.prmtop"))
+    t_parse = time.perf_counter() - t0
+    n_solute = JAC_CHAINS * (3 * JAC_CARBONS + 2)
+    n_waters = (jac.n_atoms - n_solute) // 3
+    assert int(data["POINTERS"][0]) == jac.n_atoms == n_solute + 3 * n_waters
+    size = (root / "dhfr" / "JAC.prmtop").stat().st_size
+    say(f"phase 18a {STAND_IN}: {jac.n_atoms} atoms ({JAC_CHAINS} eicosanes, "
+        f"{n_solute} solute atoms, {n_waters} TIP3P waters of "
+        f"PMEWaterBox({WATER_EDGE})), {len(jac.bonds)} bonds, "
+        f"{len(jac.angles)} angles, {len(jac.torsions)} torsion terms; "
+        f"the water-only prmtop {water.n_atoms} atoms; written in "
+        f"{t_write:.2f} s; the pure-Python parse of the {size / 1e6:.1f} MB "
+        f"stand-in prmtop {t_parse:.3f} s on the card machine's host ({smi})")
+    return dict(atoms=jac.n_atoms, solute_atoms=n_solute, waters=n_waters,
+                write_s=t_write, parse_s=t_parse, prmtop_mb=size / 1e6)
+
+
+def phase_loader_water(dev, smi, root):
+    """18b: the water-only prmtop through the loader against
+    PMEWaterBox(6.223) at its positions, both bound on the card (K2): the
+    whole U and F, the reciprocal term's (float64 on the card), and the
+    direct space's (the rest: the exclusions' add-back is zero)."""
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator
+    from openmmtools_tpu_torch.models import PMEWaterBox, amber
+    from openmmtools_tpu_torch.ops.pme import (
+        DEFAULT_EWALD_ERROR_TOLERANCE,
+        EwaldReciprocalTerm,
+    )
+    from openmmtools_tpu_torch.system import value_and_grad
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    term = w.system.terms[0]
+    loaded = amber.create_system_from_prmtop(
+        str(root / "water" / "water.prmtop"), nonbonded_method="pme",
+        cutoff=term.cutoff, switch_width=term.switch_width,
+        ewald_error_tolerance=DEFAULT_EWALD_ERROR_TOLERANCE, device=dev)
+    x, box = w.positions, w.system.default_box
+    parts = {}
+    for label, system in (("loader", loaded), ("PMEWaterBox", w.system)):
+        bound = BAOABIntegrator(temperature=WATER_T).bind(system)
+        assert bound.sweep_mode and bound._sweep_recip is not None
+        assert bound._settle is not None and bound._rest_constraints is None
+        k = bound._sweep_kernel
+        before = dict(k.launches)
+        u, f = bound.energy_forces_at(x, box, {})
+        assert all(k.launches[key] > before[key] for key in k.launches)
+        # the reciprocal term alone in float64 (in float32 its self energy
+        # and exclusion correction, -2e6 and +2e6 kJ/mol here, round to 0.25
+        # of it), and the direct space the rest of the K2 path's total
+        rec = next(t for t in system.terms
+                   if isinstance(t, EwaldReciprocalTerm)).to(
+            dtype=torch.float64)
+        u_rec, g_rec = value_and_grad(
+            lambda xx: rec.energy(xx, box.double()), x.double())
+        parts[label] = dict(total=(u, f), reciprocal=(u_rec, -g_rec),
+                            direct=(u - u_rec, f.double() + g_rec))
+    out = {}
+    for part in ("total", "reciprocal", "direct"):
+        (u_l, f_l), (u_w, f_w) = parts["loader"][part], parts[
+            "PMEWaterBox"][part]
+        u_rel, f_rel = _u_f_rel(u_l, f_l, u_w, f_w)
+        out[part] = [u_rel, f_rel]
+        say(f"phase 18b loader vs PMEWaterBox({WATER_EDGE}) on K2, {part}: "
+            f"U {float(u_l):.4f} vs {float(u_w):.4f} (rel {u_rel:.2e}), F "
+            f"rel {f_rel:.2e}")
+        assert u_rel <= JAC_U_REL and f_rel <= REL_TOL, (part, u_rel, f_rel)
+    return out
+
+
+def phase_jac_path(dev, smi, root):
+    """18c: DHFRExplicit(data_dir=<the stand-in>) -> BAOABIntegrator(300 K,
+    1/ps, 2 fs) -> bind (sweep mode, K2's standard variant, SETTLE +
+    M-SHAKE, the reciprocal correction fused) -> minimize (FIRE on K2,
+    through the context cache) -> initial_state -> run JAC_STEPS steps in
+    chunks that each end in a host fetch; launches steps + 1, no overflow,
+    the constraints to 1e-5, U and F against CPU float64 at the start and
+    the end; a profile of the step; K2's force kernel at the final state
+    against its plain version, timed."""
+    from openmmtools_tpu_torch.integrators import BAOABIntegrator, minimize
+    from openmmtools_tpu_torch.models import DHFRExplicit
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    t0 = time.perf_counter()
+    d = DHFRExplicit(data_dir=str(root), device=dev)
+    t_build = time.perf_counter() - t0
+    system = d.system
+    n = system.n_particles
+    t0 = time.perf_counter()
+    bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
+                            timestep=0.002).bind(system)
+    t_bind = time.perf_counter() - t0
+    k = bound._sweep_kernel
+    assert bound.sweep_mode and bound._sweep_alch is None
+    assert k.forces_kernel == "sweep_forces" and bound._fused is None
+    n_waters = (n - JAC_CHAINS * (3 * JAC_CARBONS + 2)) // 3
+    assert bound._settle.a.shape[0] == n_waters
+    # M-SHAKE on the CH3 (3 constraints) and CH2 (2) clusters
+    assert bound._clusters is not None
+    assert bound._rest_constraints.n_constraints == JAC_CHAINS * (
+        2 * JAC_CARBONS + 2)
+    assert bound._sweep_recip is system.terms[4]
+    term = system.terms[3]
+    n_exc = term.exception_index.shape[0]
+    say(f"phase 18c {STAND_IN}: {n} atoms, {n_exc} exceptions (1-2, 1-3 "
+        f"excluded and scaled 1-4), {system.constraints.n_constraints} "
+        f"constraints ({n_waters} SETTLE waters, M-SHAKE on "
+        f"{bound._rest_constraints.n_constraints} C-H bonds), n_pad "
+        f"{k.n_pad}, mask_shells {k.mask_shells}, PME kmax "
+        f"{system.terms[4].kmax}; sweep mode with K2's standard variant and "
+        f"the reciprocal correction fused; built in {t_build:.2f} s, bound "
+        f"in {t_bind:.2f} s")
+
+    t0 = time.perf_counter()
+    ref = plain64(system)
+    t_ref_bind = time.perf_counter() - t0
+    box = system.default_box
+    u0, f0 = bound.energy_forces_at(d.positions, box, {})
+    t0 = time.perf_counter()
+    u0_ref, f0_ref = plain64_u_f(ref, d.positions, box)
+    t_ref = time.perf_counter() - t0
+    u_rel0, f_rel0 = _u_f_rel(u0, f0, u0_ref, f0_ref)
+    say(f"phase 18c initial U {float(u0):.4f} vs CPU float64 plain "
+        f"{float(u0_ref):.4f} (rel {u_rel0:.2e}), F rel {f_rel0:.2e}; the "
+        f"CPU float64 bind {t_ref_bind:.2f} s, an evaluation {t_ref:.2f} s")
+    assert u_rel0 <= JAC_U_REL and f_rel0 <= REL_TOL, (u_rel0, f_rel0)
+
+    t0 = time.perf_counter()
+    ss = minimize(d.thermodynamic_state(WATER_T), d.sampler_state(),
+                  max_iterations=JAC_MIN_ITERATIONS)
+    torch.cuda.synchronize()
+    t_min = time.perf_counter() - t0
+    u_min = float(bound.energy_forces_at(ss.positions, box, {})[0])
+    say(f"phase 18c minimize ({JAC_MIN_ITERATIONS} FIRE iterations on K2, "
+        f"the cached route): U {float(u0):.1f} -> {u_min:.1f} kJ/mol in "
+        f"{t_min:.2f} s")
+    assert u_min < float(u0)
+
+    for key in k.launches:
+        k.launches[key] = 0
+    state = bound.initial_state(ss, torch.Generator(device=dev).manual_seed(0))
+    rates = []
+    for _ in range(JAC_STEPS // JAC_CHUNK):
+        tc = time.perf_counter()
+        state = bound.run(state, JAC_CHUNK)
+        positions = state.positions.cpu().numpy()
+        rates.append(JAC_CHUNK / (time.perf_counter() - tc))
+        assert positions.shape == (n, 3)
+    launches = dict(k.launches)
+    assert launches == {"sweep_bound": JAC_STEPS + 1,
+                        "sweep_forces": JAC_STEPS + 1}, launches
+    bound.check_sweep_overflow(state.sweep_overflow)
+    assert not bool(state.sweep_overflow)
+    geom = bond_error(system, state.positions, box)
+    u_ref, f_ref = plain64_u_f(ref, state.positions, box)
+    u_rel, f_rel = _u_f_rel(state.potentials[0], state.forces[0], u_ref,
+                            f_ref)
+    median = statistics.median(rates[1:])
+    ns_day = median * 0.002 * 86400 / 1e3
+    say(f"phase 18c main path ({STAND_IN}): {JAC_STEPS} steps of 2 fs in "
+        f"{len(rates)} chunks of {JAC_CHUNK}; K2 launches {launches}; no "
+        f"bitfield overflow; worst constraint error {geom:.2e}; final U "
+        f"{float(state.potentials[0]):.4f} vs CPU float64 plain "
+        f"{float(u_ref):.4f} (rel {u_rel:.2e}), F rel {f_rel:.2e}")
+    assert geom <= 1e-5, geom
+    assert u_rel <= JAC_U_REL and f_rel <= REL_TOL, (u_rel, f_rel)
+
+    state, wall_ms, busy_ms, parts, top, _ = profile_steps(
+        bound, state, 50, phase="phase 18c")
+    step_ms = 1e3 / median
+    say(f"phase 18c throughput ({STAND_IN}): {step_ms:.3f} ms a step, "
+        f"{median:.2f} steps/s median of the chunks after the first "
+        f"({[round(r, 2) for r in rates]}), {ns_day:.3f} ns/day at 2 fs; K2 "
+        f"(bound + forces) device {parts['K2 sweep'][0]:.4f} ms a step, the "
+        f"device busy {busy_ms:.4f} ms a step: busy share "
+        f"{busy_ms / step_ms:.3f} of the unprofiled step ({smi})")
+    say("phase 18c profile, device ms/step (host ms/step in the range) by "
+        "part: " + "; ".join(f"{label} {dev_ms:.4f} ({host_ms:.3f})"
+                             for label, (dev_ms, host_ms) in parts.items()))
+    say("phase 18c profile, busiest device activities (ms/step): " +
+        "; ".join(f"{name} {ms:.4f}" for name, ms in top))
+
+    # K2's force kernel at the final state: against its plain version,
+    # launched twice to the same bits, timed, and its bound from the pairs
+    # it tests and evaluates (the water row's count)
+    x = state.positions
+    xT, par, excl, L, max_sep = tsw.sorted_inputs(term, x, box, k)
+    plain = tsw.PlainSweepNonbonded.like(k)
+    # the bound's int against the plain version's (a bound too small would
+    # drop the same pairs from both sweeps below)
+    same_bound(k, plain, *path_ring(bound, state),
+               f"phase 18c the path's own ring at the final state "
+               f"({STAND_IN})")
+    same_bound(k, plain, xT, L,
+               f"phase 18c the final state, fresh ring ({STAND_IN})")
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    before = dict(k.launches)
+    nb = k.measure_bound(xT, L, flag, zero)
+    F, U = k.sweep(xT, par, excl, L, nb)
+    F2, U2 = k.sweep(xT, par, excl, L, nb)
+    F_ref, U_ref = plain.sweep(xT, par, excl, L, nb)
+    f_err = float((F - F_ref).abs().max())
+    assert torch.equal(F, F2) and torch.equal(U, U2)
+    assert max_rel(F, F_ref) <= REL_TOL
+    S = min(int(nb) * k.bs, k.n_pad // 2)
+    t = {}
+    for label, fn, reps in (
+            ("plain", lambda: plain.sweep(xT, par, excl, L, nb), 5),
+            ("kernel", lambda: k.sweep(xT, par, excl, L, nb), 50),
+            ("kernel2", lambda: k.sweep(xT, par, excl, L, nb), 50),
+            ("plain2", lambda: plain.sweep(xT, par, excl, L, nb), 5)):
+        t[label] = (launch_ms(fn, "sweep_forces_f32", reps=reps)
+                    if label.startswith("kernel") else cuda_ms(fn, reps=reps))
+    k.launches.update(before)
+    f_ms = min(t["kernel"], t["kernel2"])
+    plain_ms = min(t["plain"], t["plain2"])
+    tested, inside = sweep_pairs(xT, L, k, S)
+    in_bytes = 4 * (3 * k.n_pad + 3 * k.n_pad + k.mask_rows * k.n_pad + 3 + 1)
+    f_bound = bound_ms(in_bytes + 4 * (3 * k.n_pad + 1),
+                       tested * OPS_DIST + inside * OPS_PAIR)
+    say(f"phase 18c K2 sweep_forces at the final state ({STAND_IN}; bound "
+        f"{int(nb)} blocks, S = {S} shells, the largest exception "
+        f"separation {int(max_sep)} of mask_shells {k.mask_shells}): kernel "
+        f"{f_ms:.4f} ms device, plain {plain_ms:.4f} ms, bound "
+        f"{f_bound[0]:.4f} ms by {f_bound[1]} ({tested:.0f} pair tests, "
+        f"{inside:.0f} pairs inside the cutoff); max|dF| {f_err:.3e} against "
+        f"the plain version ({smi})")
+    entry = dict(name="sweep_forces", route="cuda", source=SWEEP_SOURCE,
+                 replaces=SWEEP_REPLACES, launches=launches["sweep_forces"],
+                 max_abs_err=f_err, ms=f_ms, plain_ms=plain_ms,
+                 bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+                 at=STAND_IN)
+    return entry, dict(
+        atoms=n, exceptions=n_exc, build_s=t_build, bind_s=t_bind,
+        minimize_s=t_min, steps=JAC_STEPS, rates=rates,
+        steps_per_s_median=median, step_ms=step_ms, ns_per_day=ns_day,
+        k2_device_ms=parts["K2 sweep"][0], device_busy_ms=busy_ms,
+        busy_share=busy_ms / step_ms, constraint_error=geom,
+        initial_rel=[u_rel0, f_rel0], final_rel=[u_rel, f_rel],
+        max_exception_separation=int(max_sep),
+        cpu_float64_eval_s=t_ref, launches=launches)
+
+
+def _run_script(module, argv, label):
+    """``module.main(argv)`` with its output captured and echoed; returns
+    (exit code, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        say(f"{label}: {line}")
+    say(f"{label}: exit {rc} in {wall:.1f} s")
+    return rc, lines, wall
+
+
+def phase_benchmarks(smi):
+    """18d: benchmark_dhfr at the JAC convention (200 steps, no check: 18c
+    holds that system against CPU float64) and at the reference defaults
+    (1.0 nm, a 0.15 nm switch, 1e-5; 500 steps and the script's own check);
+    18e: benchmark_remd cut to 16 replicas x 50 steps x 3 iterations on the
+    vacuum stand-in. The data directory is the stand-in's."""
+    import re
+
+    from openmmtools_tpu_torch.scripts import benchmark_dhfr, benchmark_remd
+
+    out = {}
+    for label, args in (("jac", DHFR_JAC_ARGS),
+                        ("reference", DHFR_REFERENCE_ARGS)):
+        rc, lines, wall = _run_script(
+            benchmark_dhfr, args,
+            f"phase 18d benchmark_dhfr {' '.join(args)} ({STAND_IN})")
+        assert rc == 0
+        assert any("bounded sweep (K2)" in line for line in lines), lines
+        checked = any("plain float64 parity" in line for line in lines)
+        assert checked == ("--no-check" not in args), lines
+        ms = [float(m.group(1)) for m in (
+            re.search(r"([0-9.]+) ms/step", line) for line in lines) if m]
+        assert len(ms) == 1, lines
+        out[label] = dict(ms_step=ms[0], wall_s=wall)
+    say(f"phase 18d benchmark_dhfr ({STAND_IN}): {out['jac']['ms_step']} ms "
+        f"a step at the JAC convention, {out['reference']['ms_step']} ms at "
+        f"the reference defaults ({smi})")
+    rc, lines, wall = _run_script(benchmark_remd, REMD_CUT,
+                                  f"phase 18e benchmark_remd "
+                                  f"{' '.join(REMD_CUT)} (vacuum stand-in)")
+    assert rc == 0 and "route batched" in lines[0], lines
+    ms = [float(m.group(1)) for m in (
+        re.search(r"([0-9.]+) ms/iteration", line) for line in lines) if m]
+    assert len(ms) == 1, lines
+    out["remd"] = dict(ms_iteration=ms[0], wall_s=wall)
+    return out
+
+
+def remd_step_profile(dev, smi, n_steps=20):
+    """18e: ``profile_steps`` over batched steps of benchmark_remd's cut
+    configuration: the replicas of its sampler as one batched state through
+    the bound integrator its Langevin move uses (the generic program,
+    M-SHAKE on the CH clusters, under vmap)."""
+    from openmmtools_tpu_torch.mcmc import _resolve
+    from openmmtools_tpu_torch.scripts import benchmark_remd
+
+    n_rep, n_md = int(REMD_CUT[1]), int(REMD_CUT[3])
+    _, sampler = benchmark_remd._build_sampler(n_rep, n_md, 1, 1, None, dev)
+    states = sampler._states_on(dev)
+    ts = [_resolve(states[int(s)]) for s in sampler._replica_states]
+    bound = sampler._moves_per_state()[0]._bound(ts[0])
+    assert not bound.sweep_mode and bound._clusters is not None
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(n_rep)]
+    state = bound.initial_state_batch(list(sampler._sampler_states), gens,
+                                      thermodynamic_states=ts)
+    state, wall_ms, busy_ms, parts, top, aten = profile_steps(
+        bound, state, n_steps, phase="phase 18e")
+    assert all(bool(torch.isfinite(u).all()) for u in state.potentials)
+    say(f"phase 18e a batched step of {n_rep} replicas (vacuum stand-in, "
+        f"the generic program): {wall_ms:.3f} ms wall under the profiler, "
+        f"{aten:.0f} ATen calls on the host, the device busy {busy_ms:.4f} "
+        f"ms ({busy_ms / wall_ms:.3f} of it); device ms (host ms in the "
+        f"range) by part: " + "; ".join(
+            f"{label} {dev_ms:.4f} ({host_ms:.3f})"
+            for label, (dev_ms, host_ms) in parts.items()) + f" ({smi})")
+    return dict(wall_ms=wall_ms, aten_calls=aten, busy_ms=busy_ms,
+                parts=parts)
+
+
+def phase_prmtop(dev, smi):
+    """Phase 18 in a temporary data directory, the loader's
+    ``DEFAULT_DATA_DIR`` (and ``OPENMMTOOLS_TPU_DATA``) pointed at it."""
+    import os
+
+    from openmmtools_tpu_torch.models import amber
+
+    t0 = time.perf_counter()
+    saved = amber.DEFAULT_DATA_DIR, os.environ.get("OPENMMTOOLS_TPU_DATA")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        amber.DEFAULT_DATA_DIR = os.environ["OPENMMTOOLS_TPU_DATA"] = tmp
+        try:
+            out = {"stand_ins": phase_stand_ins(root, smi)}
+            out["loader_water"] = phase_loader_water(dev, smi, root)
+            entry, out["jac_path"] = phase_jac_path(dev, smi, root)
+            out.update(phase_benchmarks(smi))
+            out["remd"]["profile"] = remd_step_profile(dev, smi)
+        finally:
+            amber.DEFAULT_DATA_DIR = saved[0]
+            if saved[1] is None:
+                os.environ.pop("OPENMMTOOLS_TPU_DATA", None)
+            else:
+                os.environ["OPENMMTOOLS_TPU_DATA"] = saved[1]
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 18 in {out['seconds']:.1f} s")
+    return entry, out
+
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -3897,6 +4768,7 @@ def main():
     batched["atom_shard"] = phase_atom_shard(dev, smi)
     batched["seconds"] = time.perf_counter() - t0
     say(f"phase 17 in {batched['seconds']:.1f} s")
+    jac_kernel, prmtop = phase_prmtop(dev, smi)
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
@@ -3904,9 +4776,10 @@ def main():
                     "multistate_path": multistate,
                     "equilibration_path": equilibration,
                     "catalog_path": catalog, "batched_path": batched,
-                    "card": smi}, default=str))
+                    "prmtop_path": prmtop, "card": smi}, default=str))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
-                      + [dense_kernel] + cell_kernels + batched_kernels}))
+                      + [dense_kernel] + cell_kernels + batched_kernels
+                      + [jac_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

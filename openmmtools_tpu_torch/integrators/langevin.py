@@ -644,11 +644,13 @@ class BoundIntegrator:
 
     def _sweep_tail_setup(self):
         """The dispersion tail's pair-averaged integral does not depend on
-        the configuration: summed once here in float64 chunks of rows on the
-        system's device (the dense form holds (N, N) matrices). For an
-        alchemical term one sum per region-pair class (env-env first), which
-        the tail weights by each class's lam_s^a at every evaluation (the
-        dense path's lambda-weighted tail)."""
+        the configuration: summed once here in float64 on the system's
+        device, over the atoms' distinct (sigma, epsilon[, region code])
+        rows weighted by their counts (a few rows for a force field; the
+        N^2 pairs took seconds on the host at 23,000 atoms), in chunks of
+        rows. For an alchemical term one sum per region-pair class (env-env
+        first), which the tail weights by each class's lam_s^a at every
+        evaluation (the dense path's lambda-weighted tail)."""
         term = self._sweep_term
         n = self.system.n_particles
         self._sweep_disp_avg = None
@@ -656,24 +658,31 @@ class BoundIntegrator:
         if not term.use_dispersion_correction:
             return
         sig, _, _, code = self._sweep_atom_rows
-        sig = sig.to(torch.float64)
-        eps = term.epsilon.to(torch.float64)
+        cols = [sig.to(torch.float64), term.epsilon.to(torch.float64)]
+        if code is not None:
+            cols.append(code.to(torch.float64))
+        rows, counts = torch.unique(torch.stack(cols, dim=1), dim=0,
+                                    return_counts=True)
+        sig, eps = rows[:, 0], rows[:, 1]
+        weight = counts.to(torch.float64)
+        m = rows.shape[0]
         rc3 = float(term.cutoff) ** 3
         rc9 = rc3 ** 3
-        chunk = max(1, (1 << 22) // n)
+        chunk = max(1, (1 << 22) // m)
         if code is not None:
             # class of the pair (g_i, g_j), env-env = 0
             table = sweep_nb.class_index(term.n_regions, sig.device) + 1
-            code = code.long()
+            code = rows[:, 2].long()
             n_all = (term.n_regions + 1) * (term.n_regions + 2) // 2
             sums = torch.zeros((n_all,), dtype=torch.float64,
                                device=sig.device)
         total = torch.zeros((), dtype=torch.float64, device=sig.device)
-        for lo in range(0, n, chunk):
+        for lo in range(0, m, chunk):
             s_ij = 0.5 * (sig[lo:lo + chunk, None] + sig[None, :])
             e_ij = torch.sqrt(eps[lo:lo + chunk, None] * eps[None, :])
             s6 = s_ij ** 6
-            integral = 4.0 * e_ij * (s6 * s6 / (9.0 * rc9) - s6 / (3.0 * rc3))
+            integral = (4.0 * e_ij * (s6 * s6 / (9.0 * rc9) - s6 / (3.0 * rc3))
+                        * weight[lo:lo + chunk, None] * weight[None, :])
             if code is None:
                 total = total + torch.sum(integral)
             else:
@@ -770,9 +779,16 @@ class BoundIntegrator:
 
     def _sweep_rest_energy(self, xx, box, params):
         """Energy of the terms around the sweep kernel: valence terms,
-        exception add-back, reciprocal space and leftovers."""
+        exception add-back, reciprocal space and leftovers. The parts add
+        up in float64, and the large sums among them (the Ewald self energy
+        and exclusion correction, about 2e6 kJ/mol each and of opposite
+        sign at 24,000 atoms; the exception add-back) accumulate in
+        float64: in float32 their roundings moved the water box's total by
+        0.25 kJ/mol between two builds of one system (1.25e-5 of U). The
+        forces are those of the float32 terms."""
         term = self._sweep_term
-        tot = torch.zeros((), dtype=xx.dtype, device=xx.device)
+        f64 = torch.float64
+        tot = torch.zeros((), dtype=f64, device=xx.device)
         X = xx[self._sweep_rows] if self._sweep_rows is not None else None
         off = 0
 
@@ -786,20 +802,20 @@ class BoundIntegrator:
             m = t.index.shape[0]
             if type(t) is HarmonicBondTerm:
                 tot = tot + bonded.harmonic_bond_energy_rows(
-                    seg(m), seg(m), t.length, t.k)
+                    seg(m), seg(m), t.length, t.k).to(f64)
             elif type(t) is HarmonicAngleTerm:
                 tot = tot + bonded.harmonic_angle_energy_rows(
-                    seg(m), seg(m), seg(m), t.angle, t.k)
+                    seg(m), seg(m), seg(m), t.angle, t.k).to(f64)
             else:
                 tot = tot + bonded.periodic_torsion_energy_rows(
                     seg(m), seg(m), seg(m), seg(m), t.periodicity, t.phase,
-                    t.k)
+                    t.k).to(f64)
         recip = self._sweep_recip
         m = term.exception_index.shape[0]
         if self._sweep_alch is not None:
             # the kernel masked the exception pairs (the subtract); their own
             # lambda-scaled interaction remains
-            tot = tot + term.exception_add_energy(xx, box, params)
+            tot = tot + term.exception_add_energy(xx, box, params).to(f64)
         elif m > 0:
             # exception pairs REPLACE the combined-rule pair: plain no-cutoff
             # LJ + Coulomb ...
@@ -812,16 +828,16 @@ class BoundIntegrator:
                                    term.exception_epsilon)
                  + nonbonded.coulomb_pair(r, term.exception_chargeprod,
                                           "no_cutoff"))
-            tot = tot + torch.sum(e)
+            tot = tot + torch.sum(e, dtype=f64)
             if recip is not None:
                 # ... and the same r serves the reciprocal term's
                 # -erf(alpha r)/r exclusion correction
                 tot = tot + recip.exclusion_correction_of_r(
-                    recip.effective_charge(params), r)
+                    recip.effective_charge(params).to(f64), r.to(f64))
         if recip is not None:
             tot = tot + recip.energy_without_exclusions(xx, box, params)
         for t in self._sweep_leftover:
-            tot = tot + t.energy(xx, box, params)
+            tot = tot + t.energy(xx, box, params).to(f64)
         return tot
 
     def _reconstruct(self, x):
@@ -845,7 +861,8 @@ class BoundIntegrator:
         return g
 
     def _rest_energies(self, x, box, params):
-        """:meth:`_sweep_rest_energy` of a batch (B,), under vmap."""
+        """:meth:`_sweep_rest_energy` of a batch (B,) float64, under
+        vmap."""
         return torch.func.vmap(self._sweep_rest_energy,
                                chunk_size=self._rest_chunk)(x, box, params)
 

@@ -1,15 +1,15 @@
 """Test systems, batch 2 (counterpart of ``models/more_systems.py``): the
 NaCl crystal, the diatomic and dipolar fluids, the constraint-coupled
 oscillators, the LJ grid and mixture, the double-well dimer and chain in a
-WCA bath, and the GB system.
+WCA bath, the GB system, and the molecular systems read from the
+reference's Amber files (``models/amber.py``): host-guest, toluene,
+lysozyme, alanine dipeptide in water, DHFR (JAC), the DNA dodecamer and
+the methanol box.
 
 Same parameters and the same host-side numpy construction as the JAX
 package (positions match bit for bit), ending in float32 tensors on the
 ``device`` the caller names: the card unless the caller asks for the CPU.
-The systems that read Amber files (``_PrmtopSystem`` and its subclasses,
-``MolecularIdealGas``, ``AlanineDipeptideExplicit``, ``DHFRExplicit``,
-``MethanolBox``, ``DNADodecamerExplicit``) come with the port of
-``models/amber.py``.
+A system whose data files are absent raises ``FileNotFoundError``.
 """
 from __future__ import annotations
 
@@ -347,3 +347,248 @@ class CustomGBForceSystem(TestSystem):
             default_box=_tensor(box, device), periodic=True)
         self.positions = _tensor(
             _f32(subrandom_particle_positions(n, box)), device)
+
+
+# ---------------------------------------------------------------------------
+# molecular systems from the reference's Amber data files (models/amber.py)
+# ---------------------------------------------------------------------------
+
+
+class _PrmtopSystem(TestSystem):
+    """A system read from a prmtop and its inpcrd under ``_subdir`` of the
+    data directory (``data_dir``, default ``amber.DEFAULT_DATA_DIR``):
+    ``_nonbonded_method`` 'no_cutoff' (vacuum or GB implicit solvent) or a
+    periodic one with ``cutoff``."""
+
+    _subdir = None
+    _prmtop = None
+    _crd = None
+    _implicit = False
+    _gb_model = "OBC2"
+    _nonbonded_method = "no_cutoff"
+
+    def __init__(self, constraints="h-bonds", data_dir=None, device="cuda",
+                 **options):
+        super().__init__(device)
+        from openmmtools_tpu_torch.models import amber
+
+        prmtop = amber.data_file(data_dir, self._subdir, self._prmtop)
+        crd = amber.data_file(data_dir, self._subdir, self._crd)
+        if self._nonbonded_method != "no_cutoff":
+            options["nonbonded_method"] = self._nonbonded_method
+        amber.load_prmtop_system(
+            self, prmtop, self._positions(crd), constraints=constraints,
+            implicit_solvent=self._implicit, gb_model=self._gb_model,
+            **options)
+
+    @staticmethod
+    def _positions(path):
+        from openmmtools_tpu_torch.models.amber import parse_inpcrd
+
+        return parse_inpcrd(path)
+
+
+class _ExplicitPrmtopSystem(_PrmtopSystem):
+    """A periodic prmtop system with PME at ``cutoff`` (nm)."""
+
+    _nonbonded_method = "pme"
+
+    def __init__(self, constraints="h-bonds", cutoff=0.9, data_dir=None,
+                 device="cuda"):
+        super().__init__(constraints=constraints, data_dir=data_dir,
+                         device=device, cutoff=cutoff)
+
+
+class HostGuestVacuum(_PrmtopSystem):
+    """CB7:B2 host-guest complex in vacuum (``cb7-b2/complex-vacuum.*``)."""
+
+    _subdir = "cb7-b2"
+    _prmtop = "complex-vacuum.prmtop"
+    _crd = "complex-vacuum.inpcrd"
+
+
+class HostGuestImplicit(_PrmtopSystem):
+    """CB7:B2 with GB implicit solvent; ``gb_model`` 'HCT', 'OBC1' or
+    'OBC2'. The default stays OBC2, as in the JAX package (the reference's
+    own default is OBC1: HostGuestImplicitOBC1)."""
+
+    _subdir = HostGuestVacuum._subdir
+    _prmtop = HostGuestVacuum._prmtop
+    _crd = HostGuestVacuum._crd
+    _implicit = True
+
+    def __init__(self, gb_model="OBC2", **kwargs):
+        self._gb_model = gb_model
+        super().__init__(**kwargs)
+
+
+class HostGuestImplicitHCT(HostGuestImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="HCT", **kwargs)
+
+
+class HostGuestImplicitOBC1(HostGuestImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="OBC1", **kwargs)
+
+
+class HostGuestImplicitOBC2(HostGuestImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="OBC2", **kwargs)
+
+
+class LysozymeImplicit(_PrmtopSystem):
+    """T4 lysozyme L99A + p-xylene, GBSA implicit solvent, 2,603 atoms
+    (``T4-lysozyme-L99A-implicit/complex.*``)."""
+
+    _subdir = "T4-lysozyme-L99A-implicit"
+    _prmtop = "complex.prmtop"
+    _crd = "complex.crd"
+    _implicit = True
+
+
+class BenzeneTolueneImplicit(_PrmtopSystem):
+    """Benzene + toluene in GBSA implicit solvent
+    (``benzene-toluene-implicit/complex.*``)."""
+
+    _subdir = "benzene-toluene-implicit"
+    _prmtop = "complex.prmtop"
+    _crd = "complex.inpcrd"
+    _implicit = True
+
+
+class MolecularIdealGas(TestSystem):
+    """Alanine dipeptide with every interaction removed but its harmonic
+    bonds and angles, and no constraints: a molecular ideal gas."""
+
+    def __init__(self, data_dir=None, device="cuda"):
+        super().__init__(device)
+        from openmmtools_tpu_torch.models.testsystems import (
+            AlanineDipeptideVacuum,
+        )
+
+        base = AlanineDipeptideVacuum(constraints=None, data_dir=data_dir,
+                                      device=device)
+        kept = tuple(t for t in base.system.terms
+                     if type(t).__name__ in ("HarmonicBondTerm",
+                                             "HarmonicAngleTerm"))
+        self.system = base.system.replace(terms=kept)
+        self.positions = base.positions
+        self.ndof = 3 * self.system.n_particles
+
+
+class AlanineDipeptideExplicit(_ExplicitPrmtopSystem):
+    """Alanine dipeptide in explicit TIP3P water, PME, 2,269 atoms
+    (``alanine-dipeptide-explicit/*``)."""
+
+    _subdir = "alanine-dipeptide-explicit"
+    _prmtop = "alanine-dipeptide.prmtop"
+    _crd = "alanine-dipeptide.crd"
+
+
+class DHFRExplicit(_ExplicitPrmtopSystem):
+    """DHFR in explicit TIP3P water, the Joint Amber-CHARMM benchmark
+    system, 23,558 atoms (``dhfr/``). Positions come from ``system.pdb``
+    (``JAC.inpcrd`` is a binary NetCDF restart).
+
+    The defaults follow the JAC benchmark's convention, as in the JAX
+    package: a 0.9 nm hard cutoff and an Ewald tolerance of 5e-4. The
+    reference test system's are a 1.0 nm cutoff, a 0.15 nm switch and
+    1e-5: pass ``cutoff=1.0, switch_width=0.15,
+    ewald_error_tolerance=1e-5`` for them (``benchmark_dhfr
+    --reference-defaults``)."""
+
+    _subdir = "dhfr"
+    _prmtop = "JAC.prmtop"
+    _crd = "system.pdb"
+
+    def __init__(self, constraints="h-bonds", cutoff=0.9, data_dir=None,
+                 switch_width=None, ewald_error_tolerance=5e-4,
+                 device="cuda"):
+        _PrmtopSystem.__init__(
+            self, constraints=constraints, data_dir=data_dir, device=device,
+            cutoff=cutoff, switch_width=switch_width,
+            ewald_error_tolerance=ewald_error_tolerance)
+
+    @staticmethod
+    def _positions(path):
+        from openmmtools_tpu_torch.models.amber import parse_pdb_positions
+
+        return parse_pdb_positions(path)
+
+
+class HostGuestExplicit(_ExplicitPrmtopSystem):
+    """CB7:B2 complex in explicit water, PME (``cb7-b2/complex-explicit.*``)."""
+
+    _subdir = "cb7-b2"
+    _prmtop = "complex-explicit.prmtop"
+    _crd = "complex-explicit.inpcrd"
+
+
+class TolueneVacuum(_PrmtopSystem):
+    """Toluene (GAFF/AM1-BCC) in vacuum
+    (``benzene-toluene-implicit/solvent.*``)."""
+
+    _subdir = "benzene-toluene-implicit"
+    _prmtop = "solvent.prmtop"
+    _crd = "solvent.inpcrd"
+
+
+class TolueneImplicit(_PrmtopSystem):
+    """Toluene in GB implicit solvent; ``gb_model`` 'HCT', 'OBC1' or
+    'OBC2'."""
+
+    _subdir = TolueneVacuum._subdir
+    _prmtop = TolueneVacuum._prmtop
+    _crd = TolueneVacuum._crd
+    _implicit = True
+
+    def __init__(self, gb_model="OBC2", **kwargs):
+        self._gb_model = gb_model
+        super().__init__(**kwargs)
+
+
+class TolueneImplicitHCT(TolueneImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="HCT", **kwargs)
+
+
+class TolueneImplicitOBC1(TolueneImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="OBC1", **kwargs)
+
+
+class TolueneImplicitOBC2(TolueneImplicit):
+    def __init__(self, **kwargs):
+        super().__init__(gb_model="OBC2", **kwargs)
+
+
+class MethanolBox(TestSystem):
+    """A box of methanol molecules with periodic cutoff electrostatics
+    (``methanol-box/``); the cutoff is 0.9 nm or 0.49 of the inpcrd box's
+    shortest edge, whichever is less (the box is about 1.4 nm)."""
+
+    def __init__(self, constraints="h-bonds",
+                 nonbonded_method="cutoff_periodic", data_dir=None,
+                 device="cuda"):
+        super().__init__(device)
+        from openmmtools_tpu_torch.models import amber
+
+        prmtop = amber.data_file(data_dir, "methanol-box",
+                                 "methanol-box.prmtop")
+        positions, box = amber.parse_inpcrd(
+            amber.data_file(data_dir, "methanol-box", "methanol-box.crd"),
+            return_box=True)
+        amber.load_prmtop_system(
+            self, prmtop, positions, constraints=constraints,
+            nonbonded_method=nonbonded_method,
+            cutoff=min(0.9, 0.49 * float(np.min(box))))
+
+
+class DNADodecamerExplicit(_ExplicitPrmtopSystem):
+    """The Drew-Dickerson B-DNA dodecamer in explicit solvent, PME, 13,646
+    atoms (``dna_dodecamer_explicit/``)."""
+
+    _subdir = "dna_dodecamer_explicit"
+    _prmtop = "prmtop"
+    _crd = "inpcrd"

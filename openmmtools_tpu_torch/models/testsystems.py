@@ -3,7 +3,8 @@
 The harmonic and power oscillators, the oscillator array, N particles in
 external potentials, the diatom, the ideal gas, the LJ cluster, the LJ
 fluid (uncharged, or charged with PME; ``Truncated`` and ``Switched``), the
-WCA fluid and the LJ pair. Construction is host-side numpy, as in the JAX
+WCA fluid and the LJ pair, and the alanine dipeptide systems read from the
+reference's Amber files (``models/amber.py``). Construction is host-side numpy, as in the JAX
 package (the same scipy Sobol draw, so positions match bit for bit), and
 ends in float32 tensors on the ``device`` the caller names: the card unless
 the caller asks for the CPU. Each system carries its analytic expectations
@@ -75,6 +76,7 @@ class TestSystem:
         self.system: Optional[System] = None
         self.positions: Optional[torch.Tensor] = None
         self.velocities: Optional[torch.Tensor] = None
+        self.topology = None    # an AmberTopology where the files give one
 
     @property
     def n_particles(self) -> int:
@@ -102,7 +104,7 @@ class TestSystem:
 
 
 def get_available_testsystems():
-    """The names of every concrete TestSystem subclass the port has: those
+    """The names of every public TestSystem subclass the port has: those
     of this module, ``models/water.py`` and ``models/more_systems.py``."""
     from openmmtools_tpu_torch.models import more_systems, water
 
@@ -110,7 +112,8 @@ def get_available_testsystems():
     for module in (sys.modules[__name__], water, more_systems):
         for name in dir(module):
             obj = getattr(module, name)
-            if (isinstance(obj, type) and issubclass(obj, TestSystem)
+            if (not name.startswith("_") and isinstance(obj, type)
+                    and issubclass(obj, TestSystem)
                     and obj is not TestSystem):
                 out.add(name)
     return sorted(out)
@@ -587,3 +590,50 @@ class LennardJonesPair(TestSystem):
         v_bound = 4.0 * math.pi * np.trapezoid(np.exp(-beta * u) * r**2, r)
         return -kB * float(temperature) * math.log(
             v_bound / STANDARD_STATE_VOLUME)
+
+
+class AlanineDipeptideVacuum(TestSystem):
+    """Alanine dipeptide (ACE-ALA-NME, 22 atoms) in vacuum from the
+    reference's Amber prmtop/crd (``alanine-dipeptide-gbsa/`` under the
+    data directory, ``models/amber.py``). ``constraints='h-bonds'`` is the
+    reference's default."""
+
+    _implicit = False
+
+    def __init__(self, constraints="h-bonds", data_dir=None, device="cuda"):
+        super().__init__(device)
+        from openmmtools_tpu_torch.models import amber
+
+        prmtop = amber.data_file(data_dir, "alanine-dipeptide-gbsa",
+                                 "alanine-dipeptide.prmtop")
+        crd = amber.data_file(data_dir, "alanine-dipeptide-gbsa",
+                              "alanine-dipeptide.crd")
+        amber.load_prmtop_system(self, prmtop, amber.parse_inpcrd(crd),
+                                 constraints=constraints,
+                                 implicit_solvent=self._implicit)
+
+
+class AlanineDipeptideImplicit(AlanineDipeptideVacuum):
+    """Alanine dipeptide with GBSA-OBC2 implicit solvent (the prmtop's
+    RADII/SCREEN sections)."""
+
+    _implicit = True
+
+
+class AlchemicalAlanineDipeptide(AlanineDipeptideVacuum):
+    """AlanineDipeptideVacuum with all 22 atoms alchemical: the system goes
+    through AbsoluteAlchemicalFactory with a whole-molecule region, so
+    ``lambda_electrostatics`` / ``lambda_sterics`` scale its
+    interactions."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        from openmmtools_tpu_torch.alchemy import (
+            AbsoluteAlchemicalFactory,
+            AlchemicalRegion,
+        )
+
+        region = AlchemicalRegion(
+            alchemical_atoms=list(range(self.system.n_particles)))
+        self.system = AbsoluteAlchemicalFactory().create_alchemical_system(
+            self.system, region)

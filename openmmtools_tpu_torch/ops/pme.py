@@ -336,9 +336,10 @@ class EwaldReciprocalTerm:
         return self.self_energy(q) + self.exclusion_energy(q, x, box)
 
     def energy_without_exclusions(self, x, box, params=None):
-        """k-space + self energy only; the caller supplies the exclusion
-        correction (``exclusion_correction_of_r``) from a pair loop it
-        already runs."""
+        """k-space + self energy only, in float64 (the self energy, about
+        -2e6 kJ/mol at 24,000 atoms, summed in float64); the caller supplies
+        the exclusion correction (``exclusion_correction_of_r``) from a pair
+        loop it already runs."""
         q = self.effective_charge(params)
         lengths = torch.diagonal(box)
         volume = torch.prod(lengths)
@@ -346,7 +347,8 @@ class EwaldReciprocalTerm:
             raise NotImplementedError(
                 "fused exclusion path requires the factorized (kmax) form")
         e_rec = self._reciprocal_factorized(q, x, lengths, volume, box)
-        return e_rec + self.self_energy(q)
+        return (e_rec.to(torch.float64)
+                + self.self_energy(q.to(torch.float64)))
 
     def energy(self, x, box, params=None):
         q = self.effective_charge(params)

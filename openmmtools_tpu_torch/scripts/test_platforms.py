@@ -48,8 +48,7 @@ ENERGY_TOLERANCE_KJ = 0.06 * 4.184  # reference: 0.06 kcal/mol
 FORCE_RTOL = 5e-3
 
 # the giant systems, whose dense float64 evaluations cost minutes each on
-# the host (the JAX package's list; the prmtop systems among them are not
-# in the port's catalog yet)
+# the host (the JAX package's list)
 _SLOW = {"DHFRExplicit", "DNADodecamerExplicit", "LysozymeImplicit",
          "HostGuestExplicit", "GiantWaterBox", "GiantFlexibleWaterBox",
          "GiantFlexibleDischargedWaterBox"}

@@ -1788,3 +1788,75 @@ def test_cuda_replica_mesh_over_every_card_matches_one_card(cuda):
     assert (spread.replica_states == one.replica_states).all()
     for a, b in zip(spread.sampler_states, one.sampler_states):
         assert _rel(a.positions.to(b.positions.device), b.positions) <= REL
+
+
+def _chains_in_water(tmp_path, device):
+    """Two hexanes in 188 waters of PMEWaterBox(2.0), written as a prmtop
+    by chip_smoke.py's writer and loaded with PME and h-bond constraints."""
+    import chip_smoke
+    from openmmtools_tpu_torch.models import amber
+
+    top = chip_smoke.solvated_chains(2, 6, 2.0)
+    path = tmp_path / "chains.prmtop"
+    chip_smoke.write_prmtop(path, top)
+    system = amber.create_system_from_prmtop(
+        str(path), nonbonded_method="pme", device=device)
+    x = torch.as_tensor(np.asarray(top.positions, np.float32), device=device)
+    return system, x
+
+
+@pytest.mark.cuda
+def test_cuda_prmtop_stand_in_takes_k2_with_settle_mshake_and_fused_recip(
+        cuda, tmp_path):
+    """The loader's explicit-solvent system in sweep mode on the card: K2's
+    standard variant, SETTLE on the waters and M-SHAKE on the CH clusters,
+    the reciprocal exclusion correction fused with the exception add-back;
+    20 steps launch each K2 kernel once a step, the constraints hold."""
+    system, x = _chains_in_water(tmp_path, cuda)
+    bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
+    assert bound.sweep_mode and bound._sweep_alch is None
+    assert bound._settle is not None and bound._settle.a.shape[0] == 188
+    assert bound._clusters is not None
+    assert bound._sweep_recip is system.terms[4]
+    k = bound._sweep_kernel
+    state = bound.initial_state(SamplerState(positions=x,
+                                             box_vectors=system.default_box),
+                                torch.Generator(device=cuda).manual_seed(1))
+    for key in k.launches:
+        k.launches[key] = 0
+    state = bound.run(state, 20)
+    assert k.launches == {"sweep_bound": 20, "sweep_forces": 20}
+    assert not bool(state.sweep_overflow)
+    c = system.constraints
+    d = state.positions[c.index[:, 0].long()] - state.positions[
+        c.index[:, 1].long()]
+    L = torch.diagonal(system.default_box)
+    d = d - L * torch.round(d / L)
+    err = ((torch.linalg.norm(d, dim=1) - c.distance) / c.distance).abs()
+    assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_prmtop_stand_in_against_the_plain_version(cuda, tmp_path):
+    """U and F of the stand-in through K2 against the plain sweep plus the
+    same remainder, and against the CPU float64 dense sum."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+    from openmmtools_tpu_torch.system import make_energy_fn, value_and_grad
+
+    system, x = _chains_in_water(tmp_path, cuda)
+    bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
+    k = bound._sweep_kernel
+    u, f = bound.energy_forces_at(x, system.default_box, {})
+    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    u_p, f_p = bound.energy_forces_at(x, system.default_box, {})
+    bound._sweep_kernel = k
+    assert abs(float(u) - float(u_p)) <= REL * abs(float(u_p))
+    scale = float(f_p.abs().max())
+    assert float((f - f_p).abs().max()) <= REL * scale
+    s64 = system.to(device="cpu", dtype=torch.float64)
+    u64, g64 = value_and_grad(
+        lambda xx: make_energy_fn(s64)(xx, s64.default_box),
+        x.cpu().double())
+    assert abs(float(u) - float(u64)) <= 1e-4 * abs(float(u64))
+    assert float((f.cpu().double() + g64).abs().max()) <= REL * float(
+        g64.abs().max())

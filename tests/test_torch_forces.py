@@ -8,8 +8,8 @@
   against the analytic one as ``tests/test_forces.py`` holds them.
 * ``find_forces``; ``restrain_atoms`` against the JAX package's (the same
   float32 spring constant); ``restrain_atoms_by_dsl`` with a stub topology
-  (any object with ``select``); the restraints carried across by the
-  converter.
+  (any object with ``select``) and with a real ``AmberTopology``; the
+  restraints carried across by the converter.
 * ``replace_reaction_field`` on a cutoff_periodic water box: the rewritten
   term and the energy against the JAX package's at rel 1e-10, and sweep
   mode (forced, plain versions) on it against the dense sum.
@@ -240,6 +240,39 @@ def test_restrain_atoms_by_dsl_with_a_stub_topology():
     with pytest.raises(ValueError, match="matched no atoms"):
         tforces.restrain_atoms_by_dsl(tw.system, tw.positions,
                                       _StubTopology(375), "resname BOGUS")
+
+
+def test_restrain_atoms_by_dsl_with_an_amber_topology(tmp_path):
+    """A real ``AmberTopology`` (read from a prmtop that chip_smoke.py's
+    writer makes: two hexanes in water) selects the atoms; the restrained
+    system against the JAX package's at rel 1e-10."""
+    import chip_smoke
+    from openmmtools_tpu.models import amber as jamber
+    from openmmtools_tpu_torch.models import amber as tamber
+
+    top = chip_smoke.solvated_chains(2, 6, 2.0)
+    path = tmp_path / "chains.prmtop"
+    chip_smoke.write_prmtop(path, top)
+    x = np.asarray(top.positions, np.float64)
+    moved = x + 0.01 * np.random.default_rng(3).normal(size=x.shape)
+    psys = tamber.create_system_from_prmtop(str(path), device="cpu")
+    jsys = jamber.create_system_from_prmtop(str(path))
+    ptop = tamber.AmberTopology(tamber.parse_prmtop(str(path)))
+    jtop = jamber.AmberTopology(jamber.parse_prmtop(str(path)))
+    dsl = "resname LIG and not hydrogen"
+    np.testing.assert_array_equal(ptop.select(dsl), [0, 4, 7, 10, 13, 16,
+                                                     20, 24, 27, 30, 33, 36])
+    mine = tforces.restrain_atoms_by_dsl(psys, torch.as_tensor(x), ptop, dsl)
+    theirs = jforces.restrain_atoms_by_dsl(jsys, jnp.asarray(x), jtop, dsl)
+    assert mine.terms[-1].particles.shape[0] == 12
+    mine = mine.to(dtype=torch.float64)
+    theirs = jax_f64(theirs)
+    u_mine = float(mine.terms[-1].energy(torch.as_tensor(moved), None))
+    u_theirs = float(theirs.terms[-1].energy(jnp.asarray(moved), None))
+    assert abs(u_mine - u_theirs) <= REL * abs(u_theirs)
+    with pytest.raises(ValueError, match="matched no atoms"):
+        tforces.restrain_atoms_by_dsl(psys, torch.as_tensor(x), ptop,
+                                      "protein and name CA")
 
 
 def test_restraint_controlled_through_the_state():

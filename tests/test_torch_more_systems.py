@@ -47,12 +47,23 @@ def _both(name, **kw):
 
 
 def test_the_ported_systems_are_the_catalogs_batch_2():
-    """The port's more_systems holds exactly the batch-2 systems that read
-    no Amber file."""
-    ported = sorted(n for n in tmodels.get_available_testsystems()
-                    if getattr(tmodels, n).__module__
-                    == more_systems.__name__)
-    assert ported == sorted(SYSTEMS)
+    """The port's more_systems holds exactly the JAX module's systems: the
+    batch-2 systems that read no Amber file (held here) and the prmtop
+    systems (held in ``test_torch_prmtop_systems.py``)."""
+    import openmmtools_tpu.models.more_systems as jmore
+
+    def of_module(names, models, module):
+        return sorted(n for n in names
+                      if getattr(models, n).__module__ == module.__name__)
+
+    ported = of_module(tmodels.get_available_testsystems(), tmodels,
+                       more_systems)
+    assert ported == of_module(jmodels.get_available_testsystems(), jmodels,
+                               jmore)
+    assert set(SYSTEMS) <= set(ported)
+    assert all(issubclass(getattr(tmodels, n), more_systems._PrmtopSystem)
+               or n in ("MolecularIdealGas", "MethanolBox")
+               for n in set(ported) - set(SYSTEMS))
 
 
 @pytest.mark.parametrize("name", SYSTEMS)

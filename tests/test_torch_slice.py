@@ -217,6 +217,9 @@ def test_port_never_imports_jax():
     assert len(files) >= 15
     smoke = root.parent / "chip_smoke.py"
     assert smoke.exists()
+    for name in ("models/amber.py", "scripts/benchmark_dhfr.py",
+                 "scripts/benchmark_remd.py"):
+        assert root / name in files, name
     for path in files + [smoke]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

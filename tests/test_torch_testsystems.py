@@ -230,23 +230,12 @@ def test_array_spring_constant_is_a_global_parameter():
 
 
 def test_available_testsystems_are_the_jax_list_less_the_unported():
-    """The port lists exactly the JAX package's systems less the prmtop
-    systems (those of ``more_systems.py`` that read Amber files) and the
-    three ``AlanineDipeptide*`` systems (ROADMAP Queue 1, item 11)."""
-    import openmmtools_tpu.models.more_systems as more
+    """The port lists exactly the JAX package's systems: the prmtop systems
+    (``models/amber.py``) are ported too, so nothing is left unported."""
     import openmmtools_tpu_torch.models as tmodels
 
     port = tts.get_available_testsystems()
-    jax_names = jts.get_available_testsystems()
-    prmtop = {name for name in jax_names
-              if getattr(jts, name).__module__ == more.__name__
-              and (issubclass(getattr(jts, name), more._PrmtopSystem)
-                   or name in ("MolecularIdealGas",
-                               "AlanineDipeptideExplicit", "DHFRExplicit",
-                               "MethanolBox", "DNADodecamerExplicit"))}
-    unported = prmtop | {"AlanineDipeptideVacuum", "AlanineDipeptideImplicit",
-                         "AlchemicalAlanineDipeptide"}
-    assert port == sorted(set(jax_names) - unported)
+    assert port == jts.get_available_testsystems()
     for name in port:
         assert issubclass(getattr(tmodels, name), tts.TestSystem)
 
