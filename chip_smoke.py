@@ -142,7 +142,8 @@ nonzero exit. Phases:
    stage, the restraint among the sweep's leftover terms in stages 1-3,
    K2's launches by stage exactly (FIRE one an iteration plus its final
    energy and the acceptance check's two; a dynamics stage n_steps + 1;
-   two a barostat attempt), the restrained minimum below the start, the
+   one a barostat attempt, its two configurations as one batch), the
+   restrained minimum below the start, the
    rigid geometry and a finite box after every stage, the last stage's
    kinetic temperature within 5 %, one barostat attempt's two energies
    against the plain sweep plus the remainder; set-up and run seconds a
@@ -184,8 +185,10 @@ nonzero exit. Phases:
    single launches for the same bits and against the plain version, the
    bound pass over the 9 sets on a rebuild; device ms of a batched launch
    beside a single one and the bound of B evaluations; (b) the eager loop
-   on the ladder through a SequenceMove (the Langevin move, 10 steps, and
-   a displacement), which the batched route does not take; (c) 3 replicas
+   on the ladder through a tree that cannot batch (a SequenceMove of the
+   Langevin move, 10 steps, and a displacement wrapped in a move that
+   implements only ``_apply``), while the same SequenceMove unwrapped
+   takes the batched route; (c) 3 replicas
    of the ladder, 50 steps, batched and one by one with the same
    generators: the final U and F (2e-4); (d)
    ``scripts.demo_free_energy.main`` at a cut depth (``DEMO_CUT``): exit
@@ -207,7 +210,7 @@ nonzero exit. Phases:
    the reciprocal exclusion correction fused with the exception add-back)
    -> the initial U and F against a CPU float64 plain evaluation ->
    ``minimize`` (FIRE on K2, through the context cache) -> initial_state
-   -> 2,000 steps in 500-step chunks: K2's launches exactly 2,001 of each,
+   -> 1,000 steps in 500-step chunks: K2's launches exactly 1,001 of each,
    no bitfield overflow, the constraints to 1e-5, the final U and F against
    CPU float64; steps/s, ns/day, a profile with K2's device ms and the busy
    share, K2's bound on the path's own ring and on a fresh one against the
@@ -218,7 +221,30 @@ nonzero exit. Phases:
    float64); (e) ``scripts.benchmark_remd`` cut to 16 replicas x 50 steps
    x 3 iterations on the vacuum stand-in: finite, the batched route; then
    a profile of 20 batched steps of that configuration (ATen calls a step,
-   the constraints' host ms, the device's busy share).
+   the constraints' host ms, the device's busy share);
+19. every move tree as one batch of replicas: (a) replica exchange on
+   14a's ladder and replicas, 'swap-all', with SequenceMove([a
+   displacement and a rotation of the alchemical water, 14a's Langevin
+   move]): the batched route, 3 iterations, K2's launches of each kernel
+   an iteration by batch size (1 at B = 18 for each Monte Carlo move, 51
+   at B = 9, 1 at B = 81: 54) beside the eager loop's (one iteration of
+   the same tree, its Monte Carlo moves wrapped so that it cannot batch:
+   478), seconds an
+   iteration of each, the displacement and rotation acceptances; (b) 3
+   replicas of the ladder, one application of 19a's tree batched and one
+   ``apply`` a replica with the same generators: the accept decisions
+   equal, the positions equal (the bits reported); (c) NPT parallel
+   tempering on PMEWaterBox(6.223) at 15b's 4 temperatures and 1 bar with
+   SequenceMove([LangevinDynamicsMove(50 steps), MonteCarloBarostatMove(5
+   attempts)]), 3 iterations: K2 at B = 8 for each attempt, the replicas'
+   boxes not all equal, the waters rigid to 1e-5, U at the final boxes
+   against the plain sweep plus the remainder of each replica alone
+   (2e-4); (d) per-state moves on the ladder (states 0-4 one Langevin
+   move, 5-8 another timestep: two groups, launches by batch size) and a
+   WeightedMove of the displacement and the rotation before a Langevin
+   move (branch groups summing to 9); (e) the native prmtop parser on
+   18a's JAC-size stand-in: its build, the parse seconds native and in
+   pure Python, every section equal.
 
 Phase 1 also prints ``utils.platforms.device_report()``.
 
@@ -2958,13 +2984,13 @@ def phase_equilibration(dev, smi):
     timer = Timer()
     ends = []
     attempts = []
-    attempt = MonteCarloBarostatMove.attempt
+    attempt = MonteCarloBarostatMove.attempt_batch
 
     def timed_attempt(self, *args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = attempt(self, *args, **kwargs)
-        accepted = bool(out[1])
+        accepted = int(out[1].sum())
         attempts.append((1e3 * (time.perf_counter() - t), accepted))
         return out
 
@@ -2973,7 +2999,7 @@ def phase_equilibration(dev, smi):
         ends.append(ss)
 
     start = w.sampler_state()
-    MonteCarloBarostatMove.attempt = timed_attempt
+    MonteCarloBarostatMove.attempt_batch = timed_attempt
     try:
         t0 = time.perf_counter()
         out = run_gentle_equilibration(ts, start, stages, seed=15,
@@ -2982,7 +3008,7 @@ def phase_equilibration(dev, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        MonteCarloBarostatMove.attempt = attempt
+        MonteCarloBarostatMove.attempt_batch = attempt
     seconds = timer.report_timing()
     bounds = cache.bound_integrators()
     assert len(bounds) == 4, len(bounds)
@@ -2990,13 +3016,13 @@ def phase_equilibration(dev, smi):
     applies = [barostat_applies(st) if st.stage_type == "npt" else 0
                for st in stages]
     expected = [EQ_MIN_ITERATIONS + 3] + [
-        st.n_steps + 1 + 2 * a for st, a in zip(stages[1:], applies[1:])]
+        st.n_steps + 1 + a for st, a in zip(stages[1:], applies[1:])]
     say(f"phase 15a run_gentle_equilibration on PMEWaterBox({WATER_EDGE}) "
         f"({n} atoms, {n // 3} oxygens restrained at sigma {EQ_SIGMA} nm in "
         f"stages 1-3): {wall:.2f} s; K2 launches by stage {launches} "
         f"(expected {expected} of each: FIRE one an iteration + its final "
-        f"energy + the acceptance check's two; dynamics n_steps + 1; two a "
-        f"barostat attempt)")
+        f"energy + the acceptance check's two; dynamics n_steps + 1; one a "
+        f"barostat attempt, its two configurations as one batch)")
     for b, restrained in zip(bounds, (True, True, True, False)):
         assert b.sweep_mode and b._fused is None and b._settle is not None
         assert b._sweep_alch is None
@@ -3055,6 +3081,7 @@ def phase_equilibration(dev, smi):
         f"remainder {u_plain[0]:.3f}, {u_plain[1]:.3f} (rel {rel:.2e})")
     assert rel <= REL_TOL, rel
     # K2's held device time in an attempt: two fresh sorts, each a rebuild
+    # (one batched launch of the two evaluations does the work of two)
     k = last._sweep_kernel
     xT, par, excl, L, _ = tsw.sorted_inputs(last._sweep_term, out.positions,
                                             out.box_vectors, k)
@@ -3761,10 +3788,30 @@ def phase_batched_kernels(dev, smi, re_sampler, launches14, launches15):
     return entries, out
 
 
+def apply_only(move):
+    """``move`` wrapped in a move that implements only ``_apply``, as a
+    user's move may: a tree that holds it cannot batch, so the sampler
+    takes its eager loop; the draws are ``move``'s own."""
+    from openmmtools_tpu_torch.mcmc import MCMCMove
+
+    class ApplyOnly(MCMCMove):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def _apply(self, ts, ss, generator, context_cache):
+            return self.inner.apply(ts, ss, generator=generator,
+                                    context_cache=context_cache)
+
+    return ApplyOnly(move)
+
+
 def phase_eager_loop(dev, smi, re_sampler):
-    """17b: the eager loop on the ladder, driven by a move tree the batched
-    route does not take (a SequenceMove of the Langevin move and a
-    displacement): one iteration, each replica its own apply."""
+    """17b: the eager loop on the ladder, driven by a tree that cannot
+    batch (a SequenceMove of the Langevin move and a displacement wrapped
+    in a move that implements only ``_apply``): one iteration, each
+    replica its own apply. The same SequenceMove unwrapped takes the
+    batched route (phase 19)."""
     from openmmtools_tpu_torch.mcmc import (
         LangevinSplittingDynamicsMove,
         MCDisplacementMove,
@@ -3776,11 +3823,16 @@ def phase_eager_loop(dev, smi, re_sampler):
     langevin = LangevinSplittingDynamicsMove(
         timestep=0.002, collision_rate=1.0, n_steps=EAGER_STEPS,
         splitting="V R O R V")
-    move = SequenceMove([langevin, MCDisplacementMove(atom_subset=[0, 1, 2])])
+    displacement = MCDisplacementMove(atom_subset=[0, 1, 2])
     k = langevin._bound(states[0])._sweep_kernel
+    unwrapped = ReplicaExchangeSampler(
+        mcmc_moves=SequenceMove([langevin, displacement]),
+        number_of_iterations=1, online_analysis_interval=None)
+    unwrapped._thermodynamic_states = states
+    assert unwrapped.propagation_route == "batched"
     sampler = ReplicaExchangeSampler(
-        mcmc_moves=move, number_of_iterations=1,
-        online_analysis_interval=None, rng_seed=171)
+        mcmc_moves=SequenceMove([langevin, apply_only(displacement)]),
+        number_of_iterations=1, online_analysis_interval=None, rng_seed=171)
     sampler.create(states, re_sampler.sampler_states)
     assert sampler.propagation_route == "eager"
     k.batch_launches.clear()
@@ -3795,9 +3847,9 @@ def phase_eager_loop(dev, smi, re_sampler):
     assert by_batch.get(("sweep_forces_alch", 1), 0) >= n * (EAGER_STEPS + 1)
     say(f"phase 17b the eager loop ({sampler.propagation_route} route: a "
         f"SequenceMove of the Langevin move, {EAGER_STEPS} steps, and a "
-        f"displacement of the first water) on the ladder's {n} replicas: "
-        f"one iteration in {wall:.2f} s ({smi}); K2 launches by batch size "
-        f"{by_batch}")
+        f"displacement of the first water in a move that implements only "
+        f"_apply) on the ladder's {n} replicas: one iteration in "
+        f"{wall:.2f} s ({smi}); K2 launches by batch size {by_batch}")
     return dict(route=sampler.propagation_route, iteration_s=wall,
                 batch_launches={f"{key} x{b}": c
                                 for (key, b), c in by_batch.items()})
@@ -4324,11 +4376,429 @@ def write_stand_in_tree(root, vacuum=None, explicit=None, dhfr=None):
     return vacuum, explicit, dhfr
 
 
+# -- phase 19: every move tree as one batch of replicas ----------------------
+
+ALCH_WATER = [0, 1, 2]     # the alchemical water of AlchemicalWaterBox
+TREE_ITERATIONS = 3        # 19a
+TREE_REPLICAS = [0, 4, 8]  # 19b
+NPT_ITERATIONS = 3         # 19c
+NPT_ATTEMPTS = 5
+# 19c: a ln V step of +-0.003, about one standard deviation of the volume
+# of 8,000 waters at 1 bar (kT kappa / V), so that about half the attempts
+# are accepted
+NPT_VOLUME_SCALE = 0.003
+PER_STATE_STEPS = 20       # 19d: each per-state Langevin move's steps
+WEIGHTED_STEPS = 10        # 19d: the Langevin move after the WeightedMove
+
+
+def ligand_tree():
+    """19a's move: a displacement and a rotation of the alchemical water,
+    then 14a's Langevin move (YANK's ligand moves)."""
+    from openmmtools_tpu_torch.mcmc import (
+        MCDisplacementMove,
+        MCRotationMove,
+        SequenceMove,
+    )
+
+    return SequenceMove([MCDisplacementMove(atom_subset=ALCH_WATER),
+                         MCRotationMove(atom_subset=ALCH_WATER),
+                         water_move()])
+
+
+def tree_kernels(integrator_moves, states):
+    """The K2 kernels a move tree launches at ``states`` (of one system):
+    those of its integrator moves' bound integrators at each state (a
+    Langevin move binds an integrator a temperature, and a batch takes its
+    first replica's) and that of the global context cache's bound
+    integrator, which evaluates the Monte Carlo moves."""
+    from openmmtools_tpu_torch.cache import global_context_cache
+
+    bounds = [m._bound(st) for m in integrator_moves for st in states]
+    bounds.append(global_context_cache.get_context(states[0])[0])
+    assert all(b.sweep_mode for b in bounds)
+    return list({id(b._sweep_kernel): b._sweep_kernel
+                 for b in bounds}.values())
+
+
+def reset_counts(kernels):
+    for k in kernels:
+        for key in k.launches:
+            k.launches[key] = 0
+        k.batch_launches.clear()
+
+
+def merged_counts(kernels):
+    """(launches by kernel, launches by (kernel, batch size)) summed over
+    ``kernels``."""
+    launches = collections.Counter()
+    by_batch = collections.Counter()
+    for k in kernels:
+        launches.update(k.launches)
+        by_batch.update(k.batch_launches)
+    return dict(launches), dict(by_batch)
+
+
+def batch_key(by_batch):
+    return {f"{key} x{b}": c for (key, b), c in sorted(by_batch.items())}
+
+
+def phase_tree_batched(dev, smi, re_sampler, eager17b):
+    """19a: replica exchange on the ladder with a displacement, a rotation
+    and the Langevin move as one SequenceMove: the batched route, K2 by
+    batch size, against one iteration of the eager loop on the same
+    tree."""
+    from openmmtools_tpu_torch.multistate import ReplicaExchangeSampler
+
+    states = re_sampler._thermodynamic_states
+    n_states = len(states)
+
+    def sampler_of(move, n_iterations):
+        sampler = ReplicaExchangeSampler(
+            mcmc_moves=move, number_of_iterations=n_iterations,
+            online_analysis_interval=None, replica_mixing_scheme="swap-all",
+            rng_seed=19)
+        sampler.create(states, re_sampler.sampler_states)
+        return sampler
+
+    move = ligand_tree()
+    kernels = tree_kernels([move.move_list[2]], states)
+    sampler = sampler_of(move, TREE_ITERATIONS)
+    n = sampler.n_replicas
+    assert sampler.propagation_route == "batched"
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    sampler.run(TREE_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_batch = merged_counts(kernels)
+    u = sampler.energies_last_iteration
+    assert u.shape == (n, n_states) and np.isfinite(u).all()
+    it = TREE_ITERATIONS
+    want = {("sweep_bound", 2 * n): 2 * it,
+            ("sweep_forces_alch", 2 * n): 2 * it,
+            ("sweep_bound", n): (MS_STEPS + 2) * it,
+            ("sweep_forces_alch", n): (MS_STEPS + 1) * it,
+            ("sweep_forces_alch", n * n_states): it}
+    assert by_batch == want, by_batch
+    per_iteration = {key: c // it for key, c in launches.items()}
+    assert per_iteration == {"sweep_bound": MS_STEPS + 4,
+                             "sweep_forces_alch": MS_STEPS + 4}, launches
+    disp, rot = move.move_list[0], move.move_list[1]
+    split = split_means(sampler, 0)
+    it_s = wall / it
+
+    # the eager loop on the same tree, its Monte Carlo moves wrapped so
+    # that it cannot batch
+    inner = ligand_tree()
+    eager_kernels = tree_kernels([inner.move_list[2]], states)
+    inner.move_list[:2] = [apply_only(m) for m in inner.move_list[:2]]
+    eager = sampler_of(inner, 1)
+    assert eager.propagation_route == "eager"
+    reset_counts(eager_kernels)
+    t0 = time.perf_counter()
+    eager.run(1)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_launches, eager_batch = merged_counts(eager_kernels)
+    eager_want = {("sweep_bound", 2): 2 * n, ("sweep_forces_alch", 2): 2 * n,
+                  ("sweep_bound", 1): (MS_STEPS + 1) * n,
+                  ("sweep_forces_alch", 1): (MS_STEPS + 1) * n,
+                  ("sweep_bound", n): 1,
+                  ("sweep_forces_alch", n * n_states): 1}
+    assert eager_batch == eager_want, eager_batch
+    say(f"phase 19a RE on the ladder ({n} replicas) with SequenceMove("
+        f"displacement, rotation of the alchemical water, Langevin "
+        f"{MS_STEPS} steps), {sampler.propagation_route} route: {it} "
+        f"iterations in {wall:.2f} s, {it_s:.3f} s an iteration (mixing "
+        f"{split['mixing']:.4f}, propagation {split['propagation']:.3f}, "
+        f"matrix {split['energy_matrix']:.3f}); K2 launches an iteration "
+        f"{per_iteration} by batch size "
+        f"{ {k: c // it for k, c in batch_key(by_batch).items()} }; the "
+        f"eager loop on the same tree: {eager_launches} by batch size "
+        f"{batch_key(eager_batch)} in one iteration of {eager_s:.2f} s "
+        f"(17b's eager iteration, 10 steps: {eager17b['iteration_s']:.2f} "
+        f"s); acceptance: displacement {disp.n_accepted}/{disp.n_proposed},"
+        f" rotation {rot.n_accepted}/{rot.n_proposed} ({smi})")
+    assert disp.n_proposed == rot.n_proposed == n * it
+    return dict(route=sampler.propagation_route, iterations=it,
+                seconds_per_iteration=it_s, split_s=split,
+                launches_per_iteration=per_iteration,
+                batch_launches=batch_key(by_batch),
+                eager_seconds_per_iteration=eager_s,
+                eager_launches=eager_launches,
+                eager_batch_launches=batch_key(eager_batch),
+                displacement=[disp.n_accepted, disp.n_proposed],
+                rotation=[rot.n_accepted, rot.n_proposed])
+
+
+def phase_tree_against_eager(dev, smi, re_sampler):
+    """19b: 3 replicas of the ladder, one application of 19a's tree as one
+    batch and one apply a replica, with the same generators: each
+    replica's accept decisions (counted on a tree of its own) and its
+    positions."""
+    states = re_sampler._thermodynamic_states
+    sss = [re_sampler.sampler_states[i] for i in TREE_REPLICAS]
+    ts = [states[int(re_sampler.replica_states[i])] for i in TREE_REPLICAS]
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(190 + i)
+                for i in range(len(TREE_REPLICAS))]
+
+    def decisions(tree):
+        return [tree.move_list[0].n_accepted, tree.move_list[1].n_accepted]
+
+    batch_move = ligand_tree()
+    owners = [ligand_tree() for _ in TREE_REPLICAS]
+    eager_move = ligand_tree()
+    batch_move.move_list[2]._bound(ts[0])
+    eager_move.move_list[2]._bound(ts[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = batch_move.apply_batch(ts, sss, gens(), owners=owners)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    eager, eager_decisions = [], []
+    t0 = time.perf_counter()
+    for st, ss, gen in zip(ts, sss, gens()):
+        before = decisions(eager_move)
+        eager.append(eager_move.apply(st, ss, generator=gen))
+        eager_decisions.append([a - b for a, b in
+                                zip(decisions(eager_move), before)])
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    batch_decisions = [decisions(o) for o in owners]
+    bits = [torch.equal(a.positions, b.positions) for a, b in zip(out, eager)]
+    rel = max(max_rel(a.positions, b.positions) for a, b in zip(out, eager))
+    say(f"phase 19b {len(TREE_REPLICAS)} replicas, one application of 19a's"
+        f" tree: batched {t_batch:.2f} s, one apply a replica {t_eager:.2f} "
+        f"s; accept decisions (displacement, rotation) a replica batched "
+        f"{batch_decisions}, eager {eager_decisions}; positions bit-equal "
+        f"{bits}, worst rel {rel:.2e} ({smi})")
+    assert batch_decisions == eager_decisions
+    assert rel <= REL_TOL, rel
+    return dict(batched_s=t_batch, eager_s=t_eager,
+                decisions=batch_decisions, bit_equal=bits, positions_rel=rel)
+
+
+def phase_npt_tree(dev, smi):
+    """19c: NPT parallel tempering on the water box with the barostat in
+    the move tree: K2 at B = 2R an attempt, per-replica boxes, rigid
+    waters, U at the final boxes against each replica alone."""
+    from openmmtools_tpu_torch.constants import BAR_TO_KJ_PER_MOL_NM3
+    from openmmtools_tpu_torch.mcmc import (
+        LangevinDynamicsMove,
+        MonteCarloBarostatMove,
+        SequenceMove,
+    )
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+    from openmmtools_tpu_torch.system import volume
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    langevin = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                    n_steps=PT_WATER_STEPS)
+    baro = MonteCarloBarostatMove(volume_scale=NPT_VOLUME_SCALE,
+                                  n_attempts=NPT_ATTEMPTS)
+    sampler = ParallelTemperingSampler(
+        mcmc_moves=SequenceMove([langevin, baro]),
+        number_of_iterations=NPT_ITERATIONS, online_analysis_interval=None,
+        replica_mixing_scheme="swap-neighbors", rng_seed=193)
+    t0 = time.perf_counter()
+    sampler.create(w.thermodynamic_state(WATER_T, pressure=EQ_PRESSURE),
+                   w.sampler_state(), temperatures=PT_WATER_TEMPERATURES)
+    sampler.minimize(max_iterations=MS_FIRE_STEPS)
+    t_setup = time.perf_counter() - t0
+    n = sampler.n_replicas
+    states = sampler._thermodynamic_states
+    assert sampler.propagation_route == "batched"
+    kernels = tree_kernels([langevin], states)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    sampler.run(NPT_ITERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, by_batch = merged_counts(kernels)
+    it = NPT_ITERATIONS
+    want = {("sweep_bound", 2 * n): NPT_ATTEMPTS * it,
+            ("sweep_forces", 2 * n): NPT_ATTEMPTS * it,
+            ("sweep_bound", n): (PT_WATER_STEPS + 2) * it,
+            ("sweep_forces", n): (PT_WATER_STEPS + 2) * it}
+    assert by_batch == want, by_batch
+    u = sampler.energies_last_iteration
+    s = sampler.replica_states
+    beta = sampler._stacked_sampled.beta.numpy()
+    p = EQ_PRESSURE * BAR_TO_KJ_PER_MOL_NM3
+    edges, worst_bond, worst_u = [], 0.0, 0.0
+    bound = sampler._matrix_bound()
+    for r, ss in enumerate(sampler.sampler_states):
+        edges.append(float(ss.box_vectors[0, 0]))
+        worst_bond = max(worst_bond, bond_error(w.system, ss.positions,
+                                                ss.box_vectors))
+        (U,) = plain_energies(bound, [ss], {})
+        U_run = float(u[r, s[r]]) / beta[s[r]] - p * float(
+            volume(ss.box_vectors))
+        worst_u = max(worst_u, abs(U_run - U) / abs(U))
+    say(f"phase 19c NPT PT on PMEWaterBox({WATER_EDGE}) at "
+        f"{PT_WATER_TEMPERATURES} K and {EQ_PRESSURE} bar, SequenceMove("
+        f"Langevin {PT_WATER_STEPS} steps, barostat {NPT_ATTEMPTS} attempts "
+        f"of +-{NPT_VOLUME_SCALE} in ln V): set-up {t_setup:.2f} s, {it} "
+        f"iterations in {wall:.2f} s ({wall / it:.3f} s an iteration); K2 "
+        f"by batch size {batch_key(by_batch)}; barostat {baro.n_accepted}/"
+        f"{baro.n_proposed} accepted; box edges {edges} nm; worst relative "
+        f"bond-length error {worst_bond:.2e}; U at the final boxes against "
+        f"the plain sweep plus the remainder of each replica alone: worst "
+        f"rel {worst_u:.2e} ({smi})")
+    assert len(set(edges)) > 1, edges
+    assert worst_bond <= 1e-5, worst_bond
+    assert worst_u <= REL_TOL, worst_u
+    return dict(replicas=n, iterations=it, setup_s=t_setup,
+                seconds_per_iteration=wall / it,
+                batch_launches=batch_key(by_batch),
+                barostat=[baro.n_accepted, baro.n_proposed], box_edges=edges,
+                bond_error=worst_bond, u_rel=worst_u)
+
+
+def phase_per_state_moves(dev, smi, re_sampler):
+    """19d: per-state moves (two Langevin moves of different timesteps:
+    two batched groups) and a WeightedMove of the displacement and the
+    rotation (branch groups), one iteration each on the ladder."""
+    from openmmtools_tpu_torch.mcmc import (
+        LangevinSplittingDynamicsMove,
+        MCDisplacementMove,
+        MCRotationMove,
+        SequenceMove,
+        WeightedMove,
+    )
+    from openmmtools_tpu_torch.multistate import MultiStateSampler
+
+    states = re_sampler._thermodynamic_states
+    n_states = len(states)
+
+    def langevin(timestep, n_steps):
+        return LangevinSplittingDynamicsMove(
+            timestep=timestep, collision_rate=1.0, n_steps=n_steps,
+            splitting="V R O R V")
+
+    def run_one(moves, seed):
+        sampler = MultiStateSampler(mcmc_moves=moves, number_of_iterations=1,
+                                    online_analysis_interval=None,
+                                    rng_seed=seed)
+        sampler.create(states, re_sampler.sampler_states)
+        assert sampler.propagation_route == "batched"
+        return sampler
+
+    a, b = langevin(0.002, PER_STATE_STEPS), langevin(0.001, PER_STATE_STEPS)
+    moves = [a] * 5 + [b] * (n_states - 5)
+    sampler = run_one(moves, 194)
+    n = sampler.n_replicas
+    s_of = sampler.replica_states.tolist()
+    groups = MultiStateSampler.move_groups(moves, s_of)
+    assert [len(g) for g in groups] == [5, n - 5], groups
+    kernels = tree_kernels([a, b], states)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    sampler.run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, by_batch = merged_counts(kernels)
+    want = {("sweep_bound", 5): PER_STATE_STEPS + 1,
+            ("sweep_forces_alch", 5): PER_STATE_STEPS + 1,
+            ("sweep_bound", n - 5): PER_STATE_STEPS + 1,
+            ("sweep_forces_alch", n - 5): PER_STATE_STEPS + 1,
+            ("sweep_bound", n): 1, ("sweep_forces_alch", n * n_states): 1}
+    assert by_batch == want, by_batch
+    assert np.isfinite(sampler.energies_last_iteration).all()
+    say(f"phase 19d per-state moves on the ladder (states 0-4 Langevin 2 fs,"
+        f" 5-8 1 fs, {PER_STATE_STEPS} steps): groups of "
+        f"{[len(g) for g in groups]} replicas, one iteration {wall:.2f} s; "
+        f"K2 by batch size {batch_key(by_batch)} ({smi})")
+
+    disp = MCDisplacementMove(atom_subset=ALCH_WATER)
+    rot = MCRotationMove(atom_subset=ALCH_WATER)
+    sizes = {"displacement": [], "rotation": []}
+    for name, move in (("displacement", disp), ("rotation", rot)):
+        def recorded(ts, sss, gens, *args, _apply=move.apply_batch,
+                     _sizes=sizes[name], **kwargs):
+            _sizes.append(len(sss))
+            return _apply(ts, sss, gens, *args, **kwargs)
+        move.apply_batch = recorded
+    dynamics = langevin(0.002, WEIGHTED_STEPS)
+    tree = SequenceMove([WeightedMove([(disp, 0.5), (rot, 0.5)]), dynamics])
+    sampler = run_one(tree, 195)
+    kernels = tree_kernels([dynamics], states)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    sampler.run(1)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    _, by_batch_w = merged_counts(kernels)
+    n_disp = sum(sizes["displacement"])
+    n_rot = sum(sizes["rotation"])
+    say(f"phase 19d WeightedMove(displacement, rotation) then Langevin "
+        f"{WEIGHTED_STEPS} steps: branch groups displacement "
+        f"{sizes['displacement']}, rotation {sizes['rotation']} "
+        f"(sum {n_disp + n_rot}); one iteration {wall_w:.2f} s; K2 by batch "
+        f"size {batch_key(by_batch_w)}; accepted displacement "
+        f"{disp.n_accepted}/{disp.n_proposed}, rotation {rot.n_accepted}/"
+        f"{rot.n_proposed} ({smi})")
+    assert n_disp + n_rot == n
+    for name, count in (("displacement", n_disp), ("rotation", n_rot)):
+        if count:
+            assert by_batch_w[("sweep_forces_alch", 2 * count)] >= 1, name
+    return dict(groups=[len(g) for g in groups], iteration_s=wall,
+                batch_launches=batch_key(by_batch),
+                weighted_groups=[n_disp, n_rot], weighted_iteration_s=wall_w,
+                weighted_batch_launches=batch_key(by_batch_w))
+
+
+def phase_native_parser(root, smi):
+    """19e: the native prmtop parser on 18a's JAC-size stand-in: a fresh
+    build (into a temporary directory), the parse seconds native and in
+    pure Python (median of 3), every section equal."""
+    from openmmtools_tpu_torch.models import amber
+    from openmmtools_tpu_torch.ops import _build
+
+    path = str(root / "dhfr" / "JAC.prmtop")
+    saved = _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.BUILD_DIR = pathlib.Path(tmp)
+        try:
+            t0 = time.perf_counter()
+            _build.host_library("prmtop_parser")
+            t_build = time.perf_counter() - t0
+        finally:
+            _build.BUILD_DIR = saved
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn(path)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), out
+
+    amber.parse_prmtop(path)        # the checkout's library, built once
+    t_native, native = timed(amber.parse_prmtop)
+    t_python, python = timed(amber.parse_prmtop_python)
+    assert list(native) == list(python)
+    for flag, values in native.items():
+        assert values.dtype == python[flag].dtype, flag
+        assert np.array_equal(values, python[flag]), flag
+    say(f"phase 19e the native prmtop parser on the JAC-size stand-in "
+        f"({pathlib.Path(path).stat().st_size / 1e6:.1f} MB, {len(native)} "
+        f"sections, every one equal to the pure-Python parse's): a fresh "
+        f"build {t_build:.2f} s; the parse {t_native:.4f} s native, "
+        f"{t_python:.4f} s in pure Python (median of 3; "
+        f"{t_python / t_native:.1f}x) on the card machine's host ({smi})")
+    return dict(build_s=t_build, native_s=t_native, python_s=t_python,
+                sections=len(native))
+
+
 # -- phase 18: the loader's explicit-solvent path at JAC's size --------------
 
 JAC_CHAINS = 40          # 18a: all-trans eicosanes, C20H42, 62 atoms each
 JAC_CARBONS = 20
-JAC_STEPS = 2_000        # 18c: the main path's steps, in chunks
+JAC_STEPS = 1_000        # 18c: the main path's steps, in chunks
 JAC_CHUNK = 500
 JAC_MIN_ITERATIONS = 100
 STAND_IN = "JAC-size stand-in, not DHFR"
@@ -4371,7 +4841,7 @@ def phase_stand_ins(root, smi):
                  "alanine-dipeptide.crd", vacuum_chain())
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data = amber.parse_prmtop(str(root / "dhfr" / "JAC.prmtop"))
+    data = amber.parse_prmtop_python(str(root / "dhfr" / "JAC.prmtop"))
     t_parse = time.perf_counter() - t0
     n_solute = JAC_CHAINS * (3 * JAC_CARBONS + 2)
     n_waters = (jac.n_atoms - n_solute) // 3
@@ -4715,6 +5185,7 @@ def phase_prmtop(dev, smi):
         amber.DEFAULT_DATA_DIR = os.environ["OPENMMTOOLS_TPU_DATA"] = tmp
         try:
             out = {"stand_ins": phase_stand_ins(root, smi)}
+            native = phase_native_parser(root, smi)
             out["loader_water"] = phase_loader_water(dev, smi, root)
             entry, out["jac_path"] = phase_jac_path(dev, smi, root)
             out.update(phase_benchmarks(smi))
@@ -4727,7 +5198,7 @@ def phase_prmtop(dev, smi):
                 os.environ["OPENMMTOOLS_TPU_DATA"] = saved[1]
     out["seconds"] = time.perf_counter() - t0
     say(f"phase 18 in {out['seconds']:.1f} s")
-    return entry, out
+    return entry, out, native
 
 
 
@@ -4768,7 +5239,16 @@ def main():
     batched["atom_shard"] = phase_atom_shard(dev, smi)
     batched["seconds"] = time.perf_counter() - t0
     say(f"phase 17 in {batched['seconds']:.1f} s")
-    jac_kernel, prmtop = phase_prmtop(dev, smi)
+    jac_kernel, prmtop, native = phase_prmtop(dev, smi)
+    t0 = time.perf_counter()
+    trees = {"ladder": phase_tree_batched(dev, smi, re_sampler,
+                                          batched["eager_loop"])}
+    trees["against_eager"] = phase_tree_against_eager(dev, smi, re_sampler)
+    trees["npt"] = phase_npt_tree(dev, smi)
+    trees["per_state"] = phase_per_state_moves(dev, smi, re_sampler)
+    trees["native_parser"] = native
+    trees["seconds"] = time.perf_counter() - t0
+    say(f"phase 19 in {trees['seconds']:.1f} s (19e within phase 18)")
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
@@ -4776,7 +5256,8 @@ def main():
                     "multistate_path": multistate,
                     "equilibration_path": equilibration,
                     "catalog_path": catalog, "batched_path": batched,
-                    "prmtop_path": prmtop, "card": smi}, default=str))
+                    "prmtop_path": prmtop, "move_trees": trees,
+                    "card": smi}, default=str))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels + batched_kernels
                       + [jac_kernel]}))

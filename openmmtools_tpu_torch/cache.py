@@ -16,7 +16,7 @@ So this module provides
 * ``global_context_cache``: the module's singleton.
 
 The cache is keyed by content: the system's ``fingerprint`` (a hash of its
-tensors), the ensemble's structure (NVT or NPT, surface tension, the global
+tensors) and device, the ensemble's structure (NVT or NPT, surface tension, the global
 parameter names) and the integrator's class and settings. The JAX package
 keys by structure (tree shape and leaf shapes), which suits compiled
 programs; a bound integrator holds the system's tensors (the sweep's
@@ -149,9 +149,11 @@ class LRUCache:
 
 def _state_key(thermodynamic_state):
     """The content of a state that a bound integrator depends on: its
-    system's fingerprint and its ensemble's structure."""
+    system's fingerprint, the device its tensors are on (a copy of the
+    system on another card binds its own) and its ensemble's structure."""
     ts = thermodynamic_state
-    return (ts.system.fingerprint, ts.pressure is not None,
+    return (ts.system.fingerprint, str(ts.system.device),
+            ts.pressure is not None,
             ts.surface_tension is not None,
             tuple(sorted(ts.global_params or {})))
 

@@ -5,9 +5,13 @@ openmmtools' contract ``MCMCMove.apply(thermodynamic_state, sampler_state)``
 returns the new SamplerState instead of mutating it. Each move owns its
 randomness: a ``torch.Generator`` seeded from ``seed``, one for each device
 it has seen, made on the device of the sampler state's positions (a CPU
-generator cannot drive draws on the card). A move passes its generator to
-the integrator state it builds, and a container's moves draw from their
-own. The statistics (``n_accepted``/``n_proposed``) are host integers.
+generator cannot drive draws on the card). A caller may hand ``apply`` a
+generator instead (the multistate sampler gives each replica its own):
+then every draw of the move comes from it, and a container passes it down
+to each of its moves in order, so that one stream reaches every leaf of
+the tree (the JAX package splits the replica's key across the children).
+Without one, a container's moves draw from their own generators. The
+statistics (``n_accepted``/``n_proposed``) are host integers.
 
 The Metropolized moves split into a draw and a deterministic core that
 takes the draws as arguments: the displacement vector, the quaternion's
@@ -15,20 +19,35 @@ three uniforms, the barostat's ln V step epsilon, and ln u of the
 acceptance test. The core takes both energies of an attempt from a bound
 integrator that the context cache holds for the state (``cache.py``; the
 ``context_cache`` of ``apply``, else the global one): its
-``energies_at``, which on the card is sweep mode and the sweep kernel for a
-large periodic system and K1's force kernel for an LJ fluid, never the
-dense O(N^2) sum.
+``energies_batch``, which on the card is sweep mode and the sweep kernel
+for a large periodic system and K1's force kernel for an LJ fluid, never
+the dense O(N^2) sum.
+
+Every move applies to many replicas at once (:meth:`MCMCMove.apply_batch`,
+the JAX package's vmap of the compiled move program over replicas):
+replica b at its own state, drawing from its own generator in the order
+``apply`` draws, so that the batch and one ``apply`` a replica give the
+same result. ``batches`` says whether a move does this as one batch:
+
+* an integrator move: one bound integrator advances the replicas as one
+  batch, each at its state's temperature and global parameters; a replica
+  that comes back with NaN is redone by the single-replica move, from its
+  next attempt on;
+* a Metropolized move (displacement, rotation): the proposals of the batch
+  are stacked and both reduced potentials of every replica come from one
+  ``energies_batch`` of 2B configurations; the barostat does the same for
+  each of its attempts, each replica at its own box and trial box;
+* ``SequenceMove``: each move's batch in order; ``WeightedMove``: each
+  replica draws its branch, and the replicas of a branch run as one batch.
+
+A bound class that brings its own step and a user's move that implements
+only ``_apply`` do not batch: the sampler applies a tree that holds one a
+replica at a time. ``moves_equal`` compares two move trees by what they
+do.
 
 On NaN an integrator move retries up to ``n_restart_attempts`` times, the
 last with fresh velocities, then writes the failing state to
 ``nan-error-logs/`` and raises :class:`IntegratorMoveError`.
-
-An integrator move also applies to many replicas at once
-(:meth:`BaseIntegratorMove.apply_batch`): one bound integrator advances
-them as one batch, each replica at its own state's temperature and global
-parameters and drawing from its own generator (the JAX package's vmap of
-the move over replicas). A replica that comes back with NaN is redone by
-the single-replica move, from its next attempt on.
 
 Moves serialize through ``utils.serialization``: their parameters,
 statistics and generator states, not their caches of bound integrators.
@@ -57,7 +76,6 @@ from openmmtools_tpu_torch.states import (
     SamplerState,
 )
 from openmmtools_tpu_torch.system import HarmonicBondTerm
-from openmmtools_tpu_torch.system import volume as box_volume
 
 logger = logging.getLogger(__name__)
 
@@ -79,27 +97,52 @@ def _context(thermodynamic_state, context_cache=None):
     return context_cache.get_context(thermodynamic_state)[0]
 
 
-def potential_energies(thermodynamic_state, sampler_states,
-                       context_cache=None):
-    """U (float64) of each sampler state at the thermodynamic state, each
-    at its own box, by the bound integrator that ``context_cache`` (default:
-    the global cache) holds for the state: ``energies_at``, the path the
-    step program takes (sweep mode and the sweep kernel on a large periodic
-    system on the card, K1's force kernel on an LJ fluid there)."""
-    bound = _context(thermodynamic_state, context_cache)
-    params = thermodynamic_state.global_params
-    return [bound.energies_at(ss.positions, ss.box_vectors, [params])[0]
-            for ss in sampler_states]
+def _per_config(thermodynamic_states, n):
+    """One thermodynamic state a configuration: a sequence as given, else
+    the one state ``n`` times."""
+    if isinstance(thermodynamic_states, (list, tuple)):
+        return list(thermodynamic_states)
+    return [thermodynamic_states] * n
 
 
-def reduced_potentials(thermodynamic_state, sampler_states,
+def potential_energies(thermodynamic_states, sampler_states,
                        context_cache=None):
-    """beta (U + p V - gamma A) of each sampler state, U by
-    :func:`potential_energies`."""
-    ts = thermodynamic_state
-    return [ts.reduced_potential(ss, potential_energy=u) for ss, u in zip(
-        sampler_states, potential_energies(ts, sampler_states,
-                                           context_cache))]
+    """U (float64) of each sampler state, each at its own box and at its
+    own state's global parameters (``thermodynamic_states``: one state for
+    all, or one a sampler state, all of one system), as ONE
+    ``energies_batch`` of the bound integrator that ``context_cache``
+    (default: the global cache) holds for the first state: the path the
+    step program takes (sweep mode on a large periodic system on the card,
+    one sort of each configuration and one launch of each sweep kernel for
+    all of them; K1's force kernel on an LJ fluid there, once a
+    configuration). Raises as ``energies_at`` does on an
+    exclusion-bitfield overflow."""
+    states = _per_config(thermodynamic_states, len(sampler_states))
+    bound = _context(states[0], context_cache)
+    x = torch.stack([ss.positions for ss in sampler_states])
+    default = bound.system.default_box
+    boxes = [default if ss.box_vectors is None else ss.box_vectors
+             for ss in sampler_states]
+    box = None if boxes[0] is None else torch.stack(
+        [b.to(x.dtype) for b in boxes])
+    names = list(states[0].global_params or {})
+    params = {k: torch.stack([torch.as_tensor(
+        ts.global_params[k], dtype=x.dtype, device=x.device)
+        for ts in states]) for k in names}
+    U, overflow = bound.energies_batch(
+        x, box, torch.arange(len(states), device=x.device), params)
+    bound.check_sweep_overflow(overflow)
+    return list(torch.unbind(U))
+
+
+def reduced_potentials(thermodynamic_states, sampler_states,
+                       context_cache=None):
+    """beta (U + p V - gamma A) of each sampler state at its state (one
+    for all, or one a sampler state), U by :func:`potential_energies`."""
+    states = _per_config(thermodynamic_states, len(sampler_states))
+    return [ts.reduced_potential(ss, potential_energy=u)
+            for ts, ss, u in zip(states, sampler_states, potential_energies(
+                states, sampler_states, context_cache))]
 
 
 class MCMCMoveError(Exception):
@@ -171,6 +214,23 @@ class MCMCMove:
                context_cache):
         raise NotImplementedError
 
+    def batches(self, thermodynamic_state) -> bool:
+        """Whether :meth:`apply_batch` advances replicas at states of this
+        one's system as one batch (a move that implements only ``_apply``
+        does not)."""
+        return False
+
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
+        """Apply the move to B replicas: replica b at
+        ``thermodynamic_states[b]`` (all of one system), drawing from
+        ``generators[b]`` in the order :meth:`apply` draws; the B new
+        sampler states. ``owners[b]`` (default: this move) is a move equal
+        to this one (:func:`moves_equal`) whose statistics count replica b,
+        as the sampler's per-state moves do. The moves that batch implement
+        it."""
+        raise NotImplementedError(f"{type(self).__name__} does not batch")
+
     @property
     def statistics(self) -> Dict[str, Any]:
         return {}
@@ -208,12 +268,30 @@ class SequenceMove(MCMCMove):
         super().__init__(seed)
         self.move_list = list(move_list)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator,
-               context_cache):
+    def apply(self, thermodynamic_state, sampler_state: SamplerState,
+              generator: Optional[torch.Generator] = None,
+              context_cache=None) -> SamplerState:
+        """Apply each move in order, each drawing from ``generator`` (the
+        replica's stream) where one is given, else from its own."""
         for move in self.move_list:
             sampler_state = move.apply(thermodynamic_state, sampler_state,
+                                       generator=generator,
                                        context_cache=context_cache)
         return sampler_state
+
+    def batches(self, thermodynamic_state) -> bool:
+        return all(m.batches(thermodynamic_state) for m in self.move_list)
+
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
+        """Each move's batch in order, the replicas' generators handed
+        down."""
+        owners = owners or [self] * len(sampler_states)
+        for i, move in enumerate(self.move_list):
+            sampler_states = move.apply_batch(
+                thermodynamic_states, sampler_states, generators,
+                context_cache, owners=[o.move_list[i] for o in owners])
+        return sampler_states
 
     @property
     def statistics(self):
@@ -236,14 +314,48 @@ class WeightedMove(MCMCMove):
         super().__init__(seed)
         self.move_set = list(move_set)
 
-    def _apply(self, thermodynamic_state, sampler_state, generator,
-               context_cache):
+    def _pick(self, generator) -> int:
+        """The branch, drawn by weight from ``generator``."""
         weights = torch.as_tensor([w for _, w in self.move_set],
                                   dtype=torch.float64, device=generator.device)
-        idx = int(torch.multinomial(weights / weights.sum(), 1,
-                                    generator=generator))
-        return self.move_set[idx][0].apply(thermodynamic_state, sampler_state,
-                                           context_cache=context_cache)
+        return int(torch.multinomial(weights / weights.sum(), 1,
+                                     generator=generator))
+
+    def apply(self, thermodynamic_state, sampler_state: SamplerState,
+              generator: Optional[torch.Generator] = None,
+              context_cache=None) -> SamplerState:
+        """Draw the branch from ``generator`` and apply it drawing from the
+        same; without one, the branch from this move's generator and the
+        branch's draws from its own."""
+        own = generator
+        if own is None:
+            own = self.generator(sampler_state.positions.device)
+        move = self.move_set[self._pick(own)][0]
+        return move.apply(thermodynamic_state, sampler_state,
+                          generator=generator, context_cache=context_cache)
+
+    def batches(self, thermodynamic_state) -> bool:
+        return all(m.batches(thermodynamic_state) for m, _ in self.move_set)
+
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
+        """Each replica draws its branch from its generator; the replicas
+        of a branch run as one batch, and the results go back in order."""
+        owners = owners or [self] * len(sampler_states)
+        picks = [self._pick(gen) for gen in generators]
+        out = list(sampler_states)
+        for i, (move, _) in enumerate(self.move_set):
+            idx = [b for b, p in enumerate(picks) if p == i]
+            if not idx:
+                continue
+            new = move.apply_batch(
+                [thermodynamic_states[b] for b in idx],
+                [sampler_states[b] for b in idx],
+                [generators[b] for b in idx], context_cache,
+                owners=[owners[b].move_set[i][0] for b in idx])
+            for b, ss in zip(idx, new):
+                out[b] = ss
+        return out
 
     @property
     def statistics(self):
@@ -292,15 +404,18 @@ class BaseIntegratorMove(MCMCMove):
         bound = self._bound(thermodynamic_state)
         return not brings_own_step(type(bound))
 
-    def apply_batch(self, thermodynamic_states, sampler_states,
-                    generators) -> list:
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
         """Apply the move to B replicas as one batch: replica b at
         ``thermodynamic_states[b]`` (all of one system), drawing from
         ``generators[b]``. One bound integrator (that of the first state)
         serves them all: each replica's kT and global parameters ride in
         the batched state. Returns the B new sampler states. A replica that
-        went to NaN is redone alone, by :meth:`apply`'s restarts from the
-        second attempt on; the others keep the batch's result."""
+        went to NaN is redone alone, by its owner's :meth:`apply` restarts
+        from the second attempt on; the others keep the batch's result.
+        The integrator moves keep their bound integrators on the move, so
+        ``context_cache`` plays no part."""
+        owners = owners or [self] * len(sampler_states)
         states = [_resolve(ts) for ts in thermodynamic_states]
         bound = self._bound(states[0])
         sampler_states = [ss.replace(velocities=None)
@@ -316,16 +431,20 @@ class BaseIntegratorMove(MCMCMove):
                 "drastically")
         out = bound.sampler_states_from(state)
         ok = torch.stack([~ss.has_nan() for ss in out]).cpu()
-        if bool(ok.any()):
-            keep = torch.nonzero(ok).reshape(-1).to(state.n_accepted.device)
-            self._on_integration_end(state.replace(
-                n_accepted=state.n_accepted[keep],
-                n_proposed=state.n_proposed[keep]))
+        kept = torch.nonzero(ok).reshape(-1).tolist()
+        # each owner harvests the statistics of its finite replicas
+        for owner in {id(o): o for o in owners}.values():
+            mine = [b for b in kept if owners[b] is owner]
+            if mine:
+                keep = torch.as_tensor(mine, device=state.n_accepted.device)
+                owner._on_integration_end(state.replace(
+                    n_accepted=state.n_accepted[keep],
+                    n_proposed=state.n_proposed[keep]))
         for b in torch.nonzero(~ok).reshape(-1).tolist():
             logger.warning("NaN in %s (replica %d of a batch); restarting "
                            "it alone", type(self).__name__, b)
-            out[b] = self._attempts(states[b], sampler_states[b],
-                                    generators[b], first=1)
+            out[b] = owners[b]._attempts(states[b], sampler_states[b],
+                                         generators[b], first=1)
         return out
 
     def _apply(self, thermodynamic_state, sampler_state, generator,
@@ -515,7 +634,9 @@ class MetropolizedMove(MCMCMove):
 
     Subclasses implement ``_draw(generator, like)`` (the proposal's random
     numbers) and ``_propose_positions(draw, sub_positions)`` on the selected
-    atom subset; :meth:`metropolis_step` is the deterministic core.
+    atom subset, both over any leading batch axes; :meth:`metropolis_batch`
+    is the deterministic core, and the single-replica path is its batch of
+    one.
     """
 
     def __init__(self, atom_subset: Optional[Sequence[int]] = None,
@@ -540,37 +661,69 @@ class MetropolizedMove(MCMCMove):
     def _propose_positions(self, draw, sub_positions):
         raise NotImplementedError
 
+    def _draws(self, generator, like):
+        """The proposal's draw, then ln u of the acceptance test."""
+        draw = self._draw(generator, like)
+        return draw, torch.log(draw_uniform(generator, (), like))
+
+    def metropolis_batch(self, thermodynamic_states, sampler_states, draws,
+                         log_u, context_cache=None):
+        """B moves given their draws (``draws`` (B, ...) of the proposals,
+        ``log_u`` (B,) = ln u of the acceptance tests): the B new sampler
+        states and the accept flags, a (B,) tensor. Both reduced potentials
+        of every replica, at its own state, come from ONE
+        :func:`reduced_potentials` of the 2B configurations."""
+        x = torch.stack([ss.positions for ss in sampler_states])
+        subset = (torch.arange(x.shape[1], device=x.device)
+                  if self.atom_subset is None
+                  else torch.as_tensor(self.atom_subset, dtype=torch.int64,
+                                       device=x.device))
+        x_new = x.clone()
+        x_new[:, subset] = self._propose_positions(draws, x[:, subset])
+        proposed = [ss.replace(positions=xn)
+                    for ss, xn in zip(sampler_states, x_new)]
+        b = len(sampler_states)
+        u = torch.stack([torch.as_tensor(v) for v in reduced_potentials(
+            list(thermodynamic_states) * 2, list(sampler_states) + proposed,
+            context_cache)])
+        accept = log_u < -(u[b:] - u[:b])
+        x_out = torch.where(accept[:, None, None], x_new, x)
+        return ([ss.replace(positions=xo)
+                 for ss, xo in zip(sampler_states, x_out)], accept)
+
     def metropolis_step(self, thermodynamic_state, sampler_state, draw,
                         log_u, context_cache=None):
         """One move given its draws (the proposal's ``draw`` and ``log_u``
         = ln u of the acceptance test): the new sampler state and the
-        accept flag, a tensor. Both reduced potentials take U from the
-        context cache's bound integrator (``reduced_potentials``)."""
-        x = sampler_state.positions
-        subset = (torch.arange(x.shape[0], device=x.device)
-                  if self.atom_subset is None
-                  else torch.as_tensor(self.atom_subset, dtype=torch.int64,
-                                       device=x.device))
-        x_new = x.index_put((subset,),
-                            self._propose_positions(draw, x[subset]))
-        proposed = sampler_state.replace(positions=x_new)
-        u_old, u_new = reduced_potentials(
-            thermodynamic_state, (sampler_state, proposed), context_cache)
-        accept = log_u < -(u_new - u_old)
-        return (sampler_state.replace(positions=torch.where(accept, x_new, x)),
-                accept)
+        accept flag, a tensor; :meth:`metropolis_batch` of one."""
+        out, accept = self.metropolis_batch(
+            [thermodynamic_state], [sampler_state], draw[None],
+            torch.as_tensor(log_u).reshape(1), context_cache)
+        return out[0], accept[0]
+
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
+        """Each replica draws from its generator, then one
+        :meth:`metropolis_batch`; each owner counts its replicas."""
+        owners = owners or [self] * len(sampler_states)
+        states = [_resolve(ts) for ts in thermodynamic_states]
+        draws, log_u = zip(*[self._draws(gen, ss.positions)
+                             for gen, ss in zip(generators, sampler_states)])
+        out, accept = self.metropolis_batch(
+            states, sampler_states, torch.stack(draws), torch.stack(log_u),
+            context_cache)
+        for owner, a in zip(owners, accept.tolist()):
+            owner.n_proposed += 1
+            owner.n_accepted += int(a)
+        return out
+
+    def batches(self, thermodynamic_state) -> bool:
+        return True
 
     def _apply(self, thermodynamic_state, sampler_state, generator,
                context_cache):
-        x = sampler_state.positions
-        draw = self._draw(generator, x)
-        log_u = torch.log(draw_uniform(generator, (), x))
-        new_ss, accept = self.metropolis_step(thermodynamic_state,
-                                              sampler_state, draw, log_u,
-                                              context_cache)
-        self.n_proposed += 1
-        self.n_accepted += int(accept)
-        return new_ss
+        return self.apply_batch([thermodynamic_state], [sampler_state],
+                                [generator], context_cache)[0]
 
 
 class MCDisplacementMove(MetropolizedMove):
@@ -585,7 +738,7 @@ class MCDisplacementMove(MetropolizedMove):
         return self.displacement_sigma * draw_normal(generator, (3,), like)
 
     def _propose_positions(self, draw, sub_positions):
-        return sub_positions + draw
+        return sub_positions + draw[..., None, :]
 
 
 class MCRotationMove(MetropolizedMove):
@@ -598,29 +751,35 @@ class MCRotationMove(MetropolizedMove):
 
     def _propose_positions(self, draw, sub_positions):
         R = self._quat_to_matrix(self._random_quaternion(draw))
-        centroid = torch.mean(sub_positions, dim=0, keepdim=True)
-        return (sub_positions - centroid) @ R.t() + centroid
+        centroid = torch.mean(sub_positions, dim=-2, keepdim=True)
+        d = sub_positions - centroid
+        # the product written out, so that each row is the same sum of
+        # three products whatever the batch
+        rotated = torch.stack(
+            [d[..., 0] * R[..., None, i, 0] + d[..., 1] * R[..., None, i, 1]
+             + d[..., 2] * R[..., None, i, 2] for i in range(3)], dim=-1)
+        return rotated + centroid
 
     @staticmethod
     def _random_quaternion(u):
-        a = torch.sqrt(1.0 - u[0])
-        b = torch.sqrt(u[0])
-        return torch.stack([a * torch.sin(2 * math.pi * u[1]),
-                            a * torch.cos(2 * math.pi * u[1]),
-                            b * torch.sin(2 * math.pi * u[2]),
-                            b * torch.cos(2 * math.pi * u[2])])
+        a = torch.sqrt(1.0 - u[..., 0])
+        b = torch.sqrt(u[..., 0])
+        return torch.stack([a * torch.sin(2 * math.pi * u[..., 1]),
+                            a * torch.cos(2 * math.pi * u[..., 1]),
+                            b * torch.sin(2 * math.pi * u[..., 2]),
+                            b * torch.cos(2 * math.pi * u[..., 2])], dim=-1)
 
     @staticmethod
     def _quat_to_matrix(q):
-        x, y, z, w = q[0], q[1], q[2], q[3]
+        x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
         return torch.stack([
             torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
-                         2 * (x * z + y * w)]),
+                         2 * (x * z + y * w)], dim=-1),
             torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
-                         2 * (y * z - x * w)]),
+                         2 * (y * z - x * w)], dim=-1),
             torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
-                         1 - 2 * (x * x + y * y)]),
-        ])
+                         1 - 2 * (x * x + y * y)], dim=-1),
+        ], dim=-2)
 
 
 class MonteCarloBarostatMove(MetropolizedMove):
@@ -636,8 +795,12 @@ class MonteCarloBarostatMove(MetropolizedMove):
     Molecules are the connected components of the bond, constraint and
     virtual-site graph, found once a system on the host. Both energies of
     an attempt come from the context cache's bound integrator for the state
-    (``energies_at``), the trial one at the scaled box: sweep mode on a
-    water box on the card, with a fresh sort at that box.
+    (``energies_batch`` of the two configurations), the trial one at the
+    scaled box: sweep mode on a water box on the card, with a fresh sort at
+    each box. A batch of replicas (:meth:`attempt_batch`) takes each of its
+    attempts as one such call of 2B configurations, each replica at its own
+    box, trial box and state; the single-replica attempt is its batch of
+    one.
 
     In float32 the translation rounds each atom on its own, and over a run
     of attempts with no dynamics between them that error builds up in the
@@ -696,60 +859,139 @@ class MonteCarloBarostatMove(MetropolizedMove):
             self._molecules_cache[key] = self._molecule_ids(system)
         return self._molecules_cache[key]
 
-    def attempt(self, thermodynamic_state, sampler_state, eps, log_u,
-                mol_ids, n_molecules, context_cache=None):
-        """One volume attempt given its draws (``eps``, the ln V step, and
-        ``log_u``): the new sampler state and the accept flag, a tensor.
-        Both energies come from the context cache's bound integrator
-        (``potential_energies``)."""
-        ts = thermodynamic_state
-        box = sampler_state.box_vectors
-        x = sampler_state.positions
-        v_old = box_volume(box)
+    def attempt_batch(self, thermodynamic_states, sampler_states, eps,
+                      log_u, mol_ids, n_molecules, context_cache=None):
+        """One volume attempt of B replicas given their draws (``eps`` (B,),
+        the ln V steps, and ``log_u`` (B,)): the B new sampler states and
+        the accept flags, a (B,) tensor. All 2B energies come from one
+        :func:`potential_energies`; a constrained float32 system's trials
+        are projected onto the constraints as one batch."""
+        states = list(thermodynamic_states)
+        b = len(states)
+        x = torch.stack([ss.positions for ss in sampler_states])
+        box = torch.stack([ss.box_vectors for ss in sampler_states])
+        v_old = torch.prod(torch.diagonal(box, dim1=-2, dim2=-1), dim=-1)
         v_new = v_old * torch.exp(eps)
         scale = torch.exp(eps / 3.0)
-        box_new = box * scale
+        box_new = box * scale[:, None, None]
         # rigid molecule translation: x += (scale - 1) centroid[mol]
         counts = torch.zeros((n_molecules,), dtype=x.dtype,
                              device=x.device).index_add_(
-            0, mol_ids, torch.ones_like(x[:, 0]))
-        centers = torch.zeros((n_molecules, 3), dtype=x.dtype,
-                              device=x.device).index_add_(0, mol_ids, x)
+            0, mol_ids, torch.ones_like(x[0, :, 0]))
+        centers = torch.zeros((b, n_molecules, 3), dtype=x.dtype,
+                              device=x.device).index_add_(1, mol_ids, x)
         centers = centers / counts[:, None]
-        x_new = x + (scale - 1.0) * centers[mol_ids]
-        if x.dtype == torch.float32 and ts.system.constraints.n_constraints:
-            x_new = _context(ts, context_cache)._constrain_positions(x_new, x)
-        u_old, u_new = potential_energies(
-            ts, (sampler_state, sampler_state.replace(
-                positions=x_new, box_vectors=box_new)), context_cache)
-        beta = ts.beta
-        p = ts.pressure * BAR_TO_KJ_PER_MOL_NM3
-        log_alpha = (-(beta * (u_new - u_old) + beta * p * (v_new - v_old))
+        x_new = x + (scale - 1.0)[:, None, None] * centers[:, mol_ids]
+        if (x.dtype == torch.float32
+                and states[0].system.constraints.n_constraints):
+            x_new = _context(states[0], context_cache)._constrain_positions(
+                x_new, x)
+        trials = [ss.replace(positions=xn, box_vectors=bn)
+                  for ss, xn, bn in zip(sampler_states, x_new, box_new)]
+        U = torch.stack(potential_energies(
+            states * 2, list(sampler_states) + trials, context_cache))
+        beta = torch.as_tensor([ts.beta for ts in states],
+                               dtype=torch.float64, device=x.device)
+        p = torch.as_tensor([ts.pressure * BAR_TO_KJ_PER_MOL_NM3
+                             for ts in states],
+                            dtype=torch.float64, device=x.device)
+        log_alpha = (-(beta * (U[b:] - U[:b]) + beta * p * (v_new - v_old))
                      + (n_molecules + 1) * eps)
         accept = log_u < log_alpha
-        return sampler_state.replace(
-            positions=torch.where(accept, x_new, x),
-            box_vectors=torch.where(accept, box_new, box)), accept
+        x_out = torch.where(accept[:, None, None], x_new, x)
+        box_out = torch.where(accept[:, None, None], box_new, box)
+        return [ss.replace(positions=xo, box_vectors=bo)
+                for ss, xo, bo in zip(sampler_states, x_out, box_out)], accept
 
-    def _apply(self, thermodynamic_state, sampler_state, generator,
-               context_cache):
-        ts = thermodynamic_state
-        if ts.pressure is None:
+    def attempt(self, thermodynamic_state, sampler_state, eps, log_u,
+                mol_ids, n_molecules, context_cache=None):
+        """One volume attempt given its draws (``eps``, the ln V step, and
+        ``log_u``): the new sampler state and the accept flag, a tensor;
+        :meth:`attempt_batch` of one."""
+        out, accept = self.attempt_batch(
+            [thermodynamic_state], [sampler_state],
+            torch.as_tensor(eps).reshape(1), torch.as_tensor(log_u).reshape(1),
+            mol_ids, n_molecules, context_cache)
+        return out[0], accept[0]
+
+    def _attempt_draws(self, generator, like):
+        """An attempt's draws: eps, then ln u."""
+        eps = self.volume_scale * (2.0 * draw_uniform(generator, (), like)
+                                   - 1.0)
+        return eps, torch.log(draw_uniform(generator, (), like))
+
+    def apply_batch(self, thermodynamic_states, sampler_states, generators,
+                    context_cache=None, owners=None) -> list:
+        """``n_attempts`` attempts, each one :meth:`attempt_batch` of all
+        the replicas, each replica drawing from its generator; each owner
+        counts its replicas."""
+        owners = owners or [self] * len(sampler_states)
+        states = [_resolve(ts) for ts in thermodynamic_states]
+        if any(ts.pressure is None for ts in states):
             raise MCMCMoveError("MonteCarloBarostatMove requires an NPT state")
-        mol_ids, n_molecules = self._molecules_for(ts.system)
-        like = sampler_state.box_vectors
-        n_acc = torch.zeros((), dtype=torch.int64, device=like.device)
+        if any(ss.box_vectors is None for ss in sampler_states):
+            raise MCMCMoveError("MonteCarloBarostatMove requires periodic "
+                                "sampler states (no box vectors present)")
+        mol_ids, n_molecules = self._molecules_for(states[0].system)
+        n_acc = torch.zeros((len(sampler_states),), dtype=torch.int64,
+                            device=sampler_states[0].box_vectors.device)
         for _ in range(self.n_attempts):
-            eps = self.volume_scale * (2.0 * draw_uniform(generator, (), like)
-                                       - 1.0)
-            log_u = torch.log(draw_uniform(generator, (), like))
-            sampler_state, accept = self.attempt(ts, sampler_state, eps,
-                                                 log_u, mol_ids, n_molecules,
-                                                 context_cache)
+            eps, log_u = zip(*[self._attempt_draws(gen, ss.box_vectors)
+                               for gen, ss in zip(generators,
+                                                  sampler_states)])
+            sampler_states, accept = self.attempt_batch(
+                states, sampler_states, torch.stack(eps), torch.stack(log_u),
+                mol_ids, n_molecules, context_cache)
             n_acc = n_acc + accept.to(torch.int64)
-        self.n_proposed += self.n_attempts
-        self.n_accepted += int(n_acc)
-        return sampler_state
+        for owner, a in zip(owners, n_acc.tolist()):
+            owner.n_proposed += self.n_attempts
+            owner.n_accepted += int(a)
+        return sampler_states
+
+
+# the attributes that say nothing of what a move does: its statistics and
+# the seed of its own generator, which a caller's generator replaces
+_STATE_ATTRIBUTES = frozenset({"n_accepted", "n_proposed", "seed"})
+
+
+def _values_equal(a, b) -> bool:
+    if isinstance(a, MCMCMove) or isinstance(b, MCMCMove):
+        return moves_equal(a, b)
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_values_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, LangevinIntegrator) or isinstance(b, LangevinIntegrator):
+        from openmmtools_tpu_torch.cache import _integrator_key
+
+        # the temperature follows the state (IntegratorMove)
+        return _integrator_key(a) == _integrator_key(b)
+    if isinstance(a, (torch.Tensor, np.ndarray)) or isinstance(
+            b, (torch.Tensor, np.ndarray)):
+        try:
+            return bool(np.array_equal(np.asarray(torch.as_tensor(a).cpu()),
+                                       np.asarray(torch.as_tensor(b).cpu())))
+        except (TypeError, ValueError, RuntimeError):
+            return False
+    try:
+        return bool(a == b)
+    except (TypeError, ValueError, RuntimeError):
+        return False
+
+
+def moves_equal(a: MCMCMove, b: MCMCMove) -> bool:
+    """Whether two moves do the same: the same object, or of one class with
+    equal parameters, compared all the way down a container's moves (and an
+    integrator move's integrator by its settings). Statistics, the move's
+    own seed and its caches play no part."""
+    if a is b:
+        return True
+    if type(a) is not type(b):
+        return False
+    skip = _STATE_ATTRIBUTES | {"_generators"} | set(a._CACHES)
+    da = {k: v for k, v in a.__dict__.items() if k not in skip}
+    db = {k: v for k, v in b.__dict__.items() if k not in skip}
+    return da.keys() == db.keys() and all(
+        _values_equal(da[k], db[k]) for k in da)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,15 @@ end, so that both packages hold the same float32 parameters:
 * ``constraints='h-bonds'`` converts hydrogen bonds to distance
   constraints.
 
-Only the pure-Python fixed-width parser is here: the JAX package's native
-parser is a host-side speed-up of the same dict. Positions come from an
-inpcrd (:func:`parse_inpcrd`) or a PDB (:func:`parse_pdb_positions`).
+:func:`parse_prmtop` reads a file with the native parser,
+``native/prmtop_parser.cpp`` (the JAX package's C ABI, in a copy of the
+port's own), built at its first use by the host C++ compiler into
+``build/kernels/`` (``ops/_build.host_library``) and loaded with ctypes; a
+failed build or load raises with the compiler's stderr, and a file cut
+short or with a section shorter than ``POINTERS`` says raises.
+:func:`parse_prmtop_python`, the pure-Python fixed-width parser, stays as
+its oracle. Positions come from an inpcrd (:func:`parse_inpcrd`) or a PDB
+(:func:`parse_pdb_positions`).
 :class:`AmberTopology` carries atom and residue names for mdtraj-style
 selections (``select("protein and name CA")``).
 
@@ -34,6 +40,8 @@ package's variable), by default ``data/`` at the root of the checkout.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import re
 from typing import Dict, List, Optional
@@ -65,10 +73,152 @@ DEFAULT_DATA_DIR = os.environ.get(
         os.path.abspath(__file__)))), "data"))
 
 
+class PrmtopError(ValueError):
+    """A prmtop that cannot be read whole: cut short, a token that does not
+    parse, or a section missing or shorter than ``POINTERS`` says."""
+
+
+@functools.lru_cache(maxsize=None)
+def _native_parser():
+    """The native parser's library, built at first use and loaded, with
+    its entry points' types declared. Raises where it cannot be built."""
+    from openmmtools_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(_build.host_library("prmtop_parser")))
+    P, S = ctypes.c_void_p, ctypes.c_char_p
+    for name, restype, argtypes in (
+            ("prmtop_open", P, [S]),
+            ("prmtop_close", None, [P]),
+            ("prmtop_status", ctypes.c_int, [P]),
+            ("prmtop_section_kind", ctypes.c_int, [P, S]),
+            ("prmtop_section_len", ctypes.c_longlong, [P, S]),
+            ("prmtop_string_width", ctypes.c_int, [P, S]),
+            ("prmtop_n_sections", ctypes.c_longlong, [P]),
+            ("prmtop_section_name", None, [P, ctypes.c_longlong, S]),
+            ("prmtop_copy_longs", None, [P, S, P]),
+            ("prmtop_copy_doubles", None, [P, S, P]),
+            ("prmtop_copy_strings", None, [P, S, P])):
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+# the sections whose lengths POINTERS fixes: (flag, length of the pointers
+# p); NATOM p[0], NTYPES p[1], NBONH p[2], NTHETH p[4], NPHIH p[6], NRES
+# p[11], NBONA p[12], NTHETA p[13], NPHIA p[14], NUMBND p[15], NUMANG
+# p[16], NPTRA p[17]
+_SECTION_LENGTHS = (
+    ("CHARGE", lambda p: p[0]),
+    ("MASS", lambda p: p[0]),
+    ("ATOM_TYPE_INDEX", lambda p: p[0]),
+    ("NONBONDED_PARM_INDEX", lambda p: p[1] * p[1]),
+    ("RESIDUE_POINTER", lambda p: p[11]),
+    ("BOND_FORCE_CONSTANT", lambda p: p[15]),
+    ("BOND_EQUIL_VALUE", lambda p: p[15]),
+    ("ANGLE_FORCE_CONSTANT", lambda p: p[16]),
+    ("ANGLE_EQUIL_VALUE", lambda p: p[16]),
+    ("DIHEDRAL_FORCE_CONSTANT", lambda p: p[17]),
+    ("DIHEDRAL_PERIODICITY", lambda p: p[17]),
+    ("DIHEDRAL_PHASE", lambda p: p[17]),
+    ("LENNARD_JONES_ACOEF", lambda p: p[1] * (p[1] + 1) // 2),
+    ("LENNARD_JONES_BCOEF", lambda p: p[1] * (p[1] + 1) // 2),
+    ("BONDS_INC_HYDROGEN", lambda p: 3 * p[2]),
+    ("BONDS_WITHOUT_HYDROGEN", lambda p: 3 * p[12]),
+    ("ANGLES_INC_HYDROGEN", lambda p: 4 * p[4]),
+    ("ANGLES_WITHOUT_HYDROGEN", lambda p: 4 * p[13]),
+    ("DIHEDRALS_INC_HYDROGEN", lambda p: 5 * p[6]),
+    ("DIHEDRALS_WITHOUT_HYDROGEN", lambda p: 5 * p[14]),
+)
+# sections checked where present: NATOM, NRES, and the box's angle and
+# three edges where IFBOX (p[27]) is set, whose BOX_DIMENSIONS is required
+_OPTIONAL_LENGTHS = (
+    ("ATOM_NAME", lambda p: p[0]),
+    ("AMBER_ATOM_TYPE", lambda p: p[0]),
+    ("RADII", lambda p: p[0]),
+    ("SCREEN", lambda p: p[0]),
+    ("RESIDUE_LABEL", lambda p: p[11]),
+    ("BOX_DIMENSIONS", lambda p: 4),
+)
+
+
+def _check_sections(data: Dict[str, np.ndarray], path: str) -> None:
+    """Raise :class:`PrmtopError` unless every section the loader reads is
+    there at the length ``POINTERS`` gives it."""
+    p = data.get("POINTERS")
+    if p is None or len(p) < 18:
+        raise PrmtopError(f"{path}: no POINTERS section of 18 or more "
+                          "entries")
+    p = [int(v) for v in p]
+    required = [flag for flag, _ in _SECTION_LENGTHS]
+    if len(p) > 27 and p[27] > 0:
+        required.append("BOX_DIMENSIONS")
+    for flag, length in _SECTION_LENGTHS + _OPTIONAL_LENGTHS:
+        if flag not in data and flag not in required:
+            continue
+        if flag not in data or len(data[flag]) != length(p):
+            have = "missing" if flag not in data else len(data[flag])
+            raise PrmtopError(
+                f"{path}: section {flag} has {have} entries where POINTERS "
+                f"gives {length(p)}: the file is cut short or malformed")
+
+
 def parse_prmtop(path: str) -> Dict[str, np.ndarray]:
-    """Parse a prmtop file into {FLAG: array} (raw, unconverted): strings
-    for ``a`` formats, int64 for ``I``, float64 otherwise; blank fields are
-    dropped."""
+    """Parse a prmtop file into {FLAG: array} (raw, unconverted), with the
+    native parser: strings for ``a`` formats, int64 for ``I``, float64
+    otherwise; blank string fields are dropped; the sections in the order
+    of the file. The same dict as :func:`parse_prmtop_python`. Raises
+    :class:`PrmtopError` on a file cut short or malformed, and
+    ``KernelBuildError`` where the parser cannot be built."""
+    lib = _native_parser()
+    h = lib.prmtop_open(os.fsencode(path))
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        status = lib.prmtop_status(h)
+        if status:
+            raise PrmtopError(
+                f"{path}: " + ("a numeric field does not parse" if status == 1
+                               else "the file is cut short"))
+        out: Dict[str, np.ndarray] = {}
+        buf = ctypes.create_string_buffer(128)
+        for i in range(lib.prmtop_n_sections(h)):
+            lib.prmtop_section_name(h, i, buf)
+            flag = buf.value
+            kind = lib.prmtop_section_kind(h, flag)
+            n = lib.prmtop_section_len(h, flag)
+            if kind == 0:
+                arr = np.empty(n, dtype=np.int64)
+                lib.prmtop_copy_longs(h, flag, arr.ctypes.data)
+            elif kind == 1:
+                arr = np.empty(n, dtype=np.float64)
+                lib.prmtop_copy_doubles(h, flag, arr.ctypes.data)
+            elif kind == 2:
+                w = lib.prmtop_string_width(h, flag)
+                raw = ctypes.create_string_buffer(int(n * w))
+                lib.prmtop_copy_strings(h, flag, raw)
+                # the fields stripped and the blank ones dropped, as one
+                # array operation; the dtype as wide as the longest field,
+                # as np.asarray of the strings gives
+                fields = np.char.strip(np.frombuffer(raw.raw, dtype=f"S{w}"))
+                fields = fields[fields != b""]
+                arr = np.asarray([])
+                if fields.size:
+                    width = int(np.char.str_len(fields).max())
+                    arr = fields.astype(f"U{width}")
+            else:
+                continue
+            out[flag.decode()] = arr
+    finally:
+        lib.prmtop_close(h)
+    _check_sections(out, path)
+    return out
+
+
+def parse_prmtop_python(path: str) -> Dict[str, np.ndarray]:
+    """:func:`parse_prmtop` in pure Python, the fixed-width fields of each
+    section read in order: the native parser's oracle. It checks nothing
+    of the file's completeness."""
     sections: Dict[str, List[str]] = {}
     flag = None
     with open(path) as fh:

@@ -5,17 +5,22 @@ An iteration runs as the reference runs it (multistatesampler.py):
 
 1. mix: the subclass's mixing (replica exchange, SAMS jumps) on the host,
    on CPU tensors, from the N x K energy matrix of the previous iteration;
-2. propagate: where every state has the same integrator move (a
-   ``BaseIntegratorMove`` whose bound integrator runs the package's step
-   program) and the states share one system, the replicas advance as one
-   batch (``propagation_route`` "batched": ``move.apply_batch``, the JAX
-   package's vmap of the move over replicas: in sweep mode one launch of
-   each sweep kernel a force evaluation for all replicas); any other move
-   tree (``SequenceMove``, ``WeightedMove``, the Metropolized moves, a
-   move a state) keeps the eager loop ("eager"), each replica applying its
-   state's move, ``moves[s].apply(state_s, sampler_state_n,
-   generator=...)``. The route follows from the moves' types, fixed before
-   the run;
+2. propagate: where every move of every state's tree batches
+   (``MCMCMove.batches``: integrator moves whose bound integrator runs the
+   package's step program, the displacement, rotation and barostat moves,
+   and ``SequenceMove`` and ``WeightedMove`` of such moves) and the states
+   share one system, the replicas advance as batches (``propagation_route``
+   "batched": the JAX package's move program vmapped over replicas). Within
+   each block of replicas on one device, the replicas are grouped by their
+   state's move (one object, or trees equal under ``mcmc.moves_equal``)
+   and each group runs as one ``apply_batch``: in sweep mode one launch of
+   each sweep kernel a force evaluation, and one a Metropolized move or
+   barostat attempt, for the whole group. Each replica's statistics go to
+   its own state's move. Any other tree (a bound class with its own step,
+   a move that implements only ``_apply``) keeps the eager loop ("eager"),
+   each replica applying its state's whole tree,
+   ``moves[s].apply(state_s, sampler_state_n, generator=...)``. The route
+   follows from the moves, fixed before the run;
 3. energies: u[n, k] = beta_k (U_k(x_n) + p_k V_n) at the post-move boxes.
    For the sampled states and the unsampled states that share their
    system, U_k comes from ``BoundIntegrator.energies_batch`` of the first
@@ -42,9 +47,10 @@ Randomness is a pure function of (rng_seed, iteration): iteration i's
 mixing draws come from a CPU ``torch.Generator`` seeded from (rng_seed, i)
 and replica n's move from a generator on the replica's device seeded from
 (rng_seed, i, n), so a resume from storage continues the stream without
-storing any generator state. Container moves (``SequenceMove``,
-``WeightedMove``) pass the generator to nothing: their moves draw from
-their own generators, which storage does not keep.
+storing any generator state. Every move of a replica's tree draws from
+that generator (a ``SequenceMove`` hands it to each of its moves in order,
+a ``WeightedMove`` draws its branch from it and hands it on), on either
+route and in the same order, so the two routes give the same replicas.
 
 ``iterations_per_sync`` > 1 changes when results are reported
 (checkpoints and analysis positions at the last iteration of each window,
@@ -73,6 +79,7 @@ from openmmtools_tpu_torch.mcmc import (
     WeightedMove,
     _MetropolizedIntegratorMove,
     _resolve,
+    moves_equal,
 )
 from openmmtools_tpu_torch.multistate.mbar import mbar_free_energies
 from openmmtools_tpu_torch.multistate.reporter import MultiStateReporter
@@ -304,21 +311,22 @@ class MultiStateSampler:
 
     @property
     def propagation_route(self) -> str:
-        """How an iteration propagates the replicas: "batched" when every
-        state has the same integrator move, its bound integrator runs the
-        package's step program (``BaseIntegratorMove.batches``) and the
-        states share one system, so that one batch advances all of them
-        (``apply_batch``); "eager" otherwise, one ``apply`` a replica."""
+        """How an iteration propagates the replicas: "batched" when the
+        states share one system and every state's move tree batches
+        (``MCMCMove.batches``, asked once a distinct move at the first
+        state that takes it), so that the replicas of each group of equal
+        moves advance as one batch (``apply_batch``); "eager" otherwise,
+        one ``apply`` of the whole tree a replica."""
         moves = self._moves_per_state()
-        move = moves[0]
         states = self._thermodynamic_states
         fingerprint = states[0].system.fingerprint
-        if (isinstance(move, BaseIntegratorMove)
-                and all(m is move for m in moves)
-                and all(ts.system is states[0].system
-                        or ts.system.fingerprint == fingerprint
-                        for ts in states)
-                and move.batches(states[0])):
+        if not all(ts.system is states[0].system
+                   or ts.system.fingerprint == fingerprint for ts in states):
+            return "eager"
+        first = {}
+        for move, ts in zip(moves, states):
+            first.setdefault(id(move), (move, ts))
+        if all(move.batches(ts) for move, ts in first.values()):
             return "batched"
         return "eager"
 
@@ -633,9 +641,9 @@ class MultiStateSampler:
             s_of = [int(self._replica_states[n]) for n in idx]
             with on_device(device):
                 if batched:
-                    out = moves[0].apply_batch(
-                        [states[s] for s in s_of],
-                        [self._sampler_states[n] for n in idx], gens)
+                    out = self._propagate_groups(
+                        moves, [states[s] for s in s_of],
+                        [self._sampler_states[n] for n in idx], gens, s_of)
                 else:
                     out = [moves[s].apply(states[s], self._sampler_states[n],
                                           generator=gen)
@@ -650,6 +658,43 @@ class MultiStateSampler:
         self.phase_seconds["mixing"].append(t1 - t0)
         self.phase_seconds["propagation"].append(t2 - t1)
         self.phase_seconds["energy_matrix"].append(t3 - t2)
+
+    @staticmethod
+    def move_groups(moves, s_of) -> List[List[int]]:
+        """The replicas of a block (``s_of``, each one's state) grouped by
+        their state's move: positions in ``s_of``, a group for each move
+        tree not equal (``moves_equal``) to an earlier group's, in order of
+        first appearance."""
+        reps: List[MCMCMove] = []
+        groups: List[List[int]] = []
+        of_state: Dict[int, int] = {}
+        for j, s in enumerate(s_of):
+            g = of_state.get(s)
+            if g is None:
+                g = next((i for i, m in enumerate(reps)
+                          if moves_equal(m, moves[s])), None)
+                if g is None:
+                    reps.append(moves[s])
+                    groups.append([])
+                    g = len(reps) - 1
+                of_state[s] = g
+            groups[g].append(j)
+        return groups
+
+    def _propagate_groups(self, moves, states, sampler_states, gens, s_of):
+        """The batched route for a block: one ``apply_batch`` a group of
+        equal moves (:meth:`move_groups`), by the group's first move, each
+        replica's statistics counted on its own state's move."""
+        out = list(sampler_states)
+        for group in self.move_groups(moves, s_of):
+            move = moves[s_of[group[0]]]
+            new = move.apply_batch(
+                [states[j] for j in group], [sampler_states[j] for j in group],
+                [gens[j] for j in group],
+                owners=[moves[s_of[j]] for j in group])
+            for j, ss in zip(group, new):
+                out[j] = ss
+        return out
 
     # ------------------------------------------------------------------
     # the energy matrix

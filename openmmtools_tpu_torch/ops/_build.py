@@ -12,6 +12,10 @@ names keyed by a hash of the source, the headers and the flags, so a changed
 source rebuilds. Nothing here runs at import: the package imports on a
 machine without ``nvcc``, and only the first CUDA launch needs a library. A
 failed build raises with nvcc's stderr.
+
+The host code of ``native/*.cpp`` (the prmtop parser) builds the same way
+with the host C++ compiler (:func:`host_library`: ``g++ -O2 -shared
+-fPIC``), on both machines, at its first use.
 """
 from __future__ import annotations
 
@@ -26,9 +30,12 @@ import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NATIVE = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,6 +91,41 @@ def find_nvcc() -> str:
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
             "and PATH); the CUDA kernels cannot be built")
     return nvcc
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else g++ or c++ on PATH."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise KernelBuildError(
+        "no host C++ compiler ($CXX, g++ or c++ on PATH); the native "
+        "sources cannot be built")
+
+
+def host_library(name: str) -> Path:
+    """The shared library of ``native/<name>.cpp``, built by the host C++
+    compiler at its first use into ``build/kernels/`` under a name keyed by
+    a hash of the source and the flags. A failed build raises
+    :class:`KernelBuildError` with the compiler's stderr."""
+    source = NATIVE / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_cxx(), *HOST_FLAGS, "-o", tmp, str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"build failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builds each rename a whole one
+    return out
 
 
 def _sources():

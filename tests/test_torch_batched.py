@@ -14,7 +14,8 @@
 * batched NCMC: the protocol work of four protocols at collision rate 0,
   their velocities given, equals the JAX package's vmap of ``run_program``
   and four eager runs;
-* the sampler's batched route equals its eager route.
+* the sampler's batched route equals its eager route (a sampler held to
+  the eager loop), and per-state moves that are equal batch as one group.
 """
 import jax
 import jax.numpy as jnp
@@ -316,6 +317,14 @@ def test_batched_ncmc_work_equals_jax_vmap_and_eager():
 # -- the sampler's routes ----------------------------------------------------
 
 
+class _EagerSampler(tms.ReplicaExchangeSampler):
+    """The sampler held to its eager loop, one ``apply`` a replica."""
+
+    @property
+    def propagation_route(self):
+        return "eager"
+
+
 def test_sampler_batched_route_equals_eager_route():
     jw = jwater.AlchemicalWaterBox(box_edge=1.9, cutoff=0.9)
     psys = port_system(jw.system)
@@ -325,11 +334,9 @@ def test_sampler_batched_route_equals_eager_route():
         ThermodynamicState(system=psys, temperature=300.0), protocol)
     x = torch.as_tensor(np.asarray(jw.positions, np.float64))
 
-    def sampler(moves):
-        s = tms.ReplicaExchangeSampler(mcmc_moves=moves,
-                                       number_of_iterations=2,
-                                       online_analysis_interval=None,
-                                       rng_seed=3)
+    def sampler(moves, klass=tms.ReplicaExchangeSampler):
+        s = klass(mcmc_moves=moves, number_of_iterations=2,
+                  online_analysis_interval=None, rng_seed=3)
         s.create(states, [SamplerState(positions=x) for _ in range(3)])
         return s
 
@@ -339,14 +346,20 @@ def test_sampler_batched_route_equals_eager_route():
         return m
 
     batched = sampler(move())
-    eager = sampler([move() for _ in range(3)])
+    # three equal moves, one a state, batch as one group
+    per_state = sampler([move() for _ in range(3)])
+    eager = sampler([move() for _ in range(3)], _EagerSampler)
     assert batched.propagation_route == "batched"
+    assert per_state.propagation_route == "batched"
     assert eager.propagation_route == "eager"
     batched.run()
+    per_state.run()
     eager.run()
-    for a, b in zip(batched.sampler_states, eager.sampler_states):
+    for a, b, c in zip(batched.sampler_states, eager.sampler_states,
+                       per_state.sampler_states):
         _rel_close(a.positions, b.positions)
         _rel_close(a.velocities, b.velocities)
+        assert torch.equal(a.positions, c.positions)
     _rel_close(batched.energies_last_iteration,
                eager.energies_last_iteration)
 

@@ -1360,7 +1360,8 @@ def test_cuda_dense_sum_is_refused_at_the_limit(cuda):
 def test_cuda_barostat_on_water_launches_k2(cuda):
     """A barostat attempt on the 24,000-atom water box: both energies by
     the context cache's bound integrator in sweep mode (one bound and one
-    force launch each), against the plain sweep plus the remainder."""
+    force launch for the two configurations together), against the plain
+    sweep plus the remainder."""
     from openmmtools_tpu_torch.cache import ContextCache
     from openmmtools_tpu_torch.mcmc import (
         MonteCarloBarostatMove,
@@ -1382,12 +1383,112 @@ def test_cuda_barostat_on_water_launches_k2(cuda):
                                  torch.tensor(-1e30, device=cuda), mol_ids,
                                  n_mol, cache)
     torch.cuda.synchronize()
-    assert k.launches == {"sweep_bound": 2, "sweep_forces": 2}
+    assert k.launches == {"sweep_bound": 1, "sweep_forces": 1}
+    assert k.batch_launches[("sweep_forces", 2)] >= 1
     assert bool(accept)
     got = [float(u) for u in potential_energies(ts, (ss, trial), cache)]
     want = _plain_energies(bound, (ss, trial), {})
     for g, p in zip(got, want):
         assert abs(g - p) <= REL * abs(p)
+
+
+def _replica_gens(dev, n):
+    return [torch.Generator(device=dev).manual_seed(40 + b)
+            for b in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_batched_mc_moves_launch_k2_at_2r(cuda):
+    """A displacement and a rotation of the alchemical water as one batch
+    of R = 3 replicas at three states of the ladder (3,000 atoms): each
+    move one launch of each K2 kernel at B = 2R, for all the replicas'
+    old and proposed energies; the accept decisions and positions those
+    of one ``apply`` a replica with the same generators."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.mcmc import (
+        MCDisplacementMove,
+        MCRotationMove,
+        SequenceMove,
+    )
+    from openmmtools_tpu_torch.states import SamplerState as SS
+
+    w, states = _alchemical_ladder(3.0, cuda)
+    cache = ContextCache()
+    bound, _ = cache.get_context(states[0])
+    assert bound.sweep_mode and bound._sweep_alch is not None
+    k = bound._sweep_kernel
+    g = torch.Generator(device=cuda).manual_seed(3)
+    sss = [SS(positions=w.positions + 1e-3 * torch.randn(
+        w.positions.shape, generator=g, device=cuda),
+        box_vectors=w.system.default_box) for _ in states]
+
+    def tree():
+        return SequenceMove([
+            MCDisplacementMove(displacement_sigma=0.02,
+                               atom_subset=[0, 1, 2]),
+            MCRotationMove(atom_subset=[0, 1, 2])])
+
+    batch_move, eager_move = tree(), tree()
+    for key in k.launches:
+        k.launches[key] = 0
+    k.batch_launches.clear()
+    out = batch_move.apply_batch(states, sss, _replica_gens(cuda, 3), cache)
+    torch.cuda.synchronize()
+    assert k.launches == {"sweep_bound": 2, "sweep_forces_alch": 2}
+    assert dict(k.batch_launches) == {("sweep_bound", 6): 2,
+                                      ("sweep_forces_alch", 6): 2}
+    eager = [eager_move.apply(ts, ss, generator=gen, context_cache=cache)
+             for ts, ss, gen in zip(states, sss, _replica_gens(cuda, 3))]
+    for a, b in zip(out, eager):
+        assert torch.equal(a.positions, b.positions)
+    for m_b, m_e in zip(batch_move.move_list, eager_move.move_list):
+        assert m_b.statistics == m_e.statistics
+        assert m_b.n_proposed == 3
+
+
+@pytest.mark.cuda
+def test_cuda_barostat_batch_keeps_per_replica_boxes(cuda):
+    """Five barostat attempts on three replicas of PMEWaterBox(3.0) at 1
+    bar and 300, 320 and 350 K as one batch: K2 at B = 6 an attempt, each
+    replica at its own box; the boxes those of one ``apply`` a replica
+    with the same generators, not all equal, and the waters rigid."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.mcmc import MonteCarloBarostatMove
+
+    w = _water(3.0, cuda)
+    states = [w.thermodynamic_state(t, pressure=1.0)
+              for t in (300.0, 320.0, 350.0)]
+    cache = ContextCache()
+    bound, _ = cache.get_context(states[0])
+    assert bound.sweep_mode
+    k = bound._sweep_kernel
+    sss = [w.sampler_state() for _ in states]
+
+    def baro():
+        return MonteCarloBarostatMove(volume_scale=0.03, n_attempts=5)
+
+    batch_move, eager_move = baro(), baro()
+    k.batch_launches.clear()
+    out = batch_move.apply_batch(states, sss, _replica_gens(cuda, 3), cache)
+    torch.cuda.synchronize()
+    assert dict(k.batch_launches) == {("sweep_bound", 6): 5,
+                                      ("sweep_forces", 6): 5}
+    eager = [eager_move.apply(ts, ss, generator=gen, context_cache=cache)
+             for ts, ss, gen in zip(states, sss, _replica_gens(cuda, 3))]
+    assert batch_move.statistics == eager_move.statistics
+    edges = set()
+    c = w.system.constraints
+    i, j = c.index[:, 0].long(), c.index[:, 1].long()
+    for a, b in zip(out, eager):
+        assert torch.equal(a.box_vectors, b.box_vectors)
+        assert _rel(a.positions, b.positions) <= 1e-6
+        edges.add(float(a.box_vectors[0, 0]))
+        L = torch.diagonal(a.box_vectors)
+        d = a.positions[i] - a.positions[j]
+        d = d - L * torch.round(d / L)
+        err = ((torch.linalg.norm(d, dim=1) - c.distance) / c.distance)
+        assert float(err.abs().max()) <= 1e-5
+    assert len(edges) > 1
 
 
 @pytest.mark.cuda
@@ -1514,10 +1615,12 @@ def test_cuda_equilibration_launches_k2_in_every_stage(cuda):
                                    context_cache=cache)
     torch.cuda.synchronize()
     bounds = cache.bound_integrators()
+    # FIRE 10 + 3; dynamics n + 1; the barostat's two attempts one launch
+    # each, the old and trial configurations as one batch
     assert [b._sweep_kernel.launches["sweep_forces"] for b in bounds] == \
-        [13, 21, 55, 55]
+        [13, 21, 53, 53]
     assert [b._sweep_kernel.launches["sweep_bound"] for b in bounds] == \
-        [13, 21, 55, 55]
+        [13, 21, 53, 53]
     for b, restrained in zip(bounds, (True, True, True, False)):
         assert b.sweep_mode
         assert (PositionalRestraintTerm in [type(t) for t in

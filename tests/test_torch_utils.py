@@ -292,9 +292,9 @@ def test_water_protocol_takes_the_sweep_path(monkeypatch):
         assert (PositionalRestraintTerm in leftover) == restrained
     counts = [calls.count(b.system.fingerprint) for b in bounds]
     # FIRE: a step each, its final energy, the acceptance check's two;
-    # dynamics: the initial state and a step each; the barostat: two an
-    # attempt, one attempt an apply
-    assert counts == [4 + 1 + 2, 3 + 1, 3 + 1 + 2, 3 + 1 + 2]
+    # dynamics: the initial state and a step each; the barostat: one an
+    # attempt (its two configurations as one batch), one attempt an apply
+    assert counts == [4 + 1 + 2, 3 + 1, 3 + 1 + 1, 3 + 1 + 1]
     c = system.constraints
     d = out.positions[c.index[:, 0].long()] - out.positions[
         c.index[:, 1].long()]
