@@ -244,7 +244,19 @@ nonzero exit. Phases:
    WeightedMove of the displacement and the rotation before a Langevin
    move (branch groups summing to 9); (e) the native prmtop parser on
    18a's JAC-size stand-in: its build, the parse seconds native and in
-   pure Python, every section equal.
+   pure Python, every section equal;
+20. the API that closes the port: (a) 19c's 4 replicas through
+   ``stack_sampler_states`` and as a list, each form through the batched
+   energy route (``BoundIntegrator.energies_batch``): the same bits, one
+   K2 launch of each kernel at B = 4 for each form, each
+   ``index_sampler_state`` of the stack equal to its replica; (b) fault
+   F10 on the card: 19c's NPT tree with its Langevin move replaced by
+   ``IntegratorMove(LangevinIntegrator(...), 50 steps)`` (sweep mode, K2),
+   built directly and rebuilt through ``move_to_dict`` ->
+   ``move_from_dict`` (the integrators' ``serialize`` dicts equal), two
+   samplers from one seed, 2 iterations each: positions, boxes and the
+   energy matrix bit-equal, K2's launches by batch size equal (B = 4 and
+   8), the two bound integrators' ``pretty_print`` equal.
 
 Phase 1 also prints ``utils.platforms.device_report()``.
 
@@ -4580,10 +4592,39 @@ def phase_tree_against_eager(dev, smi, re_sampler):
                 decisions=batch_decisions, bit_equal=bits, positions_rel=rel)
 
 
+def npt_pt_sampler(w, moves):
+    """19c's NPT parallel tempering of the water box ``w`` under the move
+    tree ``moves``: 15b's temperatures at 1 bar, 'swap-neighbors', created
+    and FIRE-minimized; (the sampler, the set-up seconds)."""
+    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
+
+    sampler = ParallelTemperingSampler(
+        mcmc_moves=moves, number_of_iterations=NPT_ITERATIONS,
+        online_analysis_interval=None,
+        replica_mixing_scheme="swap-neighbors", rng_seed=193)
+    t0 = time.perf_counter()
+    sampler.create(w.thermodynamic_state(WATER_T, pressure=EQ_PRESSURE),
+                   w.sampler_state(), temperatures=PT_WATER_TEMPERATURES)
+    sampler.minimize(max_iterations=MS_FIRE_STEPS)
+    return sampler, time.perf_counter() - t0
+
+
+def npt_launches(n, iterations):
+    """K2's launches by (kernel, batch size) of ``iterations`` of the NPT
+    tree on ``n`` replicas: each barostat attempt one launch of each kernel
+    at B = 2n; the dynamics ``PT_WATER_STEPS`` + 1 and the energy matrix
+    one at B = n."""
+    return {("sweep_bound", 2 * n): NPT_ATTEMPTS * iterations,
+            ("sweep_forces", 2 * n): NPT_ATTEMPTS * iterations,
+            ("sweep_bound", n): (PT_WATER_STEPS + 2) * iterations,
+            ("sweep_forces", n): (PT_WATER_STEPS + 2) * iterations}
+
+
 def phase_npt_tree(dev, smi):
     """19c: NPT parallel tempering on the water box with the barostat in
     the move tree: K2 at B = 2R an attempt, per-replica boxes, rigid
-    waters, U at the final boxes against each replica alone."""
+    waters, U at the final boxes against each replica alone. Returns the
+    sampler (20a reads its replicas) and the phase's numbers."""
     from openmmtools_tpu_torch.constants import BAR_TO_KJ_PER_MOL_NM3
     from openmmtools_tpu_torch.mcmc import (
         LangevinDynamicsMove,
@@ -4591,7 +4632,6 @@ def phase_npt_tree(dev, smi):
         SequenceMove,
     )
     from openmmtools_tpu_torch.models import PMEWaterBox
-    from openmmtools_tpu_torch.multistate import ParallelTemperingSampler
     from openmmtools_tpu_torch.system import volume
 
     w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
@@ -4599,15 +4639,7 @@ def phase_npt_tree(dev, smi):
                                     n_steps=PT_WATER_STEPS)
     baro = MonteCarloBarostatMove(volume_scale=NPT_VOLUME_SCALE,
                                   n_attempts=NPT_ATTEMPTS)
-    sampler = ParallelTemperingSampler(
-        mcmc_moves=SequenceMove([langevin, baro]),
-        number_of_iterations=NPT_ITERATIONS, online_analysis_interval=None,
-        replica_mixing_scheme="swap-neighbors", rng_seed=193)
-    t0 = time.perf_counter()
-    sampler.create(w.thermodynamic_state(WATER_T, pressure=EQ_PRESSURE),
-                   w.sampler_state(), temperatures=PT_WATER_TEMPERATURES)
-    sampler.minimize(max_iterations=MS_FIRE_STEPS)
-    t_setup = time.perf_counter() - t0
+    sampler, t_setup = npt_pt_sampler(w, SequenceMove([langevin, baro]))
     n = sampler.n_replicas
     states = sampler._thermodynamic_states
     assert sampler.propagation_route == "batched"
@@ -4619,11 +4651,7 @@ def phase_npt_tree(dev, smi):
     wall = time.perf_counter() - t0
     _, by_batch = merged_counts(kernels)
     it = NPT_ITERATIONS
-    want = {("sweep_bound", 2 * n): NPT_ATTEMPTS * it,
-            ("sweep_forces", 2 * n): NPT_ATTEMPTS * it,
-            ("sweep_bound", n): (PT_WATER_STEPS + 2) * it,
-            ("sweep_forces", n): (PT_WATER_STEPS + 2) * it}
-    assert by_batch == want, by_batch
+    assert by_batch == npt_launches(n, it), by_batch
     u = sampler.energies_last_iteration
     s = sampler.replica_states
     beta = sampler._stacked_sampled.beta.numpy()
@@ -4651,11 +4679,11 @@ def phase_npt_tree(dev, smi):
     assert len(set(edges)) > 1, edges
     assert worst_bond <= 1e-5, worst_bond
     assert worst_u <= REL_TOL, worst_u
-    return dict(replicas=n, iterations=it, setup_s=t_setup,
-                seconds_per_iteration=wall / it,
-                batch_launches=batch_key(by_batch),
-                barostat=[baro.n_accepted, baro.n_proposed], box_edges=edges,
-                bond_error=worst_bond, u_rel=worst_u)
+    return sampler, dict(
+        replicas=n, iterations=it, setup_s=t_setup,
+        seconds_per_iteration=wall / it, batch_launches=batch_key(by_batch),
+        barostat=[baro.n_accepted, baro.n_proposed], box_edges=edges,
+        bond_error=worst_bond, u_rel=worst_u)
 
 
 def phase_per_state_moves(dev, smi, re_sampler):
@@ -5202,6 +5230,153 @@ def phase_prmtop(dev, smi):
 
 
 
+# -- phase 20: the API that closes the port ---------------------------------
+F10_ITERATIONS = 2         # 20b: iterations of each sampler
+
+
+def phase_stacked_states(dev, smi, sampler):
+    """20a: ``sampler``'s replicas (19c's, each at its own box) stacked
+    and listed, each form through the batched energy route of the
+    sampler's energy matrix (``energies_batch``, no global parameters):
+    the same bits, one launch of each K2 kernel at B = R a form, and each
+    ``index_sampler_state`` of the stack equal to its replica."""
+    from openmmtools_tpu_torch.states import (
+        index_sampler_state,
+        stack_sampler_states,
+    )
+
+    listed = sampler.sampler_states
+    r = len(listed)
+    stacked = stack_sampler_states(listed)
+    assert stacked.positions.shape == (r,) + tuple(listed[0].positions.shape)
+    assert stacked.box_vectors.shape == (r, 3, 3)
+    bound = sampler._matrix_bound()
+    assert bound.sweep_mode
+    k = bound._sweep_kernel
+    rep = torch.arange(r, device=dev)
+    forms = {"listed": (torch.stack([ss.positions for ss in listed]),
+                        torch.stack([ss.box_vectors for ss in listed])),
+             "stacked": (stacked.positions, stacked.box_vectors)}
+    u, launches = {}, {}
+    for name, (x, box) in forms.items():
+        reset_counts([k])
+        u[name], overflow = bound.energies_batch(x, box, rep, {})
+        bound.check_sweep_overflow(overflow)
+        torch.cuda.synchronize()
+        launches[name] = batch_key(merged_counts([k])[1])
+    indexed = [all(torch.equal(getattr(index_sampler_state(stacked, i), f),
+                               getattr(ss, f))
+                   for f in ("positions", "velocities", "box_vectors"))
+               for i, ss in enumerate(listed)]
+    same = torch.equal(u["listed"], u["stacked"])
+    say(f"phase 20a {r} replicas of 19c stacked (positions "
+        f"{tuple(stacked.positions.shape)}, boxes "
+        f"{tuple(stacked.box_vectors.shape)}) and listed through "
+        f"energies_batch: U {u['stacked'].tolist()} kJ/mol, bit-equal "
+        f"{same}; K2 launches by batch size listed {launches['listed']}, "
+        f"stacked {launches['stacked']}; index_sampler_state equal to each "
+        f"replica {indexed} ({smi})")
+    assert same
+    assert all(indexed), indexed
+    want = {f"sweep_bound x{r}": 1, f"{k.forces_kernel} x{r}": 1}
+    assert launches["listed"] == launches["stacked"] == want, launches
+    assert bool(torch.isfinite(u["stacked"]).all())
+    return dict(replicas=r, energies=u["stacked"].tolist(), bit_equal=same,
+                launches=launches)
+
+
+def phase_integrator_move_resume(dev, smi):
+    """20b: fault F10 on the card. 19c's NPT tree with an
+    ``IntegratorMove`` of a ``LangevinIntegrator`` (sweep mode, K2) in the
+    Langevin move's place, built directly and rebuilt through
+    ``move_to_dict`` -> JSON -> ``move_from_dict`` (what the reporter
+    stores, in plain values): the integrators' ``serialize`` dicts equal,
+    then two samplers from one seed, ``F10_ITERATIONS`` each, with the same
+    positions, boxes and energy matrix to the bit, K2's launches by batch
+    size equal, and the two bound integrators' listings equal."""
+    from openmmtools_tpu_torch.integrators import LangevinIntegrator
+    from openmmtools_tpu_torch.mcmc import (
+        IntegratorMove,
+        MonteCarloBarostatMove,
+        SequenceMove,
+        moves_equal,
+    )
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.multistate.reporter import (
+        move_from_dict,
+        move_to_dict,
+    )
+    from openmmtools_tpu_torch.utils.serialization import serialize
+
+    direct = SequenceMove([
+        IntegratorMove(LangevinIntegrator(temperature=WATER_T,
+                                          collision_rate=1.0, timestep=0.002,
+                                          splitting="V R O R V"),
+                       n_steps=PT_WATER_STEPS),
+        MonteCarloBarostatMove(volume_scale=NPT_VOLUME_SCALE,
+                               n_attempts=NPT_ATTEMPTS)])
+    stored = json.dumps(move_to_dict(direct))
+    rebuilt = move_from_dict(json.loads(stored))
+    a, b = (serialize(m.move_list[0].integrator)["_state"]["items"]
+            for m in (direct, rebuilt))
+    differ = sorted(key for key in a.keys() | b.keys()
+                    if a.get(key) != b.get(key))
+    assert not differ, differ
+    assert moves_equal(direct, rebuilt)
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    runs = {}
+    for name, moves in (("direct", direct), ("rebuilt", rebuilt)):
+        sampler, t_setup = npt_pt_sampler(w, moves)
+        states = sampler._thermodynamic_states
+        assert sampler.propagation_route == "batched"
+        bound = moves.move_list[0]._bound(states[0])
+        assert bound.sweep_mode
+        kernels = tree_kernels([moves.move_list[0]], states)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        sampler.run(F10_ITERATIONS)
+        torch.cuda.synchronize()
+        runs[name] = dict(sampler=sampler, setup_s=t_setup,
+                          wall=time.perf_counter() - t0,
+                          by_batch=merged_counts(kernels)[1],
+                          listing=bound.pretty_print())
+    d, r = runs["direct"]["sampler"], runs["rebuilt"]["sampler"]
+    positions = [torch.equal(x.positions, y.positions)
+                 for x, y in zip(d.sampler_states, r.sampler_states)]
+    boxes = [torch.equal(x.box_vectors, y.box_vectors)
+             for x, y in zip(d.sampler_states, r.sampler_states)]
+    matrix = bool(np.array_equal(d.energies_last_iteration,
+                                 r.energies_last_iteration))
+    n = d.n_replicas
+    say(f"phase 20b F10 on PMEWaterBox({WATER_EDGE}): 19c's tree with "
+        f"IntegratorMove(LangevinIntegrator 2 fs, {PT_WATER_STEPS} steps) "
+        f"stored as {len(stored)} bytes of JSON and rebuilt; {n} replicas, "
+        f"{F10_ITERATIONS} iterations each: direct set-up "
+        f"{runs['direct']['setup_s']:.2f} s, run {runs['direct']['wall']:.2f}"
+        f" s; rebuilt set-up {runs['rebuilt']['setup_s']:.2f} s, run "
+        f"{runs['rebuilt']['wall']:.2f} s; positions bit-equal {positions}, "
+        f"boxes {boxes}, energy matrix {matrix}; K2 by batch size direct "
+        f"{batch_key(runs['direct']['by_batch'])}, rebuilt "
+        f"{batch_key(runs['rebuilt']['by_batch'])}; box edges "
+        f"{[float(ss.box_vectors[0, 0]) for ss in r.sampler_states]} nm "
+        f"({smi})")
+    say("phase 20b the rebuilt move's bound integrator:\n"
+        + runs["rebuilt"]["listing"])
+    assert all(positions), positions
+    assert all(boxes), boxes
+    assert matrix
+    assert np.array_equal(d.replica_states, r.replica_states)
+    assert runs["direct"]["by_batch"] == runs["rebuilt"]["by_batch"] == \
+        npt_launches(n, F10_ITERATIONS), runs["direct"]["by_batch"]
+    assert runs["direct"]["listing"] == runs["rebuilt"]["listing"]
+    return dict(replicas=n, iterations=F10_ITERATIONS, json_bytes=len(stored),
+                setup_s=[runs[k]["setup_s"] for k in runs],
+                seconds=[runs[k]["wall"] for k in runs],
+                batch_launches=batch_key(runs["rebuilt"]["by_batch"]),
+                bit_equal=dict(positions=positions, boxes=boxes,
+                               matrix=matrix))
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -5244,11 +5419,17 @@ def main():
     trees = {"ladder": phase_tree_batched(dev, smi, re_sampler,
                                           batched["eager_loop"])}
     trees["against_eager"] = phase_tree_against_eager(dev, smi, re_sampler)
-    trees["npt"] = phase_npt_tree(dev, smi)
+    npt_sampler, trees["npt"] = phase_npt_tree(dev, smi)
     trees["per_state"] = phase_per_state_moves(dev, smi, re_sampler)
     trees["native_parser"] = native
     trees["seconds"] = time.perf_counter() - t0
     say(f"phase 19 in {trees['seconds']:.1f} s (19e within phase 18)")
+    t0 = time.perf_counter()
+    closing = {"stacked_states": phase_stacked_states(dev, smi, npt_sampler)}
+    closing["integrator_move_resume"] = phase_integrator_move_resume(dev,
+                                                                     smi)
+    closing["seconds"] = time.perf_counter() - t0
+    say(f"phase 20 in {closing['seconds']:.1f} s ({smi})")
     say(json.dumps({"lj_path": rate, "explicit_solvent_path": water_rate,
                     "alchemical_path": alch_rate, "ncmc_path": ncmc,
                     "alchemical_kernel_worst": k8, "dense_path": dense_rate,
@@ -5257,6 +5438,7 @@ def main():
                     "equilibration_path": equilibration,
                     "catalog_path": catalog, "batched_path": batched,
                     "prmtop_path": prmtop, "move_trees": trees,
+                    "closing_api": closing,
                     "card": smi}, default=str))
     print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
                       + [dense_kernel] + cell_kernels + batched_kernels

@@ -31,9 +31,17 @@ _torch.backends.cudnn.allow_tf32 = False
 from openmmtools_tpu_torch import constants  # noqa: E402,F401
 from openmmtools_tpu_torch.states import (  # noqa: E402,F401
     CompoundThermodynamicState,
+    GlobalParameterFunction,
     GlobalParameterState,
     SamplerState,
     ThermodynamicState,
+    create_thermodynamic_state_protocol,
+    group_by_compatibility,
+    is_state_compatible,
+    reduced_potential_at_states,
+    reduced_potential_matrix,
+    stack_sampler_states,
+    stack_thermodynamic_states,
 )
 from openmmtools_tpu_torch.system import (  # noqa: E402,F401
     Constraints,
@@ -51,3 +59,33 @@ from openmmtools_tpu_torch import forces  # noqa: E402,F401
 from openmmtools_tpu_torch import mcmc  # noqa: E402,F401
 from openmmtools_tpu_torch import multistate  # noqa: E402,F401
 from openmmtools_tpu_torch import storage  # noqa: E402,F401
+
+__all__ = [
+    "CompoundThermodynamicState",
+    "Constraints",
+    "GlobalParameterFunction",
+    "GlobalParameterState",
+    "NonbondedTerm",
+    "SamplerState",
+    "System",
+    "ThermodynamicState",
+    "cache",
+    "constants",
+    "create_thermodynamic_state_protocol",
+    "forces",
+    "group_by_compatibility",
+    "is_state_compatible",
+    "kinetic_energy",
+    "make_energy_fn",
+    "make_energy_force_fn",
+    "make_force_fn",
+    "mcmc",
+    "multistate",
+    "no_constraints",
+    "reduced_potential_at_states",
+    "reduced_potential_matrix",
+    "stack_sampler_states",
+    "stack_thermodynamic_states",
+    "storage",
+    "volume",
+]

@@ -687,7 +687,10 @@ class BoundIntegrator:
                 total = total + torch.sum(integral)
             else:
                 cls = table[code[lo:lo + chunk, None], code[None, :]]
-                sums.index_add_(0, cls.reshape(-1), integral.reshape(-1))
+                # in index order on the card too (index_add_'s atomics
+                # would vary the last bits from one bind to the next)
+                sums.index_put_((cls.reshape(-1),), integral.reshape(-1),
+                                accumulate=True)
         if code is None:
             self._sweep_disp_avg = float(total) / (n * n)
         else:
@@ -1624,6 +1627,28 @@ class BoundIntegrator:
         L = torch.diagonal(box).to(torch.float32).contiguous()
         F, U = self._fused.forces(xT, L)
         return self._fused_total(U[0], box), F.t().contiguous()
+
+    def pretty_print(self) -> str:
+        """The step program as text: a header with the splitting, then one
+        line a token (the reference's PrettyPrintableIntegrator)."""
+        lines = [f"# splitting: {self.integrator.splitting}"]
+        for tok in self.tokens:
+            if tok == "R":
+                lines.append(f"x += {self.h_R:.6g} * v   ; constrain positions")
+            elif tok == "O":
+                lines.append(
+                    f"v = {self.ou_a:.6g} v + {self.ou_b:.6g} sqrt(kT/m) xi")
+            elif tok.startswith("V"):
+                g = tok[1:] or "all"
+                lines.append(f"v += h * F[{g}]/m       ; constrain velocities")
+            elif tok == "{":
+                lines.append("begin Metropolize(save x, v, E)")
+            elif tok == "}":
+                lines.append("end Metropolize(accept/reject; flip v on reject)")
+            elif tok == "H":
+                lines.append("lambda step: perturb global params, "
+                             "protocol_work += dU")
+        return "\n".join(lines)
 
     def sampler_state_from(self, state: IntegratorState) -> SamplerState:
         return SamplerState(positions=state.positions,

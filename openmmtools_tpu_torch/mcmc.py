@@ -874,12 +874,17 @@ class MonteCarloBarostatMove(MetropolizedMove):
         v_new = v_old * torch.exp(eps)
         scale = torch.exp(eps / 3.0)
         box_new = box * scale[:, None, None]
-        # rigid molecule translation: x += (scale - 1) centroid[mol]
+        # rigid molecule translation: x += (scale - 1) centroid[mol]. The
+        # sums go through index_put_, which adds a molecule's atoms in
+        # index order on the card as on the host, so an attempt gives the
+        # same bits every time; index_add_ adds them by atomics there, in
+        # an order that varies from run to run
         counts = torch.zeros((n_molecules,), dtype=x.dtype,
-                             device=x.device).index_add_(
-            0, mol_ids, torch.ones_like(x[0, :, 0]))
-        centers = torch.zeros((b, n_molecules, 3), dtype=x.dtype,
-                              device=x.device).index_add_(1, mol_ids, x)
+                             device=x.device).index_put_(
+            (mol_ids,), torch.ones_like(x[0, :, 0]), accumulate=True)
+        centers = torch.zeros((n_molecules, b, 3), dtype=x.dtype,
+                              device=x.device).index_put_(
+            (mol_ids,), x.transpose(0, 1), accumulate=True).transpose(0, 1)
         centers = centers / counts[:, None]
         x_new = x + (scale - 1.0)[:, None, None] * centers[:, mol_ids]
         if (x.dtype == torch.float32

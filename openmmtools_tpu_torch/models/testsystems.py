@@ -102,6 +102,10 @@ class TestSystem:
                       if name.startswith(prefix)
                       and any(name.endswith(s) for s in suffixes))
 
+    def reduced_potential_expectation(self, sampled_state, evaluated_state):
+        """<u_evaluated>_sampled, where a system implements it."""
+        raise NotImplementedError
+
 
 def get_available_testsystems():
     """The names of every public TestSystem subclass the port has: those

@@ -30,6 +30,7 @@ Tensors are written as numpy.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import uuid as uuid_module
@@ -40,7 +41,12 @@ import numpy as np
 import torch
 
 from openmmtools_tpu_torch.states import ThermodynamicState
-from openmmtools_tpu_torch.utils.serialization import deserialize, serialize
+from openmmtools_tpu_torch.utils.serialization import (
+    _decode,
+    _encode,
+    deserialize,
+    serialize,
+)
 
 
 def _require_h5py():
@@ -64,6 +70,101 @@ def _scalar(value, dtype_name):
     if dtype_name in (None, "float64"):
         return float(value)
     return torch.tensor(float(value), dtype=getattr(torch, dtype_name))
+
+
+_PORT_PREFIX = "openmmtools_tpu_torch."
+
+
+def init_parameters(cls):
+    """The parameters of ``cls``'s constructors along its MRO: (all their
+    names, the names without a default)."""
+    names, required = [], set()
+    for klass in cls.__mro__:
+        init = klass.__dict__.get("__init__")
+        if init is None:
+            continue
+        for p in inspect.signature(init).parameters.values():
+            if p.name == "self" or p.kind in (p.VAR_POSITIONAL,
+                                              p.VAR_KEYWORD):
+                continue
+            if p.name not in names:
+                names.append(p.name)
+                if p.default is p.empty:
+                    required.add(p.name)
+    return names, required
+
+
+def move_to_dict(move) -> Dict[str, Any]:
+    """A move as a construction dict of plain values (reference
+    multistatereporter.py:795-824): its class name, then each constructor
+    parameter that it keeps as an attribute. Containers hold their moves'
+    dicts; other values go through the serializer's value encoding, so
+    tensors keep their dtype and an integrator move's integrator is stored
+    whole by :func:`~openmmtools_tpu_torch.utils.serialization.serialize`.
+    """
+    d = {"type": type(move).__name__}
+    names, _ = init_parameters(type(move))
+    for name in names:
+        if name == "move_list":
+            d[name] = [move_to_dict(m) for m in move.move_list]
+        elif name == "move_set":
+            d[name] = [[move_to_dict(m), float(w)] for m, w in move.move_set]
+        elif hasattr(move, name):
+            d[name] = _encode(getattr(move, name))
+    return d
+
+
+def _check_modules(value):
+    """Refuse a serialized object of a module outside the port: rebuilding
+    it would import that module."""
+    if isinstance(value, dict):
+        module = value.get("_serialized__module_name")
+        if module is not None and not str(module).startswith(_PORT_PREFIX):
+            raise ValueError(
+                f"stored move names module {module!r}, which is not "
+                f"part of {_PORT_PREFIX[:-1]}")
+        for v in value.values():
+            _check_modules(v)
+    elif isinstance(value, list):
+        for v in value:
+            _check_modules(v)
+
+
+def move_from_dict(d: Dict[str, Any]):
+    """Inverse of :func:`move_to_dict`. Also reads the JAX package's
+    files, whose keys are a subset; keys that the class does not take are
+    ignored. Raises ``ValueError`` where the dict names a module outside
+    the port, or lacks a parameter that the class requires (the JAX
+    package stores no integrator)."""
+    import openmmtools_tpu_torch.mcmc as mcmc_module
+
+    d = dict(d)
+    name = d.pop("type")
+    cls = getattr(mcmc_module, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, mcmc_module.MCMCMove)):
+        raise ValueError(f"stored move type {name!r} is not a move of "
+                         "openmmtools_tpu_torch.mcmc")
+    names, required = init_parameters(cls)
+    missing = sorted(required - d.keys())
+    if missing:
+        raise ValueError(
+            f"stored {name} has no {', '.join(missing)}: the file was "
+            "written without "
+            + ("its integrator (the JAX package stores none)"
+               if "integrator" in missing else "every required parameter"))
+    kwargs = {}
+    for key, value in d.items():
+        if key not in names:
+            continue
+        if key == "move_list":
+            value = [move_from_dict(m) for m in value]
+        elif key == "move_set":
+            value = [(move_from_dict(m), w) for m, w in value]
+        else:
+            _check_modules(value)
+            value = _decode(value)
+        kwargs[key] = value
+    return cls(**kwargs)
 
 
 class MultiStateReporter:
@@ -299,64 +400,24 @@ class MultiStateReporter:
         return json.loads(self._analysis.attrs.get("options_json", "{}"))
 
     def write_mcmc_moves(self, moves):
-        """Moves stored as YAML construction dicts (:795-824)."""
+        """Moves stored as YAML construction dicts (:795-824), one a move
+        or a list of them (:func:`move_to_dict`)."""
         import yaml
 
-        def describe(move):
-            d = {"type": type(move).__name__}
-            # container moves serialize recursively (reference stores
-            # nested move dicts, multistatereporter.py:795-824)
-            if hasattr(move, "move_list"):
-                d["move_list"] = [describe(m) for m in move.move_list]
-            if hasattr(move, "move_set"):
-                d["move_set"] = [[describe(m), float(w)]
-                                 for m, w in move.move_set]
-            for attr in ("n_steps", "timestep", "collision_rate", "splitting",
-                         "reassign_velocities", "n_restart_attempts",
-                         "n_inner_steps", "displacement_sigma",
-                         "volume_scale", "n_attempts",
-                         "constraint_tolerance", "measure_shadow_work",
-                         "measure_heat"):
-                if hasattr(move, attr):
-                    d[attr] = getattr(move, attr)
-            # metropolized moves: atom subset (None or an index list)
-            subset = getattr(move, "atom_subset", None)
-            if subset is not None:
-                d["atom_subset"] = [int(i) for i in subset]
-            return d
-
         if isinstance(moves, (list, tuple)):
-            doc = [describe(m) for m in moves]
+            doc = [move_to_dict(m) for m in moves]
         else:
-            doc = describe(moves)
+            doc = move_to_dict(moves)
         self._analysis.attrs["mcmc_moves_yaml"] = yaml.safe_dump(doc)
 
     def read_mcmc_moves(self):
+        """The stored moves, rebuilt (:func:`move_from_dict`)."""
         import yaml
 
-        import openmmtools_tpu_torch.mcmc as mcmc_module
-
         doc = yaml.safe_load(self._analysis.attrs.get("mcmc_moves_yaml", "{}"))
-
-        def build(d):
-            import inspect
-
-            cls = getattr(mcmc_module, d.pop("type"))
-            if "move_list" in d:
-                d["move_list"] = [build(m) for m in d["move_list"]]
-            if "move_set" in d:
-                d["move_set"] = [(build(m), w) for m, w in d["move_set"]]
-            accepted = set()
-            for klass in cls.__mro__:
-                init = klass.__dict__.get("__init__")
-                if init is not None:
-                    accepted |= set(inspect.signature(init).parameters)
-            accepted -= {"self", "args", "kwargs"}
-            return cls(**{k: v for k, v in d.items() if k in accepted})
-
         if isinstance(doc, list):
-            return [build(d) for d in doc]
-        return build(doc)
+            return [move_from_dict(d) for d in doc]
+        return move_from_dict(doc)
 
     # -- per-iteration data --------------------------------------------------
     def _appendable(self, f, name, shape, dtype):

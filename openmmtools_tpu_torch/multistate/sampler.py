@@ -59,7 +59,6 @@ the stop criterion and timing once a window), never what they are.
 from __future__ import annotations
 
 import collections
-import inspect
 import logging
 import math
 import os
@@ -82,7 +81,10 @@ from openmmtools_tpu_torch.mcmc import (
     moves_equal,
 )
 from openmmtools_tpu_torch.multistate.mbar import mbar_free_energies
-from openmmtools_tpu_torch.multistate.reporter import MultiStateReporter
+from openmmtools_tpu_torch.multistate.reporter import (
+    MultiStateReporter,
+    init_parameters,
+)
 from openmmtools_tpu_torch.multistate.utils import SimulationNaNError
 from openmmtools_tpu_torch.parallel.mesh import (
     canonical_device,
@@ -457,12 +459,7 @@ class MultiStateSampler:
         reporter.open(mode="r")
         options = reporter.read_options()
         moves = reporter.read_mcmc_moves()
-        accepted = set()
-        for klass in cls.__mro__:
-            init = klass.__dict__.get("__init__")
-            if init is not None:
-                accepted |= set(inspect.signature(init).parameters)
-        accepted -= {"self", "args", "kwargs", "mcmc_moves", "rng_seed"}
+        accepted = set(init_parameters(cls)[0]) - {"mcmc_moves", "rng_seed"}
         sampler = cls(mcmc_moves=moves, **{
             k: v for k, v in options.items() if k in accepted})
         sampler._rng_seed = options.get("rng_seed", 0)

@@ -24,6 +24,17 @@ def minimum_image(d, box):
     return d - lengths * torch.round(d / lengths)
 
 
+def minimum_image_triclinic(d, box):
+    """Minimum image for a triclinic box in reduced form (OpenMM's
+    convention: box[0] = (a, 0, 0), box[1] = (bx, b, 0), box[2] = (cx, cy,
+    c) with |bx| <= a/2 and so on): one reduction along c, then b, then
+    a."""
+    d = d - box[2] * torch.round(d[..., 2:3] / box[2, 2])
+    d = d - box[1] * torch.round(d[..., 1:2] / box[1, 1])
+    d = d - box[0] * torch.round(d[..., 0:1] / box[0, 0])
+    return d
+
+
 def distance(xi, xj, box=None):
     d = xi - xj
     if box is not None:

@@ -91,6 +91,47 @@ class SamplerState:
         return bad
 
 
+def stack_sampler_states(states: Sequence[SamplerState]) -> SamplerState:
+    """R replicas as one SamplerState with a leading replica axis:
+    positions (R, N, 3), velocities (R, N, 3) or None, boxes (R, 3, 3) or
+    None, on the inputs' device. Raises if the replicas mix None and
+    tensors in a field."""
+    states = list(states)
+    if not states:
+        raise SamplerStateError("no sampler states to stack")
+
+    def stacked(name):
+        values = [getattr(ss, name) for ss in states]
+        if all(v is None for v in values):
+            return None
+        if any(v is None for v in values):
+            raise SamplerStateError(
+                f"cannot stack sampler states: some have no {name}")
+        return torch.stack(values)
+
+    return SamplerState(positions=stacked("positions"),
+                        velocities=stacked("velocities"),
+                        box_vectors=stacked("box_vectors"))
+
+
+def index_sampler_state(batched: SamplerState, i) -> SamplerState:
+    """Replica ``i`` of a stacked SamplerState."""
+    return SamplerState(
+        positions=batched.positions[i],
+        velocities=(None if batched.velocities is None
+                    else batched.velocities[i]),
+        box_vectors=(None if batched.box_vectors is None
+                     else batched.box_vectors[i]))
+
+
+def _replicas(sampler_states) -> List[SamplerState]:
+    """A list of sampler states, or a stacked one, as a list."""
+    if isinstance(sampler_states, SamplerState):
+        return [index_sampler_state(sampler_states, i)
+                for i in range(sampler_states.positions.shape[0])]
+    return list(sampler_states)
+
+
 @tensor_dataclass
 class ThermodynamicState:
     """Ensemble definition: system + temperature (+ pressure, surface
@@ -113,6 +154,10 @@ class ThermodynamicState:
     @property
     def beta(self):
         return 1.0 / (kB * self.temperature)
+
+    @property
+    def is_periodic(self) -> bool:
+        return self.system.periodic
 
     @property
     def volume(self):
@@ -160,15 +205,19 @@ class ThermodynamicState:
 def reduced_potential_at_states(sampler_state: SamplerState, states):
     """u_k: the reduced potential of one configuration at each of the K
     states (thermodynamic or compound states sharing one system), as a (K,)
-    tensor."""
+    tensor; for a stacked sampler state (:func:`stack_sampler_states`), the
+    (R, K) matrix of its replicas."""
+    if sampler_state.positions.dim() == 3:
+        return reduced_potential_matrix(sampler_state, states)
     return torch.stack([torch.as_tensor(s.reduced_potential(sampler_state))
                         for s in states])
 
 
-def reduced_potential_matrix(sampler_states: Sequence[SamplerState], states):
-    """u[n, k] for N configurations at K states, an (N, K) tensor."""
+def reduced_potential_matrix(sampler_states, states):
+    """u[n, k] for N configurations at K states, an (N, K) tensor; the
+    configurations are a list of sampler states or a stacked one."""
     return torch.stack([reduced_potential_at_states(ss, states)
-                        for ss in sampler_states])
+                        for ss in _replicas(sampler_states)])
 
 
 def create_thermodynamic_state_protocol(

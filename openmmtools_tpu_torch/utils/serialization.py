@@ -25,6 +25,9 @@ def _array(kind, arr):
 
 
 def _encode(value: Any) -> Any:
+    """A value as plain dicts, lists and scalars: scalars as they are,
+    arrays and tensors tagged with their dtype and shape, containers
+    tagged with their type, objects through :func:`serialize`."""
     if isinstance(value, (int, float, str, bool, type(None))):
         return value
     if isinstance(value, np.ndarray):
@@ -46,6 +49,7 @@ def _encode(value: Any) -> Any:
 
 
 def _decode(value: Any) -> Any:
+    """Inverse of :func:`_encode`."""
     if isinstance(value, dict):
         t = value.get("_type")
         if t in ("ndarray", "tensor"):

@@ -1492,6 +1492,39 @@ def test_cuda_barostat_batch_keeps_per_replica_boxes(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_barostat_attempt_repeats_to_the_bit(cuda):
+    """A barostat attempt of three water replicas, accepted, twice on the
+    same inputs: the same positions to the bit (the molecules' centroid
+    sums add in index order; atomics made them differ from run to run),
+    and the centroids those of the CPU."""
+    from openmmtools_tpu_torch.cache import ContextCache
+    from openmmtools_tpu_torch.mcmc import MonteCarloBarostatMove
+
+    w = _water(3.0, cuda)
+    states = [w.thermodynamic_state(t, pressure=1.0)
+              for t in (300.0, 320.0, 350.0)]
+    cache = ContextCache()
+    move = MonteCarloBarostatMove(volume_scale=0.03)
+    ids, m = move._molecule_ids(w.system)
+    sss = [w.sampler_state() for _ in states]
+    eps = torch.tensor([0.01, -0.02, 0.015], device=cuda)
+    log_u = torch.full((3,), -float("inf"), device=cuda)
+    runs = [move.attempt_batch(states, sss, eps, log_u, ids, m, cache)
+            for _ in range(2)]
+    (a, acc_a), (b, acc_b) = runs
+    assert bool(acc_a.all()) and torch.equal(acc_a, acc_b)
+    for x, y in zip(a, b):
+        assert torch.equal(x.positions, y.positions)
+        assert torch.equal(x.box_vectors, y.box_vectors)
+    x = torch.stack([ss.positions for ss in sss])
+    card = torch.zeros((m, 3, 3), device=cuda).index_put_(
+        (ids,), x.transpose(0, 1), accumulate=True)
+    host = torch.zeros((m, 3, 3)).index_add_(0, ids.cpu(),
+                                              x.transpose(0, 1).cpu())
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.cuda
 def test_cuda_minimize_on_water_takes_k2(cuda):
     """``minimize`` on the 24,000-atom water box: FIRE through the cached
     bound integrator's sweep path with SETTLE, one K2 evaluation an
