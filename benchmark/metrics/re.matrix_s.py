@@ -1,0 +1,7 @@
+"""Seconds an iteration in the energy matrix (energies_batch),
+synchronized at its end."""
+from benchmark.metrics import readers
+
+
+def read(ctx):
+    return readers.span_per_unit(ctx, "energy matrix")
