@@ -2591,10 +2591,36 @@ def water_move():
                                          splitting="V R O R V")
 
 
-def split_means(sampler, first):
-    """Mean seconds an iteration of each phase from iteration ``first``."""
-    return {name: statistics.fmean(v[first:])
-            for name, v in sampler.phase_seconds.items()}
+SPLIT_PHASES = {"sampler.mixing": "mixing",
+                "sampler.propagation": "propagation",
+                "sampler.energy_matrix": "energy_matrix",
+                "sampler.report": "reporting"}
+
+
+def traced_run(sampler, n_iterations):
+    """``sampler.run(n_iterations)`` with the program's tracing on; returns
+    its snapshot (``openmmtools_tpu_torch.utils.tracing``)."""
+    from openmmtools_tpu_torch.utils import tracing
+
+    tracing.reset()
+    tracing.enable()
+    try:
+        sampler.run(n_iterations)
+    finally:
+        tracing.disable()
+    return tracing.snapshot()
+
+
+def split_means(snapshot):
+    """Mean seconds an iteration of each phase, from the sampler's spans
+    in a snapshot of :func:`traced_run`."""
+    spans = snapshot.spans
+    n = sum(name == "sampler.iteration" for name, *_ in spans)
+    out = dict.fromkeys(SPLIT_PHASES.values(), 0.0)
+    for name, lo, hi, *_ in spans:
+        if name in SPLIT_PHASES:
+            out[SPLIT_PHASES[name]] += (hi - lo) * 1e-9 / n
+    return out
 
 
 def matrix_against_plain(bound, sampler, pairs):
@@ -2705,7 +2731,7 @@ def phase_multistate_re(dev, smi):
         k.launches[key] = 0
     k.batch_launches.clear()
     t0 = time.perf_counter()
-    sampler.run(MS_ITERATIONS)
+    snap = traced_run(sampler, MS_ITERATIONS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(k.launches)
@@ -2769,7 +2795,7 @@ def phase_multistate_re(dev, smi):
         analyzer.reporter.close()
         analyzed = rel
     tmp.cleanup()
-    split = split_means(sampler, 0)
+    split = split_means(snap)
     it_s = wall / MS_ITERATIONS
     ns_day = n * MS_STEPS * 0.002e-3 / it_s * 86400.0
     held, nb = k2_held_ms(bound, sampler, dev)
@@ -4479,7 +4505,7 @@ def phase_tree_batched(dev, smi, re_sampler, eager17b):
     assert sampler.propagation_route == "batched"
     reset_counts(kernels)
     t0 = time.perf_counter()
-    sampler.run(TREE_ITERATIONS)
+    snap = traced_run(sampler, TREE_ITERATIONS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_batch = merged_counts(kernels)
@@ -4496,7 +4522,7 @@ def phase_tree_batched(dev, smi, re_sampler, eager17b):
     assert per_iteration == {"sweep_bound": MS_STEPS + 4,
                              "sweep_forces_alch": MS_STEPS + 4}, launches
     disp, rot = move.move_list[0], move.move_list[1]
-    split = split_means(sampler, 0)
+    split = split_means(snap)
     it_s = wall / it
 
     # the eager loop on the same tree, its Monte Carlo moves wrapped so

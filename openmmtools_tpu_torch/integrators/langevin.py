@@ -87,6 +87,7 @@ from openmmtools_tpu_torch.system import (
     make_energy_force_fn,
     value_and_grad,
 )
+from openmmtools_tpu_torch.utils import tracing
 from openmmtools_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
 
@@ -750,28 +751,31 @@ class BoundIntegrator:
         (the next force evaluation rebuilds) and re-scatters the exception
         bitfield for the new order. A batch sorts each replica; their
         bitfield overflow flags are ORed into one."""
-        k = self._sweep_kernel
-        box = state.box if state.box is not None else self.system.default_box
-        x = self._reconstruct(state.positions)
-        perm, inv = sweep_nb.sort_for_sweep(x, box, k.n_pad)
-        excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
-            self._sweep_pairs, inv, k.n_pad, k.mask_rows)
-        # the unscaled [sigma, sqrt(eps), charge(, code)] rows in the new
-        # order, in the kernels' layout; _sweep_eval folds in any scale
-        # parameters
-        sigma, sqrt_eps, charge, code = self._sweep_atom_rows
-        par = sweep_nb.sorted_params(
-            sigma, sqrt_eps, charge, perm.long(), k.n_pad,
-            k.input_dtype(state.positions), code)
-        overflow = torch.any(max_sep > k.mask_shells)
-        if state.sweep_overflow is not None:
-            overflow = overflow | state.sweep_overflow
-        return state.replace(
-            sweep_perm=perm, sweep_inv=inv,
-            sweep_snap=torch.zeros_like(state.positions),
-            sweep_nblk=torch.full(tuple(x.shape[:-2]), -1, dtype=torch.int32,
-                                  device=state.positions.device),
-            sweep_excl=excl, sweep_par=par, sweep_overflow=overflow)
+        with tracing.span("integrator.resort"):
+            k = self._sweep_kernel
+            box = (state.box if state.box is not None
+                   else self.system.default_box)
+            x = self._reconstruct(state.positions)
+            perm, inv = sweep_nb.sort_for_sweep(x, box, k.n_pad)
+            excl, max_sep = sweep_nb.scatter_exclusion_bitfield(
+                self._sweep_pairs, inv, k.n_pad, k.mask_rows)
+            # the unscaled [sigma, sqrt(eps), charge(, code)] rows in the
+            # new order, in the kernels' layout; _sweep_eval folds in any
+            # scale parameters
+            sigma, sqrt_eps, charge, code = self._sweep_atom_rows
+            par = sweep_nb.sorted_params(
+                sigma, sqrt_eps, charge, perm.long(), k.n_pad,
+                k.input_dtype(state.positions), code)
+            overflow = torch.any(max_sep > k.mask_shells)
+            if state.sweep_overflow is not None:
+                overflow = overflow | state.sweep_overflow
+            return state.replace(
+                sweep_perm=perm, sweep_inv=inv,
+                sweep_snap=torch.zeros_like(state.positions),
+                sweep_nblk=torch.full(tuple(x.shape[:-2]), -1,
+                                      dtype=torch.int32,
+                                      device=state.positions.device),
+                sweep_excl=excl, sweep_par=par, sweep_overflow=overflow)
 
     @staticmethod
     def _sweep_dict(state: IntegratorState):
@@ -893,6 +897,10 @@ class BoundIntegrator:
                 {k: v[0] for k, v in new_sw.items()})
 
     def _sweep_eval_batch(self, x, box, params, sw, forces=True, rep=None):
+        with tracing.span("forces.sweep"):
+            return self._evaluate_sweep(x, box, params, sw, forces, rep)
+
+    def _evaluate_sweep(self, x, box, params, sw, forces, rep):
         x_in = x
         x = self._reconstruct(x)
         k = self._sweep_kernel
@@ -908,6 +916,8 @@ class BoundIntegrator:
         moved = torch.amax(torch.sum(disp * disp, dim=-1), dim=-1) > (
             0.5 * k.skin) ** 2
         rebuild = (sw["nblk"] < 0) | moved
+        tracing.count("k2.rebuilds", rebuild)
+        tracing.count("k2.sort_sets", rebuild.shape[0])
 
         par = sw["par"] if rep is None else sw["par"][rep]
         batch = par.shape[0]
@@ -947,8 +957,9 @@ class BoundIntegrator:
         rep_k = None
         if rep is not None:
             rep_k = rep.to(device=x.device, dtype=torch.int32)
-        F_s, u_s, nblk = k.evaluate(xT, par.contiguous(), sw["excl"], L,
-                                    rebuild, sw["nblk"], lam, rep_k)
+        with tracing.span("k2.evaluate"):
+            F_s, u_s, nblk = k.evaluate(xT, par.contiguous(), sw["excl"], L,
+                                        rebuild, sw["nblk"], lam, rep_k)
         if rep is None:
             x_r, box_r, lengths_r = x, box, lengths
         else:
@@ -957,10 +968,11 @@ class BoundIntegrator:
             inv = sw["inv"].long()[..., None].expand(x.shape)
             F_direct = torch.gather(F_s.transpose(-1, -2), -2, inv).to(
                 x.dtype)
-            u_r, g_r = batched_value_and_grad(
-                lambda xx: self._rest_energies(xx, box, params), x)
+            with tracing.span("forces.remainder"):
+                u_r, g_r = batched_value_and_grad(
+                    lambda xx: self._rest_energies(xx, box, params), x)
         else:
-            with torch.no_grad():
+            with torch.no_grad(), tracing.span("forces.remainder"):
                 u_r = self._rest_energies(x_r, box_r, params)
         # the parts add up in float64, as OpenMM's mixed precision sums
         # energies: a float32 total of 24,000 waters (-3.2e5 kJ/mol) moves
@@ -1041,7 +1053,11 @@ class BoundIntegrator:
         set: an exception pair's sorted separation exceeded the bitfield's
         ``mask_shells``, so its full interaction was evaluated at bonded
         distance and the energies are wrong. One host read."""
-        if flag is not None and bool(flag):
+        if flag is None:
+            return
+        with tracing.span("integrator.overflow_check"):
+            overflowed = bool(flag)
+        if overflowed:
             raise IntegratorError(
                 "sweep kernel exclusion-bitfield overflow: an exception "
                 "pair's sorted separation exceeded mask_shells="
@@ -1061,27 +1077,28 @@ class BoundIntegrator:
         configuration (it reads no global parameter); else each force
         group's dense function under vmap. The caller checks the flag
         (:meth:`check_sweep_overflow`)."""
-        default = self.system.default_box
-        if box is None and default is not None:
-            box = default.expand((x.shape[0],) + default.shape)
-        self._refuse_dense(x)
-        rep = torch.as_tensor(rep, device=x.device).long()
-        if self._fused is not None:
-            u = torch.stack([self._fused_energy_forces(x[r], box[r])[0]
-                             for r in range(x.shape[0])])
-            return u.to(torch.float64)[rep], None
-        box, sw, overflow, _ = self._path_inputs(x, box, [])
-        total = torch.zeros((rep.shape[0],), dtype=torch.float64,
-                            device=x.device)
-        for g in self.groups:
-            if sw is not None and g == self._sweep_group:
-                u, _, sw = self._sweep_eval(x, box, params, sw, forces=False,
-                                            rep=rep)
-            else:
-                with torch.no_grad():
-                    u = self._dense_energies(g, x[rep], box, rep, params)
-            total = total + u.to(torch.float64)
-        return total, overflow
+        with tracing.span("integrator.energies_batch"):
+            default = self.system.default_box
+            if box is None and default is not None:
+                box = default.expand((x.shape[0],) + default.shape)
+            self._refuse_dense(x)
+            rep = torch.as_tensor(rep, device=x.device).long()
+            if self._fused is not None:
+                u = torch.stack([self._fused_energy_forces(x[r], box[r])[0]
+                                 for r in range(x.shape[0])])
+                return u.to(torch.float64)[rep], None
+            box, sw, overflow, _ = self._path_inputs(x, box, [])
+            total = torch.zeros((rep.shape[0],), dtype=torch.float64,
+                                device=x.device)
+            for g in self.groups:
+                if sw is not None and g == self._sweep_group:
+                    u, _, sw = self._sweep_eval(x, box, params, sw,
+                                                forces=False, rep=rep)
+                else:
+                    with torch.no_grad():
+                        u = self._dense_energies(g, x[rep], box, rep, params)
+                total = total + u.to(torch.float64)
+            return total, overflow
 
     def _dense_energies(self, g, x, box, rep, params):
         """Force group ``g``'s dense energy of a batch ``x`` (B, N, 3) at
@@ -1223,8 +1240,15 @@ class BoundIntegrator:
 
     # -- constraint dispatch: SETTLE + M-SHAKE on disjoint partitions -----
     def _constrain_positions(self, x_new, x_old):
-        if x_new.dim() == 3:
-            return self._per_replica(self._constrain_positions, x_new, x_old)
+        """``x_new`` projected onto the constraints from ``x_old``; a batch
+        replica by replica (one span a call)."""
+        with tracing.span("constraints.positions"):
+            if x_new.dim() == 3:
+                return self._per_replica(self._project_positions, x_new,
+                                         x_old)
+            return self._project_positions(x_new, x_old)
+
+    def _project_positions(self, x_new, x_old):
         if self._settle is not None:
             x_new = constraints.settle_positions(x_new, x_old, self._settle,
                                                  self.masses)
@@ -1240,8 +1264,14 @@ class BoundIntegrator:
         return x_new
 
     def _constrain_velocities(self, x, v):
-        if v.dim() == 3:
-            return self._per_replica(self._constrain_velocities, x, v)
+        """``v`` with its components along the constraints at ``x``
+        removed; a batch replica by replica (one span a call)."""
+        with tracing.span("constraints.velocities"):
+            if v.dim() == 3:
+                return self._per_replica(self._project_velocities, x, v)
+            return self._project_velocities(x, v)
+
+    def _project_velocities(self, x, v):
         if self._settle is not None:
             v = constraints.settle_velocities(x, v, self._settle, self.masses)
         if self._rest_constraints is not None:
@@ -1365,6 +1395,11 @@ class BoundIntegrator:
              skip_trailing_vproj=False) -> IntegratorState:
         """One step of the splitting program; ``skip_trailing_vproj`` drops
         the last substep's velocity projection (see _vproj_skip_eligible)."""
+        with tracing.span("integrator.step"):
+            return self._step(state, skip_trailing_vproj)
+
+    def _step(self, state: IntegratorState,
+              skip_trailing_vproj=False) -> IntegratorState:
         skip_idx = len(self.tokens) - 1 if skip_trailing_vproj else -1
         env = _Env()
         env.x = state.positions

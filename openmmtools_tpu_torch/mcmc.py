@@ -76,6 +76,7 @@ from openmmtools_tpu_torch.states import (
     SamplerState,
 )
 from openmmtools_tpu_torch.system import HarmonicBondTerm
+from openmmtools_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -415,22 +416,32 @@ class BaseIntegratorMove(MCMCMove):
         from the second attempt on; the others keep the batch's result.
         The integrator moves keep their bound integrators on the move, so
         ``context_cache`` plays no part."""
+        with tracing.span("move.apply_batch"):
+            return self._apply_batch(thermodynamic_states, sampler_states,
+                                     generators, owners)
+
+    def _apply_batch(self, thermodynamic_states, sampler_states, generators,
+                     owners):
         owners = owners or [self] * len(sampler_states)
         states = [_resolve(ts) for ts in thermodynamic_states]
         bound = self._bound(states[0])
         sampler_states = [ss.replace(velocities=None)
                           if self.reassign_velocities else ss
                           for ss in sampler_states]
-        state = bound.initial_state_batch(sampler_states, generators,
-                                          thermodynamic_states=states)
-        state = bound.run(state, self.n_steps)
+        with tracing.span("integrator.initial_state"):
+            state = bound.initial_state_batch(sampler_states, generators,
+                                              thermodynamic_states=states)
+        with tracing.span("integrator.run"):
+            state = bound.run(state, self.n_steps)
         if state.nbr_overflow is not None and bool(state.nbr_overflow.any()):
             raise MCMCMoveError(
                 "neighbor-list capacity exceeded during integration; "
                 "increase neighbor_skin/k_max or density changed "
                 "drastically")
-        out = bound.sampler_states_from(state)
-        ok = torch.stack([~ss.has_nan() for ss in out]).cpu()
+        with tracing.span("integrator.sampler_states"):
+            out = bound.sampler_states_from(state)
+        with tracing.span("move.nan_check"):
+            ok = torch.stack([~ss.has_nan() for ss in out]).cpu()
         kept = torch.nonzero(ok).reshape(-1).tolist()
         # each owner harvests the statistics of its finite replicas
         for owner in {id(o): o for o in owners}.values():

@@ -58,7 +58,6 @@ the stop criterion and timing once a window), never what they are.
 """
 from __future__ import annotations
 
-import collections
 import logging
 import math
 import os
@@ -97,6 +96,7 @@ from openmmtools_tpu_torch.states import (
     stack_thermodynamic_states,
 )
 from openmmtools_tpu_torch.system import make_energy_fn, refuse_dense, volume
+from openmmtools_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -260,8 +260,6 @@ class MultiStateSampler:
         self._device_states: Dict[str, List[Any]] = {}
         self._mesh = None
         self._sharding = None
-        self.phase_seconds: Dict[str, List[float]] = \
-            collections.defaultdict(list)
 
     # ------------------------------------------------------------------
     # properties
@@ -619,15 +617,24 @@ class MultiStateSampler:
         """Mix, propagate and take the energy matrix; the generator counter
         advances by one."""
         i = self._rng_iteration
-        t0 = time.perf_counter()
-        mixed = self._mix_kernel(
-            torch.Generator().manual_seed(derived_seed(self._rng_seed, i)),
-            self._replica_states, self._energies, self._n_accepted,
-            self._n_proposed)
+        with tracing.span("sampler.mixing"):
+            mixed = self._mix_kernel(
+                torch.Generator().manual_seed(derived_seed(self._rng_seed,
+                                                           i)),
+                self._replica_states, self._energies, self._n_accepted,
+                self._n_proposed)
         if mixed is not None:
             (self._replica_states, self._n_accepted,
              self._n_proposed) = mixed
-        t1 = time.perf_counter()
+        with tracing.span("sampler.propagation"):
+            self._propagate()
+        with tracing.span("sampler.energy_matrix"):
+            self._energies = self._energy_matrix(windowed=True)
+        self._rng_iteration = i + 1
+
+    def _propagate(self):
+        """Every replica's move at its state, block by block."""
+        i = self._rng_iteration
         moves = self._moves_per_state()
         propagated = list(self._sampler_states)
         batched = self.propagation_route == "batched"
@@ -648,13 +655,6 @@ class MultiStateSampler:
             for n, ss in zip(idx, out):
                 propagated[n] = ss
         self._sampler_states = propagated
-        t2 = time.perf_counter()
-        self._energies = self._energy_matrix(windowed=True)
-        t3 = time.perf_counter()
-        self._rng_iteration = i + 1
-        self.phase_seconds["mixing"].append(t1 - t0)
-        self.phase_seconds["propagation"].append(t2 - t1)
-        self.phase_seconds["energy_matrix"].append(t3 - t2)
 
     @staticmethod
     def move_groups(moves, s_of) -> List[List[int]]:
@@ -864,18 +864,18 @@ class MultiStateSampler:
             k = min(max(1, self.iterations_per_sync),
                     iteration_limit - self._iteration)
             for i in range(k):
-                self._iteration += 1
-                self._advance()
-                self._after_iteration()
-                t_report = time.perf_counter()
-                u = self.energies_last_iteration
-                s = self.replica_states
-                self._check_nan_energy(u, s)
-                self._report_iteration(u, s, allow_checkpoint=(i == k - 1))
-                self._after_report()
-                self._update_analysis()
-                self.phase_seconds["reporting"].append(
-                    time.perf_counter() - t_report)
+                with tracing.span("sampler.iteration"):
+                    self._iteration += 1
+                    self._advance()
+                    self._after_iteration()
+                    with tracing.span("sampler.report"):
+                        u = self.energies_last_iteration
+                        s = self.replica_states
+                        self._check_nan_energy(u, s)
+                        self._report_iteration(
+                            u, s, allow_checkpoint=(i == k - 1))
+                        self._after_report()
+                        self._update_analysis()
             self._update_timing((time.perf_counter() - t0) / k)
 
     def _after_iteration(self):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from openmmtools_tpu_torch.constants import ONE_4PI_EPS0
+from openmmtools_tpu_torch.utils import tracing
 from openmmtools_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
 # OpenMM NonbondedForce's default PME tolerance. openmmtools' test systems
@@ -112,11 +113,12 @@ def _real_weight_full(w, M):
 
 
 def _sf_forward_real(q, tx, ty, tz, M):
-    X = _real_tables(tx, M)
-    Y = _real_tables(ty, M)
-    Z = _real_tables(tz, M)
-    D = Y[:, :, None] * Z[:, None, :]
-    T = torch.einsum('nx,nyz->xyz', q[:, None] * X, D)
+    with tracing.span("pme.forward"):
+        X = _real_tables(tx, M)
+        Y = _real_tables(ty, M)
+        Z = _real_tables(tz, M)
+        D = Y[:, :, None] * Z[:, None, :]
+        T = torch.einsum('nx,nyz->xyz', q[:, None] * X, D)
     return T, X, Y, Z
 
 
@@ -135,41 +137,42 @@ def _sf_real_backward(q, tx, ty, tz, w, T, M, g):
     """Cotangents (dq, dtx, dty, dtz, dw) of W = sum w |S|^2 in the real
     basis: all four finishing sums share one (N, yz) staging and ONE heavy
     contraction against block-swapped copies of B = dW/dT."""
-    X = _real_tables(tx, M)
-    Y = _real_tables(ty, M)
-    Z = _real_tables(tz, M)
-    B = (2.0 * g) * _real_weight_full(w, M) * T
-    G = torch.stack([B,
-                     _swap_mblocks(B, 0, M),
-                     _swap_mblocks(B, 1, M),
-                     _swap_mblocks(B, 2, M)], dim=-1)
-    D = Y[:, :, None] * Z[:, None, :]
-    V = torch.einsum('nyz,xyza->nxa', D, G)
-    H = torch.sum(V * X[:, :, None], dim=1)          # (N, 4)
-    dq = H[:, 0]
-    dtx = q * H[:, 1]
-    dty = q * H[:, 2]
-    dtz = q * H[:, 3]
-    # w cotangent: per-signed-cell |S|^2 rebuilt from the T blocks
-    M1 = M + 1
-    Tr1, Ti1 = T[:M1, :M1, :M1], T[M1:, :M1, :M1]
-    Tr2, Ti2 = T[:M1, :M1, M1:], T[M1:, :M1, M1:]
-    Tr3, Ti3 = T[:M1, M1:, :M1], T[M1:, M1:, :M1]
-    Tr4, Ti4 = T[:M1, M1:, M1:], T[M1:, M1:, M1:]
+    with tracing.span("pme.backward"):
+        X = _real_tables(tx, M)
+        Y = _real_tables(ty, M)
+        Z = _real_tables(tz, M)
+        B = (2.0 * g) * _real_weight_full(w, M) * T
+        G = torch.stack([B,
+                         _swap_mblocks(B, 0, M),
+                         _swap_mblocks(B, 1, M),
+                         _swap_mblocks(B, 2, M)], dim=-1)
+        D = Y[:, :, None] * Z[:, None, :]
+        V = torch.einsum('nyz,xyza->nxa', D, G)
+        H = torch.sum(V * X[:, :, None], dim=1)          # (N, 4)
+        dq = H[:, 0]
+        dtx = q * H[:, 1]
+        dty = q * H[:, 2]
+        dtz = q * H[:, 3]
+        # w cotangent: per-signed-cell |S|^2 rebuilt from the T blocks
+        M1 = M + 1
+        Tr1, Ti1 = T[:M1, :M1, :M1], T[M1:, :M1, :M1]
+        Tr2, Ti2 = T[:M1, :M1, M1:], T[M1:, :M1, M1:]
+        Tr3, Ti3 = T[:M1, M1:, :M1], T[M1:, M1:, :M1]
+        Tr4, Ti4 = T[:M1, M1:, M1:], T[M1:, M1:, M1:]
 
-    def s2q(sy, sz):
-        sre = Tr1 - (sy * sz) * Tr4 - sz * Ti2 - sy * Ti3
-        sim = Ti1 - (sy * sz) * Ti4 + sz * Tr2 + sy * Tr3
-        return sre * sre + sim * sim
+        def s2q(sy, sz):
+            sre = Tr1 - (sy * sz) * Tr4 - sz * Ti2 - sy * Ti3
+            sim = Ti1 - (sy * sz) * Ti4 + sz * Tr2 + sy * Tr3
+            return sre * sre + sim * sim
 
-    def z_row(sy):
-        neg = torch.flip(s2q(sy, -1)[:, :, 1:], dims=[2])   # mz = M..1
-        return torch.cat([neg, s2q(sy, 1)], dim=2)
+        def z_row(sy):
+            neg = torch.flip(s2q(sy, -1)[:, :, 1:], dims=[2])   # mz = M..1
+            return torch.cat([neg, s2q(sy, 1)], dim=2)
 
-    s2 = torch.cat([torch.flip(z_row(-1)[:, 1:, :], dims=[1]), z_row(1)],
-                   dim=1)
-    dw = g * s2
-    return dq, dtx, dty, dtz, dw
+        s2 = torch.cat([torch.flip(z_row(-1)[:, 1:, :], dims=[1]), z_row(1)],
+                       dim=1)
+        dw = g * s2
+        return dq, dtx, dty, dtz, dw
 
 
 class _SFWeightedSumReal(torch.autograd.Function):

@@ -1996,3 +1996,74 @@ def test_cuda_prmtop_stand_in_against_the_plain_version(cuda, tmp_path):
     assert abs(float(u) - float(u64)) <= 1e-4 * abs(float(u64))
     assert float((f.cpu().double() + g64).abs().max()) <= REL * float(
         g64.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(cuda):
+    """Three replicas of the alchemical ladder, 20 batched steps under a
+    profile (tracing on): ``k2.rebuilds`` equals the rebuild flags handed
+    to K2 and ``k2.sort_sets`` the sort sets; the PME backward's spans run
+    on autograd's worker thread with ``forces.remainder`` as cause; each
+    span starts within 100 us of its profiler range; no span shows on the
+    device as an annotation."""
+    import collections
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmmtools_tpu_torch.mcmc import LangevinSplittingDynamicsMove
+    from openmmtools_tpu_torch.utils import tracing
+
+    w, states = _alchemical_ladder(3.0, cuda)
+    move = LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
+                                         n_steps=20)
+    k = move._bound(states[0])._sweep_kernel
+    flags = []
+    evaluate = k.evaluate
+
+    def counted(xT, par, excl, L, rebuild, *rest):
+        flags.append((int(rebuild.sum()), rebuild.shape[0]))
+        return evaluate(xT, par, excl, L, rebuild, *rest)
+
+    ts, ss = states[:3], [w.sampler_state()] * 3
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(31 + i)
+                for i in range(3)]
+
+    move.apply_batch(ts, ss, gens())
+    k.evaluate = counted
+    tracing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            move.apply_batch(ts, ss, gens())
+            torch.cuda.synchronize()
+        snap = tracing.snapshot()
+    finally:
+        del k.evaluate
+        tracing.reset()
+    assert len(flags) == 21
+    assert snap.counters == {"k2.rebuilds": sum(f for f, _ in flags),
+                             "k2.sort_sets": sum(r for _, r in flags)}
+    backward = [s for s in snap.spans if s[0] == "pme.backward"]
+    assert len(backward) == 3 * 21
+    assert {s[3] for s in backward} == {"forces.remainder"}
+    assert threading.get_ident() not in {s[4] for s in backward}
+    names = {s[0] for s in snap.spans}
+    events = prof.profiler.kineto_results.events()
+    ranges = collections.defaultdict(list)
+    for e in events:
+        if e.name() in names:
+            assert e.device_type() == DeviceType.CPU, e.name()
+            ranges[e.name()].append(e.start_ns())
+    offsets = []
+    for name in names:
+        starts = sorted(s[1] for s in snap.spans if s[0] == name)
+        assert len(starts) == len(ranges[name]), name
+        offsets += [lo - r for lo, r in zip(starts, sorted(ranges[name]))]
+    print(f"span start less its profiler range's: median "
+          f"{sorted(offsets)[len(offsets) // 2]} ns, range "
+          f"[{min(offsets)}, {max(offsets)}] ns over {len(offsets)} spans")
+    assert max(abs(o) for o in offsets) <= 100_000
