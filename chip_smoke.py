@@ -840,7 +840,9 @@ def profile_steps(bound, state, n_steps, phase="phase 7"):
     Each device activity goes to the innermost marked range that was open on
     the host when it was launched: the launch's runtime call, found by its
     correlation id, or else the operator it is linked to. "other" holds what
-    falls in no range (the integrator's updates, the sort and its gathers)."""
+    falls in no range (the integrator's updates, the sort and its gathers).
+    The steps run the eager program (the step's CUDA graph off): a replayed
+    graph opens no range, so only the eager steps split into parts."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -868,6 +870,7 @@ def profile_steps(bound, state, n_steps, phase="phase 7"):
             with record_function(_label):
                 return _fn(*a, **kw)
         setattr(obj, name, marked)
+    bound._graph_for = lambda state, skip: None
     try:
         state = bound.run(state, 10)
         torch.cuda.synchronize()
@@ -878,6 +881,7 @@ def profile_steps(bound, state, n_steps, phase="phase 7"):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
+        del bound._graph_for
         for label, (obj, name) in marks.items():
             fn, own = originals[label]
             if own:
@@ -979,7 +983,8 @@ def run_timed(bound, state, warmup, system, dof, label,
 
 
 def count_rebuilds(bound, state, k, n_steps):
-    """``n_steps`` untimed steps of ``bound`` with each call of K2's
+    """``n_steps`` untimed steps of ``bound``'s eager program (its CUDA
+    graph off: a replay calls no Python) with each call of K2's
     ``measure_bound`` recording its rebuild flag on the device and the ring
     it was given; returns the state, the launches with the flag set, all
     launches, and the path's own ring at its last rebuild before a re-sort
@@ -998,8 +1003,11 @@ def count_rebuilds(bound, state, k, n_steps):
 
     before = k.launches["sweep_bound"]
     k.measure_bound = recording
-    state = bound.run(state, n_steps)
-    del k.measure_bound
+    bound._graph_for = lambda state, skip: None
+    try:
+        state = bound.run(state, n_steps)
+    finally:
+        del k.measure_bound, bound._graph_for
     calls = k.launches["sweep_bound"] - before
     assert calls == len(flags) == n_steps and n_steps % interval == 0, (
         calls, len(flags))
@@ -2317,6 +2325,11 @@ def phase_mcmc(dev, smi):
     assert bounds["context"] is not bounds["langevin"]
     assert bounds["ghmc"].sweep_mode and bounds["ghmc"]._fused is None
     assert bounds["hmc"].sweep_mode and bounds["hmc"]._fused is None
+    # the event spans below need each launch issued from Python: the GHMC
+    # and HMC moves' steps run eagerly here, not as replayed CUDA graphs
+    # (tests/test_torch_cuda.py holds GHMC's graph to its eager steps)
+    for name in ("ghmc", "hmc"):
+        bounds[name]._graph_for = lambda state, skip: None
     wrappers = {"langevin": bounds["langevin"]._fused.launches,
                 "ghmc": bounds["ghmc"]._sweep_kernel.launches,
                 "hmc": bounds["hmc"]._sweep_kernel.launches,
@@ -2345,6 +2358,8 @@ def phase_mcmc(dev, smi):
         device = rec.span_ms()
         counted = rec.count()
     wall_s = time.perf_counter() - t0
+    for name in ("ghmc", "hmc"):
+        del bounds[name]._graph_for
     launches = {name: dict(c) for name, c in wrappers.items()}
     say(f"phase 13a MCMC on LJ-{N} (NPT, {TEMPERATURE} K, {pressure:.3f} "
         f"bar): {MCMC_ITERATIONS} iterations in {wall_s:.2f} s; launches "

@@ -22,6 +22,7 @@ through the alchemical variant of the sweep kernel
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
@@ -118,6 +119,14 @@ class AlchemicalState(GlobalParameterState):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _table(values, device):
+    """The (nested) tuple ``values`` as a tensor on ``device``, copied from
+    the host once: the step program, replayed as a CUDA graph, copies
+    nothing from the host."""
+    return torch.tensor(values, device=device)
+
+
 def region_lambdas(params, names, like):
     """The regions' lambdas (R,) in ``like``'s type and device: each read
     from ``params`` (a float or a tensor), 1 where absent. Tensor
@@ -210,17 +219,17 @@ class AlchemicalNonbondedTerm:
         rj = (rid_j + 1).long()
         lam = ext[ri] * ext[rj]   # nn: 1, na: lambda, cross-aa: lamA lamB
         same = (rid_i == rid_j) & (rid_i >= 0)
-        ann_ext = torch.tensor((False,) + tuple(annihilate),
-                               device=lam_regions.device)
+        ann_ext = _table((False,) + tuple(annihilate), lam_regions.device)
         lam_same = torch.where(ann_ext[ri], ext[ri], 1.0)
         lam = torch.where(same, lam_same, lam)
         n_regions = len(annihilate)
         if n_regions > 1:
             # cross-region pairs without a declared interaction: none
-            allowed = np.zeros((n_regions, n_regions), dtype=bool)
-            for a, b in self.region_interactions:
-                allowed[a, b] = allowed[b, a] = True
-            allowed = torch.as_tensor(allowed, device=lam_regions.device)
+            pairs = {frozenset(p) for p in self.region_interactions}
+            allowed = _table(tuple(tuple(frozenset((a, b)) in pairs
+                                         for b in range(n_regions))
+                                   for a in range(n_regions)),
+                             lam_regions.device)
             cross = (rid_i >= 0) & (rid_j >= 0) & (rid_i != rid_j)
             ok = allowed[torch.clamp(rid_i, min=0).long(),
                          torch.clamp(rid_j, min=0).long()]

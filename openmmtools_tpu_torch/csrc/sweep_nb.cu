@@ -21,7 +21,9 @@
 // (replica, state) pair, rep[b] the replica. Each evaluation computes what
 // the TPU kernel computes, on its own; a batch of one is the single call.
 //
-// Three C entry points:
+// Three C entry points. Each takes a device counter, launches, to which the
+// launch's first thread adds 1: the caller counts the launches that run,
+// those a replayed CUDA graph makes included.
 //
 //  * sweep_bound_f32: sweep_bound_kernel, one cooperative launch a call for
 //    all R sets. It reads the rebuild flags from device memory; where no set
@@ -315,10 +317,13 @@ sweep_bound_kernel(const float* __restrict__ x_all, int n, int n_pad, int R,
                    const float* __restrict__ L_all, float w2, int bs,
                    const unsigned char* __restrict__ rebuild,
                    const int* __restrict__ bound, float2* arcs_all,
-                   int* words, int* __restrict__ nblk) {
+                   int* words, int* __restrict__ nblk,
+                   unsigned long long* launches) {
     extern __shared__ float2 s_arcs[];            // every tile's arc
     __shared__ float4 staged[BOUND_WARPS][GROUP]; // a warp's partner tile
     __shared__ bool last;
+    if (launches && blockIdx.x == 0 && threadIdx.x == 0)
+        atomicAdd(launches, 1ull);
     // every block reads every flag alike: all return before the barrier,
     // or none does
     int any = 0;
@@ -648,7 +653,8 @@ sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
                     const int* __restrict__ nblk,
                     const int* __restrict__ rep, Physics ph, Alch al,
                     float* __restrict__ F, float* e_part,
-                    unsigned int* __restrict__ ticket, Real* __restrict__ U) {
+                    unsigned int* __restrict__ ticket, Real* __restrict__ U,
+                    unsigned long long* launches) {
     // two tiles of TILE_ROWS partners, then a queue of QUEUE + 1 ints a
     // warp (launched with FORCE_SMEM bytes)
     extern __shared__ __align__(16) float4 smem[];
@@ -656,6 +662,8 @@ sweep_forces_kernel(const float* __restrict__ x, const float* __restrict__ par,
     __shared__ float warp_e[WARPS];
     __shared__ Real red[WARPS];
     __shared__ bool last;
+    if (launches && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+        atomicAdd(launches, 1ull);
 
     // this evaluation's arrays
     {
@@ -842,7 +850,8 @@ int launch_forces(const float* x, const float* par, const int* excl, int n,
                   int n_pad, int mask_rows, int bs, const float* L,
                   const int* nblk, int B, const int* rep, const Physics& ph,
                   const Alch& al, float* e_part, unsigned int* ticket,
-                  float* F, Real* U, void* stream) {
+                  float* F, Real* U, unsigned long long* launches,
+                  void* stream) {
     if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || B < 1 || B > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     // past the 48 KB a block gets without asking
@@ -854,7 +863,8 @@ int launch_forces(const float* x, const float* par, const int* excl, int n,
         <<<dim3(n_pad / WARPS, B), FORCE_BLOCK, FORCE_SMEM,
            static_cast<cudaStream_t>(stream)>>>(x, par, excl, n, n_pad,
                                                 mask_rows, bs, L, nblk, rep,
-                                                ph, al, F, e_part, ticket, U);
+                                                ph, al, F, e_part, ticket, U,
+                                                launches);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -868,11 +878,12 @@ extern "C" {
 // x (R, 3, n_pad) sorted positions wrapped into the box, L (R, 3); arcs
 // holds R n_pad / 32 float2 of scratch, words R + 1 ints that are (-1, ...,
 // -1, 0) on entry and again on exit. Any n_pad and R: the arcs are staged in
-// shared memory up to STAGE_MAX bytes, else read from L2.
+// shared memory up to STAGE_MAX bytes, else read from L2. launches (one
+// unsigned 64-bit int on the device, or null) gains 1.
 int sweep_bound_f32(const float* x, int n, int n_pad, int R, const float* L,
                     float w2, int bs, const unsigned char* rebuild,
                     const int* bound, float2* arcs, int* words, int* nblk,
-                    void* stream) {
+                    unsigned long long* launches, void* stream) {
     if (n_pad <= 0 || n_pad % PAD != 0 || n > n_pad || bs <= 0 || R < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_tiles = n_pad / GROUP;
@@ -894,7 +905,7 @@ int sweep_bound_f32(const float* x, int n, int n_pad, int R, const float* L,
     const int wanted = (n_tiles + BOUND_WARPS - 1) / BOUND_WARPS;
     const int blocks = wanted < max_blocks ? wanted : max_blocks;
     void* args[] = {&x, &n, &n_pad, &R, &L, &w2, &bs, &rebuild, &bound,
-                    &arcs, &words, &nblk};
+                    &arcs, &words, &nblk, &launches};
     err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(BOUND_BLOCK),
                                       args, smem,
                                       static_cast<cudaStream_t>(stream));
@@ -908,20 +919,22 @@ int sweep_bound_f32(const float* x, int n, int n_pad, int R, const float* L,
 // and the bounds nblk (R,) int read on the device; evaluation b reads the
 // set rep[b] (int, on the device) and its own par[b] (3, n_pad) [sigma,
 // sqrt(eps), charge]. e_part holds B n_pad / 16 floats of scratch, and
-// ticket B unsigned ints that are 0 on entry and are 0 again on exit.
+// ticket B unsigned ints that are 0 on entry and are 0 again on exit;
+// launches (one unsigned 64-bit int on the device, or null) gains 1.
 int sweep_forces_f32(const float* x, const float* par, const int* excl, int n,
                      int n_pad, int mask_rows, int bs, const float* L,
                      const int* nblk, int B, const int* rep, float rc2,
                      int coulomb_rf, float alpha, float k_rf, float c_rf,
                      int use_switch, int switch_coulomb, float r_switch,
                      float inv_span, float ke, float* e_part,
-                     unsigned int* ticket, float* F, float* U, void* stream) {
+                     unsigned int* ticket, float* F, float* U,
+                     unsigned long long* launches, void* stream) {
     const Physics ph{rc2, coulomb_rf, alpha, k_rf, c_rf, use_switch,
                      switch_coulomb, r_switch, inv_span, ke};
     const Alch al{nullptr, 0, 0};
     return launch_forces<false>(x, par, excl, n, n_pad, mask_rows, bs, L,
                                 nblk, B, rep, ph, al, e_part, ticket, F, U,
-                                stream);
+                                launches, stream);
 }
 
 // The alchemical variant: as sweep_forces_f32, with par (B, 4, n_pad)
@@ -940,7 +953,7 @@ int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
                           float inv_span, float ke, const float* lam,
                           int n_regions, int coulomb_plain, float* e_part,
                           unsigned int* ticket, float* F, double* U,
-                          void* stream) {
+                          unsigned long long* launches, void* stream) {
     const int n_cls = (n_regions + 1) * (n_regions + 2) / 2 - 1;
     if (n_regions < 1 || 3 * n_cls > MAX_LAM)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -949,7 +962,7 @@ int sweep_forces_alch_f32(const float* x, const float* par, const int* excl,
     const Alch al{lam, n_regions, coulomb_plain};
     return launch_forces<true>(x, par, excl, n, n_pad, mask_rows, bs, L,
                                nblk, B, rep, ph, al, e_part, ticket, F, U,
-                               stream);
+                               launches, stream);
 }
 
 }  // extern "C"

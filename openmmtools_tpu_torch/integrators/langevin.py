@@ -34,6 +34,14 @@ on a CUDA device" in place of "the backend is a TPU":
 A subclass whose bound class brings its own ``step`` (the integrators of
 :mod:`openmmtools_tpu_torch.integrators.extras`) takes neither path.
 
+On the card, sweep mode's step program, batched or not, runs as one CUDA
+graph a step (:mod:`openmmtools_tpu_torch.integrators.step_graph`) where
+the step holds no host decision (no H step, no ``_pre_step`` hook, no
+Jacobi SHAKE/RATTLE): captured at a bound integrator's first ``run`` of a
+state's shapes, after that run's first step ran eagerly, then replayed
+once a step, drawing what the eager step draws.
+Everything else, and everything on the CPU, runs the step eagerly.
+
 Replicas as one batched axis (the JAX package's ``jax.vmap`` of the step
 program over replicas): :meth:`BoundIntegrator.initial_state_batch` stacks
 B configurations into one state whose tensors carry a leading axis (kT,
@@ -71,6 +79,7 @@ import torch
 
 from openmmtools_tpu_torch.alchemy import AlchemicalNonbondedTerm
 from openmmtools_tpu_torch.constants import kB
+from openmmtools_tpu_torch.integrators import step_graph
 from openmmtools_tpu_torch.ops import bonded, constraints, nonbonded, sweep_nb
 from openmmtools_tpu_torch.ops.fused_langevin import brings_own_step
 from openmmtools_tpu_torch.ops.geometry import minimum_image
@@ -445,6 +454,17 @@ class BoundIntegrator:
         # final state's projection once per run
         self._vproj_skip = (not self._own_step
                             and self._vproj_skip_eligible())
+        # one step as a CUDA graph (step_graph.py): sweep mode (which the
+        # fused path, neighbour mode and a class with its own step do not
+        # take) with no host decision in the step: no H steps (their
+        # protocol position is a host count), no _pre_step hook and no
+        # Jacobi SHAKE/RATTLE (iterated to a tolerance read on the host)
+        self._graph_program = (
+            self.sweep_mode and "H" not in self.tokens
+            and type(self)._pre_step is BoundIntegrator._pre_step
+            and not (self._rest_constraints is not None
+                     and self._clusters is None))
+        self._graphs: Dict[Any, Optional[step_graph.StepGraph]] = {}
 
     # -- neighbour-list production path -------------------------------------
     def _neighbor_setup(self):
@@ -1396,6 +1416,7 @@ class BoundIntegrator:
         """One step of the splitting program; ``skip_trailing_vproj`` drops
         the last substep's velocity projection (see _vproj_skip_eligible)."""
         with tracing.span("integrator.step"):
+            tracing.count("integrator.steps")
             return self._step(state, skip_trailing_vproj)
 
     def _step(self, state: IntegratorState,
@@ -1578,16 +1599,52 @@ class BoundIntegrator:
         return state.replace(forces=tuple(forces),
                              potentials=tuple(potentials))
 
+    def _graph_for(self, state: IntegratorState, skip: bool):
+        """The CUDA graph of one step (:mod:`.step_graph`) that serves
+        ``state``, not yet captured at its first use; None where the step
+        runs eagerly: a program with a host decision (``_graph_program``),
+        a state off the card or one the graph cannot hold
+        (``step_graph.signature``), or a signature whose capture failed.
+        One graph a signature: batch, atoms, dtypes, parameter names and
+        ``skip``; the replicas' kT and parameters are the buffers'
+        contents, so mixing captures nothing new."""
+        if not self._graph_program:
+            return None
+        key = step_graph.signature(state, len(self.groups), skip)
+        if key is None:
+            return None
+        if key not in self._graphs:
+            self._graphs[key] = step_graph.StepGraph(self, state, skip, key)
+        return self._graphs[key]
+
     def run_program(self, n_steps: int):
         """The function state -> state advancing ``n_steps`` steps. In sweep
         mode the sweep ring is re-sorted every ``sweep_sort_interval`` steps
         (and at the start of the run), in neighbour mode the list is rebuilt
         every ``neighbor_rebuild_interval`` steps (and at the start of the
         run); with the trailing-projection skip the final state's
-        velocities are projected once at the end."""
+        velocities are projected once at the end. Between re-sorts the
+        steps replay one CUDA graph where :meth:`_graph_for` gives one."""
+        skip = self._vproj_skip
+
         def steps(state, count):
+            graph = self._graph_for(state, skip) if count else None
+            if graph is not None and graph.graph is None:
+                # the first use: one eager step makes what the capture
+                # records (K2's scratch, tickets and launch counters, the
+                # libraries' plans), then the capture
+                state = self.step(state, skip_trailing_vproj=skip)
+                count -= 1
+                try:
+                    graph.capture()
+                except step_graph.CaptureError as err:
+                    logger.warning("the step program runs eagerly: its "
+                                   "CUDA graph failed to capture (%s)", err)
+                    self._graphs[graph.key] = graph = None
+            if graph is not None and count:
+                return graph.run(state, count)
             for _ in range(count):
-                state = self.step(state, skip_trailing_vproj=self._vproj_skip)
+                state = self.step(state, skip_trailing_vproj=skip)
             return state
 
         def chunked(state, refresh, interval):

@@ -53,18 +53,21 @@ SIGNATURES = {
     #  ou_a, ou_b, inv_m, seed, stream)
     "lj_chunk_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
                      _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64, _P),
-    # (x, n, n_pad, R, L, w2, bs, rebuild, bound, arcs, words, nblk, stream)
-    "sweep_bound_f32": (_P, _I, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P),
+    # (x, n, n_pad, R, L, w2, bs, rebuild, bound, arcs, words, nblk,
+    #  launches, stream)
+    "sweep_bound_f32": (_P, _I, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P,
+                        _P),
     # (x, par, excl, n, n_pad, mask_rows, bs, L, nblk, B, rep, rc2,
     #  coulomb_rf, alpha, k_rf, c_rf, use_switch, switch_coulomb, r_switch,
-    #  inv_span, ke, e_part, ticket, F, U, stream)
+    #  inv_span, ke, e_part, ticket, F, U, launches, stream)
     "sweep_forces_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _F, _I,
-                         _F, _F, _F, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
+                         _F, _F, _F, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P,
+                         _P),
     # (the same arguments up to ke, then lam, n_regions, coulomb_plain,
-    #  e_part, ticket, F, U, stream)
+    #  e_part, ticket, F, U, launches, stream)
     "sweep_forces_alch_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _F,
                               _I, _F, _F, _F, _I, _I, _F, _F, _F, _P, _I, _I,
-                              _P, _P, _P, _P, _P),
+                              _P, _P, _P, _P, _P, _P),
     # (x, occ, n_side, M, rows, L, rc2, sig2, eps4, eps24, r_switch,
     #  inv_span, use_switch, F, stream)
     "cell_forces_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I,

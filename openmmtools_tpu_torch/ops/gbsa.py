@@ -117,12 +117,12 @@ class GBSAOBCTerm:
 
         if self.hct:
             inv_b = 1.0 / or_i - i_sum
-            return 1.0 / torch.maximum(inv_b, inv_b.new_tensor(1e-6))
+            return 1.0 / torch.clamp(inv_b, min=1e-6)
         psi = i_sum * or_i
         tanh_arg = (self.obc_alpha * psi - self.obc_beta * psi ** 2
                     + self.obc_gamma * psi ** 3)
         inv_b = 1.0 / or_i - torch.tanh(tanh_arg) / self.radius
-        return 1.0 / torch.maximum(inv_b, inv_b.new_tensor(1e-6))
+        return 1.0 / torch.clamp(inv_b, min=1e-6)
 
     def energy(self, x, box, params=None):
         n = x.shape[0]

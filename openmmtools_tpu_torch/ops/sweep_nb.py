@@ -88,6 +88,7 @@ compares float (g_i + g_j, g_i g_j) against each class.
 from __future__ import annotations
 
 import collections
+import collections.abc
 import math
 
 import torch
@@ -360,6 +361,59 @@ def sweep_forces_reference(xT, par, excl, L, nblk, *, n, cutoff, method,
     return F, U.reshape(1)
 
 
+class LaunchCounts(collections.abc.MutableMapping):
+    """K2's launch counts by ``key(kernel, B)``, read from the counters the
+    kernels add to themselves (``counters``: (kernel, B, device) -> an
+    int64 () tensor on the card, 1 added by each launch's first thread), so
+    a launch that a CUDA graph replays counts each time it runs. Reading a
+    count reads the card. A count that is set is kept as an offset from
+    the counters, which only grow; a count of 0 is no entry, except for the
+    keys in ``always``."""
+
+    def __init__(self, counters, key, always=()):
+        self._counters = counters
+        self._key = key
+        self._always = tuple(always)
+        self._offset = collections.Counter()
+
+    def _device(self):
+        counts = collections.Counter()
+        for (kernel, B, _), counter in self._counters.items():
+            counts[self._key(kernel, B)] += int(counter)
+        return counts
+
+    def _read(self):
+        counts = self._device()
+        counts.update(self._offset)
+        return {**dict.fromkeys(self._always, 0),
+                **{key: n for key, n in counts.items() if n}}
+
+    def __getitem__(self, key):
+        return self._read().get(key, 0)
+
+    def __setitem__(self, key, value):
+        self._offset[key] = value - self._device()[key]
+
+    def __delitem__(self, key):
+        self[key] = 0
+
+    def __contains__(self, key):
+        return key in self._read()
+
+    def __iter__(self):
+        return iter(self._read())
+
+    def __len__(self):
+        return len(self._read())
+
+    def clear(self):
+        self._offset = collections.Counter(
+            {key: -n for key, n in self._device().items()})
+
+    def __repr__(self):
+        return repr(self._read())
+
+
 class SweepNonbonded:
     """Bounded-sweep direct-space force program for one NonbondedTerm
     configuration, standard or alchemical.
@@ -375,7 +429,9 @@ class SweepNonbonded:
     ``sweep_bound`` and ``sweep_forces`` (standard) or ``sweep_forces_alch``
     (alchemical); ``batch_launches`` the same launches by (kernel, batch
     size): sort sets for ``sweep_bound``, evaluations for the force
-    kernel.
+    kernel. The kernels count their own launches on the device
+    (:class:`LaunchCounts`), so the launches of a replayed CUDA graph
+    count as they run.
     """
 
     def __init__(self, n_particles, method, cutoff, switch_width=None,
@@ -417,9 +473,16 @@ class SweepNonbonded:
         self.n_par = 4 if self.alchemical else 3
         self.forces_kernel = ("sweep_forces_alch" if self.alchemical
                               else "sweep_forces")
-        self.launches = {"sweep_bound": 0, self.forces_kernel: 0}
-        self.batch_launches = collections.Counter()
-        # device -> the force kernel's tickets, kept at 0, one an evaluation
+        # (kernel, B, device) -> the launches the kernel counted at batch
+        # size B: never replaced, since a captured graph holds its address
+        self._launch_counters = {}
+        self.launches = LaunchCounts(self._launch_counters,
+                                     lambda kernel, B: kernel,
+                                     ("sweep_bound", self.forces_kernel))
+        self.batch_launches = LaunchCounts(self._launch_counters,
+                                           lambda kernel, B: (kernel, B))
+        # (device, B) -> the force kernel's B tickets, kept at 0: never
+        # replaced, since a captured graph holds their address
         self._tickets = {}
         # (device, R) -> the bound kernel's scratch for R sort sets
         self._bound_scratch = {}
@@ -435,6 +498,19 @@ class SweepNonbonded:
                     switch_coulomb=self.switch_coulomb,
                     n_regions=self.n_regions,
                     coulomb_plain=self.coulomb_pme_treatment)
+
+    def _launch_counter(self, kernel, B, dev):
+        """The device counter that ``kernel``'s launches at batch size ``B``
+        add to, made by an eager launch before any capture records one."""
+        counter = self._launch_counters.get((kernel, B, dev))
+        if counter is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"no launch counter of {kernel} at B = {B} before the "
+                    f"capture")
+            counter = self._launch_counters[(kernel, B, dev)] = torch.zeros(
+                (), dtype=torch.int64, device=dev)
+        return counter
 
     def measure_bound(self, xT, L, rebuild, bound):
         """The block bound (int32 (1,)) for this evaluation: re-measured when
@@ -473,9 +549,9 @@ class SweepNonbonded:
             xT.data_ptr(), self.n, self.n_pad, R, L.data_ptr(),
             (self.rc + self.skin) ** 2, self.bs, rebuild.data_ptr(),
             bound.data_ptr(), arcs.data_ptr(), words.data_ptr(),
-            nblk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        self.launches["sweep_bound"] += 1
-        self.batch_launches[("sweep_bound", R)] += 1
+            nblk.data_ptr(),
+            self._launch_counter("sweep_bound", R, dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         check(err, "sweep_bound_f32")
         return nblk
 
@@ -516,11 +592,10 @@ class SweepNonbonded:
         check_input(rep, torch.int32, (B,))
         e_part = torch.empty((B * self.n_pad // _WARPS,), dtype=torch.float32,
                              device=dev)
-        ticket = self._tickets.get(dev)
-        if ticket is None or ticket.shape[0] < B:
-            ticket = self._tickets[dev] = torch.zeros(
-                max(B, 1 if ticket is None else ticket.shape[0]),
-                dtype=torch.int32, device=dev)
+        ticket = self._tickets.get((dev, B))
+        if ticket is None:
+            ticket = self._tickets[(dev, B)] = torch.zeros(
+                (B,), dtype=torch.int32, device=dev)
         F = torch.empty((B, 3, self.n_pad), dtype=torch.float32, device=dev)
         # the alchemical variant's energy totals are doubles (their
         # differences are nonequilibrium work)
@@ -554,10 +629,10 @@ class SweepNonbonded:
                      int(self.coulomb_pme_treatment)]
         else:
             fn, name = lib.sweep_forces_f32, "sweep_forces_f32"
+        counter = self._launch_counter(self.forces_kernel, B, dev)
         err = fn(*args, e_part.data_ptr(), ticket.data_ptr(), F.data_ptr(),
-                 U.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        self.launches[self.forces_kernel] += 1
-        self.batch_launches[(self.forces_kernel, B)] += 1
+                 U.data_ptr(), counter.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
         check(err, name)
         if single:
             return F[0], U

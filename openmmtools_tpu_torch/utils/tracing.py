@@ -55,11 +55,17 @@ The program's spans, each opened inside its cause:
 
 and its counters: ``k2.rebuilds`` (device), the sort sets whose block bound
 a sweep evaluation re-measured, and ``k2.sort_sets`` (host), the sort sets
-it evaluated.
+it evaluated; ``integrator.steps`` (host), every step through the step
+program, ``integrator.graph_steps`` (host), those of them replayed from a
+CUDA graph (:mod:`openmmtools_tpu_torch.integrators.step_graph`), and
+``integrator.graph_captures`` (host), the graphs captured. A replay runs
+inside an ``integrator.step`` span and recounts the counts its capture
+held back (:func:`held`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -76,6 +82,8 @@ _host_counts: Dict[str, int] = {}
 _device_counts: Dict[Tuple[str, torch.device, torch.Size],
                      torch.Tensor] = {}
 _local = threading.local()
+# the counts held back while a CUDA graph captures (None: count as usual)
+_held: Optional[List[Tuple[str, object]]] = None
 # the buffer, the dropped count and the host counters are shared with
 # autograd's worker threads
 _lock = threading.Lock()
@@ -182,7 +190,11 @@ def span(name: str):
 def count(name: str, n=1):
     """Add ``n`` to the counter ``name`` while tracing is on: a host int,
     or the elements of an integer or bool tensor, added on its device (no
-    host read; one operation, a copy on a shape's first count)."""
+    host read; one operation, a copy on a shape's first count). Inside
+    :func:`held` the count is held back instead."""
+    if _held is not None:
+        _held.append((name, n))
+        return
     if not (_enabled or _profiler._is_profiler_enabled):
         return
     if isinstance(n, torch.Tensor):
@@ -195,6 +207,20 @@ def count(name: str, n=1):
     else:
         with _lock:
             _host_counts[name] = _host_counts.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def held():
+    """Within the block every :func:`count` is held back, on or off, into
+    the list the block yields, as (name, n): a CUDA graph's capture runs the
+    program once without running its work, and the graph's replays count
+    the held (name, n), whose device tensors each replay fills anew."""
+    global _held
+    outer, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = outer
 
 
 def _read(values: torch.Tensor) -> List[int]:

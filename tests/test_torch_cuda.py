@@ -14,6 +14,8 @@ dx < 5e-4 modulo L and dv < 5e-3 of the velocity scale). The sweep kernels'
 block bound must equal the plain version's exactly: both round r^2 the same
 way.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1999,13 +2001,15 @@ def test_cuda_prmtop_stand_in_against_the_plain_version(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(cuda):
-    """Three replicas of the alchemical ladder, 20 batched steps under a
-    profile (tracing on): ``k2.rebuilds`` equals the rebuild flags handed
-    to K2 and ``k2.sort_sets`` the sort sets; the PME backward's spans run
-    on autograd's worker thread with ``forces.remainder`` as cause; each
-    span starts within 100 us of its profiler range; no span shows on the
-    device as an annotation."""
+def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(
+        cuda, monkeypatch):
+    """Three replicas of the alchemical ladder, 20 batched steps of the
+    eager program (the step's CUDA graph off) under a profile (tracing
+    on): ``k2.rebuilds`` equals the rebuild flags handed to K2 and
+    ``k2.sort_sets`` the sort sets; the PME backward's spans run on
+    autograd's worker thread with ``forces.remainder`` as cause; each span
+    starts within 100 us of its profiler range; no span shows on the device
+    as an annotation."""
     import collections
     import threading
 
@@ -2018,7 +2022,9 @@ def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(cuda):
     w, states = _alchemical_ladder(3.0, cuda)
     move = LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
                                          n_steps=20)
-    k = move._bound(states[0])._sweep_kernel
+    bound = move._bound(states[0])
+    monkeypatch.setattr(bound, "_graph_for", lambda state, skip: None)
+    k = bound._sweep_kernel
     flags = []
     evaluate = k.evaluate
 
@@ -2046,7 +2052,8 @@ def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(cuda):
         tracing.reset()
     assert len(flags) == 21
     assert snap.counters == {"k2.rebuilds": sum(f for f, _ in flags),
-                             "k2.sort_sets": sum(r for _, r in flags)}
+                             "k2.sort_sets": sum(r for _, r in flags),
+                             "integrator.steps": 20}
     backward = [s for s in snap.spans if s[0] == "pme.backward"]
     assert len(backward) == 3 * 21
     assert {s[3] for s in backward} == {"forces.remainder"}
@@ -2067,3 +2074,325 @@ def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(cuda):
           f"{sorted(offsets)[len(offsets) // 2]} ns, range "
           f"[{min(offsets)}, {max(offsets)}] ns over {len(offsets)} spans")
     assert max(abs(o) for o in offsets) <= 100_000
+
+
+# -- the step program as one CUDA graph a step (integrators/step_graph.py) ---
+
+
+def _graph_run(bound, start, n_steps, graphs, monkeypatch):
+    """``bound.run(start(), n_steps)`` with the step's CUDA graph on or off,
+    traced: (the state, K2's launches and batch launches in the run, the
+    tracing counters)."""
+    from openmmtools_tpu_torch.utils import tracing
+
+    k = bound._sweep_kernel
+    with monkeypatch.context() as m:
+        if not graphs:
+            m.setattr(bound, "_graph_for", lambda state, skip: None)
+        state = start()
+        launches = dict(k.launches)
+        batch = collections.Counter(k.batch_launches)
+        tracing.reset()
+        tracing.enable()
+        try:
+            state = bound.run(state, n_steps)
+            torch.cuda.synchronize()
+            counters = tracing.snapshot().counters
+        finally:
+            tracing.disable()
+            tracing.reset()
+    return (state, {n: k.launches[n] - launches[n] for n in k.launches},
+            collections.Counter(k.batch_launches) - batch, counters)
+
+
+def _same_states(a, b):
+    for f in ("positions", "velocities", "heat", "shadow_work",
+              "protocol_work", "n_accepted", "n_proposed", "sweep_snap",
+              "sweep_nblk"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for x, y in zip(a.forces + a.potentials, b.forces + b.potentials):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert a.step_count == b.step_count
+    gens = (a.generator, b.generator)
+    if not isinstance(a.generator, tuple):
+        gens = ((a.generator,), (b.generator,))
+    for g, h in zip(*gens):
+        assert g is not h and torch.equal(g.get_state(), h.get_state())
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_replays_equal_eager_steps_to_the_bit(
+        cuda, monkeypatch):
+    """Three replicas of the 3,000-atom alchemical ladder (SETTLE, PME, K2's
+    alchemical variant), 20 steps of 2 fs measuring heat, re-sorted every 7
+    steps: the replayed steps give the eager steps' positions, velocities,
+    forces, potentials and heat to the bit, the generators end at the same
+    offsets, and K2's launches, its launches by batch size, ``k2.rebuilds``
+    and ``k2.sort_sets`` read as the eager run's, K2 counting its replayed
+    launches on the device. One capture, after the first step ran eagerly;
+    the other 19 steps replayed."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = LangevinIntegrator(temperature=300.0, timestep=0.002,
+                               collision_rate=1.0, measure_heat=True,
+                               sweep_sort_interval=7).bind(w.system)
+    assert bound.sweep_mode and bound._graph_program
+    assert not bound._vproj_skip
+    ts, ss = states[:3], [w.sampler_state()] * 3
+
+    def start():
+        gens = [torch.Generator(device=cuda).manual_seed(41 + i)
+                for i in range(3)]
+        return bound.initial_state_batch(ss, gens, thermodynamic_states=ts)
+
+    eager, l_e, b_e, c_e = _graph_run(bound, start, 20, False, monkeypatch)
+    graphed, l_g, b_g, c_g = _graph_run(bound, start, 20, True, monkeypatch)
+    _same_states(graphed, eager)
+    assert float(graphed.heat.abs().min()) > 0
+    assert l_g == l_e and b_g == b_e
+    assert b_g == {("sweep_bound", 3): 20, ("sweep_forces_alch", 3): 20}
+    assert c_e == {"k2.rebuilds": c_e["k2.rebuilds"], "k2.sort_sets": 60,
+                   "integrator.steps": 20}
+    assert c_g == {**c_e, "integrator.graph_steps": 19,
+                   "integrator.graph_captures": 1}
+    assert [g is not None for g in bound._graphs.values()] == [True]
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_serves_mixed_replicas_with_one_capture(
+        cuda, monkeypatch):
+    """Three runs of three replicas whose states (kT and lambdas) are
+    permuted between runs, as mixing does, each from the last run's
+    configurations: one capture serves all three, and each run equals the
+    eager program's to the bit."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    temps = [300.0, 320.0, 340.0]
+    lams = [dict(st.global_params) for st in states]
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0).bind(w.system)
+    assert bound._vproj_skip
+    orders = [[0, 1, 2], [2, 0, 1], [1, 2, 0]]
+    ss = {True: [w.sampler_state()] * 3, False: [w.sampler_state()] * 3}
+    captures = 0
+    for i, order in enumerate(orders):
+        out = {}
+        for graphs in (False, True):
+            def start():
+                gens = [torch.Generator(device=cuda).manual_seed(
+                    100 * i + n) for n in range(3)]
+                return bound.initial_state_batch(
+                    ss[graphs], gens, temperatures=[temps[s] for s in order],
+                    global_params=[lams[s] for s in order])
+
+            out[graphs], *_, counters = _graph_run(bound, start, 10, graphs,
+                                                   monkeypatch)
+            ss[graphs] = bound.sampler_states_from(out[graphs])
+            captures += counters.get("integrator.graph_captures", 0)
+        _same_states(out[True], out[False])
+    assert captures == 1 and len(bound._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_replays_a_single_replica(cuda, monkeypatch):
+    """One replica, (N, 3), 20 steps: replayed as eager, to the bit."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0).bind(w.system)
+
+    def start():
+        return bound.initial_state(
+            w.sampler_state(), torch.Generator(device=cuda).manual_seed(5),
+            thermodynamic_state=states[2])
+
+    eager, l_e, b_e, _ = _graph_run(bound, start, 20, False, monkeypatch)
+    graphed, l_g, b_g, c_g = _graph_run(bound, start, 20, True, monkeypatch)
+    assert graphed.positions.shape == (w.system.n_particles, 3)
+    _same_states(graphed, eager)
+    assert l_g == l_e and b_g == b_e
+    assert c_g["integrator.graph_steps"] == 19
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_leaves_the_fused_path_and_ncmc_alone(cuda):
+    """K1's fused path and an NCMC protocol (H steps) keep their own
+    routes on the card: no graph is captured."""
+    from openmmtools_tpu_torch.integrators import (
+        AlchemicalNonequilibriumLangevinIntegrator,
+    )
+
+    fluid = _calm(1000)
+    fused = BAOABIntegrator(temperature=120.0).bind(fluid.system)
+    assert fused._fused is not None and not fused._graph_program
+    w, states = _alchemical_ladder(3.0, cuda)
+    integ = AlchemicalNonequilibriumLangevinIntegrator(
+        alchemical_functions={"lambda_electrostatics": "1 - lambda"},
+        n_steps_neq=5, temperature=300.0, collision_rate=1.0,
+        timestep=0.002)
+    ncmc = integ.bind(w.system)
+    assert ncmc.sweep_mode and not ncmc._graph_program
+    state = ncmc.initial_state(
+        w.sampler_state(), torch.Generator(device=cuda).manual_seed(3),
+        global_params={**integ.initial_params(), "lambda_sterics": 1.0})
+    ncmc.run(state, 5)
+    assert ncmc._graphs == {}
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_refuses_a_generator_shared_by_replicas(cuda):
+    """Three replicas drawing from one generator run eagerly (the graph's
+    generators, one a replica, could not mirror it); the same replicas
+    with a generator each take a graph."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0).bind(w.system)
+    shared = torch.Generator(device=cuda).manual_seed(9)
+    state = bound.initial_state_batch([w.sampler_state()] * 3, [shared] * 3,
+                                      thermodynamic_states=states)
+    bound.run(state, 3)
+    assert bound._graphs == {}
+    gens = [torch.Generator(device=cuda).manual_seed(9 + i)
+            for i in range(3)]
+    state = bound.initial_state_batch([w.sampler_state()] * 3, gens,
+                                      thermodynamic_states=states)
+    bound.run(state, 3)
+    assert [g is not None for g in bound._graphs.values()] == [True]
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_replays_ghmc_s_metropolis_block(cuda, monkeypatch):
+    """GHMC ('O { V R V } O') on three replicas of the ladder: the block's
+    accept test and momentum flip replay as the eager steps, to the bit,
+    acceptance counts included."""
+    from openmmtools_tpu_torch.integrators import GHMCIntegrator
+
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = GHMCIntegrator(temperature=300.0, timestep=0.002,
+                           collision_rate=1.0).bind(w.system)
+    assert bound.sweep_mode and bound._graph_program
+
+    def start():
+        gens = [torch.Generator(device=cuda).manual_seed(61 + i)
+                for i in range(3)]
+        return bound.initial_state_batch([w.sampler_state()] * 3, gens,
+                                         thermodynamic_states=states)
+
+    eager, l_e, b_e, _ = _graph_run(bound, start, 20, False, monkeypatch)
+    graphed, l_g, b_g, c_g = _graph_run(bound, start, 20, True, monkeypatch)
+    _same_states(graphed, eager)
+    assert int(graphed.n_proposed.sum()) == 60
+    assert l_g == l_e and b_g == b_e
+    assert c_g["integrator.graph_steps"] == 19
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_outlives_a_larger_batch_on_its_kernels(
+        cuda, monkeypatch):
+    """A graph captured at B = 3, then ``energies_batch`` of 9 pairs on the
+    same bound (K2 at B = 9: tickets and scratch of their own) and the
+    freed memory handed out again, filled: the next replayed run equals
+    the eager run to the bit, with no new capture."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0).bind(w.system)
+
+    def start(seed):
+        def make():
+            gens = [torch.Generator(device=cuda).manual_seed(seed + i)
+                    for i in range(3)]
+            return bound.initial_state_batch([w.sampler_state()] * 3, gens,
+                                             thermodynamic_states=states[:3])
+        return make
+
+    *_, counters = _graph_run(bound, start(7), 5, True, monkeypatch)
+    assert counters["integrator.graph_captures"] == 1
+    k = bound._sweep_kernel
+    x = torch.stack([w.positions] * 3)
+    params = {n: torch.tensor([float(states[i % 3].global_params[n])
+                               for i in range(9)],
+                              dtype=x.dtype, device=cuda)
+              for n in states[0].global_params}
+    rep = torch.arange(9, device=cuda) % 3
+    u, overflow = bound.energies_batch(x, None, rep, params)
+    bound.check_sweep_overflow(overflow)
+    assert torch.isfinite(u).all()
+    assert k.batch_launches[("sweep_forces_alch", 9)] == 1
+    junk = [torch.full((n,), 7, dtype=torch.int32, device=cuda)
+            for n in (3, 9) for _ in range(256)]
+    eager, l_e, b_e, _ = _graph_run(bound, start(21), 20, False, monkeypatch)
+    graphed, l_g, b_g, c_g = _graph_run(bound, start(21), 20, True,
+                                        monkeypatch)
+    del junk
+    _same_states(graphed, eager)
+    assert l_g == l_e and b_g == b_e
+    assert c_g["integrator.graph_steps"] == 20
+    assert "integrator.graph_captures" not in c_g
+
+
+@pytest.mark.cuda
+def test_cuda_k2_counts_its_launches_on_the_device(cuda):
+    """K2's kernels count their own launches on the card: the initial
+    forces and a 4-step run, whose first step runs eagerly and whose other
+    three replay the step's graph, read 5 launches of each kernel, by
+    kernel and by batch size; a set count is an offset the next launches
+    add to, and leaves the batch counts alone."""
+    from openmmtools_tpu_torch.ops import sweep_nb as tsw
+
+    w = _water(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0).bind(w.system)
+    assert bound.sweep_mode and bound._graph_program
+    k = bound._sweep_kernel
+    k.launches.clear()
+    k.batch_launches.clear()
+    assert dict(k.launches) == {"sweep_bound": 0, "sweep_forces": 0}
+    assert dict(k.batch_launches) == {}
+    state = bound.initial_state(w.sampler_state(),
+                                torch.Generator(device=cuda).manual_seed(1))
+    state = bound.run(state, 4)
+    assert [g.graph is not None for g in bound._graphs.values()] == [True]
+    assert isinstance(k.launches, tsw.LaunchCounts)
+    assert k.launches == {"sweep_bound": 5, "sweep_forces": 5}
+    assert dict(k.batch_launches) == {("sweep_bound", 1): 5,
+                                      ("sweep_forces", 1): 5}
+    k.launches["sweep_bound"] = 2
+    bound.run(state, 3)
+    assert k.launches == {"sweep_bound": 5, "sweep_forces": 8}
+    assert k.batch_launches[("sweep_bound", 1)] == 8
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_that_fails_to_capture_runs_eagerly(
+        cuda, monkeypatch, caplog):
+    """A step the graph cannot hold (one that turns the heat into float64,
+    which ``copy_`` into its float32 buffer would cast): the capture raises
+    ``CaptureError``, the program warns and runs the step eagerly, equal
+    to the eager program to the bit, its signature stays eager on the next
+    run, and the counters show steps and no replay."""
+    w, states = _alchemical_ladder(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0,
+                            measure_heat=True).bind(w.system)
+    step = bound._step
+
+    def doubled_heat(s, skip):
+        out = step(s, skip)
+        return out.replace(heat=out.heat.to(torch.float64))
+
+    monkeypatch.setattr(bound, "_step", doubled_heat)
+
+    def start():
+        gens = [torch.Generator(device=cuda).manual_seed(71 + i)
+                for i in range(3)]
+        return bound.initial_state_batch([w.sampler_state()] * 3, gens,
+                                         thermodynamic_states=states)
+
+    eager, l_e, b_e, c_e = _graph_run(bound, start, 10, False, monkeypatch)
+    with caplog.at_level("WARNING"):
+        graphed, l_g, b_g, c_g = _graph_run(bound, start, 10, True,
+                                            monkeypatch)
+    assert "failed to capture" in caplog.text
+    assert list(bound._graphs.values()) == [None]
+    _same_states(graphed, eager)
+    assert l_g == l_e and b_g == b_e
+    assert c_g == c_e and c_g["integrator.steps"] == 10
+    again, *_, c_again = _graph_run(bound, start, 10, True, monkeypatch)
+    _same_states(again, eager)
+    assert c_again == c_e

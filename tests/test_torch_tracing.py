@@ -194,7 +194,8 @@ def test_one_iteration_gives_the_span_tree(runs):
             assert any(s[0] == cause and s[1] <= lo and hi <= s[2]
                        for s in snap.spans), name
     assert snap.counters == {"k2.sort_sets": n_rep * evaluations,
-                             "k2.rebuilds": snap.counters["k2.rebuilds"]}
+                             "k2.rebuilds": snap.counters["k2.rebuilds"],
+                             "integrator.steps": N_STEPS}
     assert resorts * n_rep <= snap.counters["k2.rebuilds"] <= \
         n_rep * evaluations
 
@@ -281,6 +282,26 @@ def test_snapshot_reads_the_device_counters_once(monkeypatch):
     snap = tracing.snapshot()
     assert snap.counters == {"flags": 8, "ints": 10, "host": 7}
     assert reads == [(3,)]
+
+
+def test_held_counts_are_kept_out_of_the_counters_on_or_off():
+    """Inside ``held`` every count, tracing on or off, goes to the block's
+    list (a graph's capture); recounted outside, they add as usual."""
+    flags = torch.tensor([True, False, True])
+    with tracing.held() as held:
+        tracing.count("k2.rebuilds", flags)
+        tracing.count("k2.sort_sets", 3)
+    tracing.enable()
+    with tracing.held() as inner:
+        tracing.count("k2.sort_sets", 3)
+    assert held == [("k2.rebuilds", flags), ("k2.sort_sets", 3)]
+    assert inner == [("k2.sort_sets", 3)]
+    assert tracing.snapshot().counters == {}
+    for _ in range(2):
+        for name, n in held:
+            tracing.count(name, n)
+    assert tracing.snapshot().counters == {"k2.rebuilds": 4,
+                                           "k2.sort_sets": 6}
 
 
 def test_off_a_span_is_one_shared_no_op():
