@@ -460,27 +460,36 @@ class BaseIntegratorMove(MCMCMove):
 
     def _apply(self, thermodynamic_state, sampler_state, generator,
                context_cache):
-        return self._attempts(thermodynamic_state, sampler_state, generator)
+        with tracing.span("move.apply"):
+            return self._attempts(thermodynamic_state, sampler_state,
+                                  generator)
 
     def _attempts(self, thermodynamic_state, sampler_state, generator,
                   first=0):
         """Integrate, restarting on NaN: attempts ``first`` ..
-        ``n_restart_attempts``, the last with fresh velocities."""
+        ``n_restart_attempts``, the last with fresh velocities. Each
+        attempt after the first counts one ``move.restarts``."""
         bound = self._bound(thermodynamic_state)
         for attempt in range(first, self.n_restart_attempts + 1):
+            tracing.count("move.restarts", int(attempt > 0))
             ss = sampler_state
             if self.reassign_velocities or attempt == self.n_restart_attempts:
                 ss = ss.replace(velocities=None)
-            state = bound.initial_state(
-                ss, generator, thermodynamic_state=thermodynamic_state)
-            state = bound.run(state, self.n_steps)
+            with tracing.span("integrator.initial_state"):
+                state = bound.initial_state(
+                    ss, generator, thermodynamic_state=thermodynamic_state)
+            with tracing.span("integrator.run"):
+                state = bound.run(state, self.n_steps)
             if state.nbr_overflow is not None and bool(state.nbr_overflow):
                 raise MCMCMoveError(
                     "neighbor-list capacity exceeded during integration; "
                     "increase neighbor_skin/k_max or density changed "
                     "drastically")
-            new_ss = bound.sampler_state_from(state)
-            if not bool(new_ss.has_nan()):
+            with tracing.span("integrator.sampler_states"):
+                new_ss = bound.sampler_state_from(state)
+            with tracing.span("move.nan_check"):
+                nan = bool(new_ss.has_nan())
+            if not nan:
                 self._on_integration_end(state)
                 return new_ss
             logger.warning("NaN in %s (attempt %d/%d); restarting",
@@ -1026,9 +1035,12 @@ class MCMCSampler:
         self.move = move
 
     def run(self, n_iterations: int = 1):
+        """Apply the move ``n_iterations`` times, each in a
+        ``sampler.iteration`` span."""
         for _ in range(n_iterations):
-            self.sampler_state = self.move.apply(self.thermodynamic_state,
-                                                 self.sampler_state)
+            with tracing.span("sampler.iteration"):
+                self.sampler_state = self.move.apply(
+                    self.thermodynamic_state, self.sampler_state)
 
     def minimize(self, tolerance=1.0, max_iterations=500,
                  context_cache=None):

@@ -30,15 +30,19 @@ The program's spans, each opened inside its cause:
 
 =============================  =============================================
 ``sampler.iteration``          one iteration of ``MultiStateSampler.run``
-``sampler.mixing``,            its phases; ``sampler.report`` is the NaN
-``sampler.propagation``,       check, the reporter and the online analysis
-``sampler.energy_matrix``,
+                               or of ``MCMCSampler.run``
+``sampler.mixing``,            the multistate iteration's phases;
+``sampler.propagation``,       ``sampler.report`` is the NaN check, the
+``sampler.energy_matrix``,     reporter and the online analysis
 ``sampler.report``
 ``move.apply_batch``           an integrator move on a batch of replicas;
-``move.nan_check``             inside it, the host read of the NaN flags
+``move.apply``                 an integrator move on one replica
+                               (``BaseIntegratorMove._apply``)
+``move.nan_check``             inside either, the host read of the NaN
+                               flags
 ``integrator.initial_state``,  the bound integrator's calls in
-``integrator.run``,            ``apply_batch``
-``integrator.sampler_states``
+``integrator.run``,            ``apply_batch`` and in each attempt of
+``integrator.sampler_states``  ``_attempts``
 ``integrator.step``            one step of the step program (a batch's)
 ``integrator.resort``          a re-sort of the sweep ring
 ``integrator.overflow_check``   the host read of the sweep overflow flag
@@ -58,7 +62,9 @@ a sweep evaluation re-measured, and ``k2.sort_sets`` (host), the sort sets
 it evaluated; ``integrator.steps`` (host), every step through the step
 program, ``integrator.graph_steps`` (host), those of them replayed from a
 CUDA graph (:mod:`openmmtools_tpu_torch.integrators.step_graph`), and
-``integrator.graph_captures`` (host), the graphs captured. A replay runs
+``integrator.graph_captures`` (host), the graphs captured;
+``move.restarts`` (host), an integrator move's attempts after the first
+on NaN (0 added for each first attempt). A replay runs
 inside an ``integrator.step`` span and recounts the counts its capture
 held back (:func:`held`).
 """
