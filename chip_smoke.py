@@ -27,6 +27,11 @@ nonzero exit. Phases:
    switch, reaction field, and the Coulomb switch, each with the bound
    re-measured and passed through, and each launch repeated on the same
    inputs to the same bits (the bound's to the same int);
+6b. SETTLE's two kernels (``csrc/settle.cu``, one thread a water) against
+   the plain tensor code on the card at the water path's shapes (8,000
+   waters, one configuration and a batch of 9): positions, velocities, the
+   kernels' device time by launch, the plain version's time and the byte
+   bound;
 7. the explicit-solvent main path: PMEWaterBox(box_edge=6.223) (8,000
    rigid TIP3P waters, PME) -> BAOABIntegrator(300 K, 1/ps, 2 fs) -> bind
    (sweep mode, SETTLE) -> initial_state -> run, warmed up for 1,000 steps
@@ -292,6 +297,10 @@ DENSE_SOURCE = "openmmtools_tpu_torch/csrc/dense_baoab.cu"
 DENSE_REPLACES = "openmmtools_tpu/ops/pallas_baoab.py:296"
 CELL_SOURCE = "openmmtools_tpu_torch/csrc/cell_md.cu"
 CELL_REPLACES = "openmmtools_tpu/ops/pallas_md.py:503"
+SETTLE_SOURCE = "openmmtools_tpu_torch/csrc/settle.cu"
+# no pl.pallas_call: the JAX package's SETTLE is XLA tensor code
+SETTLE_REPLACES = "none (openmmtools_tpu/ops/constraints.py, tensor code)"
+SETTLE_BATCH = 9         # the ladder's replicas
 TIMED_STEPS = 1_000      # steps of a timed chunk (the plain version: 20)
 RAGGED_N = 1_000         # a fluid whose last block of warps is ragged
 CELL_N_LARGE = 16_384    # the second size of the cell-list question
@@ -820,6 +829,87 @@ def phase_sweep_kernels(dev):
     return worst
 
 
+def settle_bytes(part, n_waters, batch, scattered=False, itemsize=4):
+    """The least bytes of one launch of SETTLE's ``part`` kernel
+    ('positions' or 'velocities'): each configuration's two (W, 3, 3)
+    inputs read and its output written; once, the table words it needs
+    (positions: apex mass, satellite mass, ra, rb, rc; velocities: the two
+    masses) and, in a scattered layout alone, the three int64 index
+    arrays."""
+    words = 5 if part == "positions" else 2
+    return n_waters * (batch * 27 * itemsize + words * itemsize
+                       + (24 if scattered else 0))
+
+
+def phase_settle(dev, smi):
+    """SETTLE's kernels against the plain version on the water path's
+    8,000 waters, at B = 1 and B = 9: positions to 1e-6 nm, velocities to
+    1e-6 of their scale, the launches' device time (``launch_ms``), the
+    plain version's (CUDA events around back-to-back calls: its ~120-170
+    short kernels a call) and each kernel's byte bound in the contiguous
+    layout. The rows' ``launches`` are the main path's (phase 7), filled in
+    by the caller."""
+    from openmmtools_tpu_torch.models import PMEWaterBox
+    from openmmtools_tpu_torch.ops import constraints as tc
+
+    w = PMEWaterBox(box_edge=WATER_EDGE, device=dev)
+    m = w.system.masses
+    spec, rest = tc.partition_constraints(w.system.constraints, m)
+    n_w = spec.a.shape[0]
+    assert rest is None and spec.contig == (0, n_w)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for batch in (1, SETTLE_BATCH):
+        shape = ((batch,) if batch > 1 else ()) + tuple(w.positions.shape)
+        xr = w.positions.expand(shape).contiguous()
+        v = torch.randn(shape, generator=gen, device=dev)
+        xn = xr + 0.002 * v
+
+        def plain(fn, a, b):
+            if batch == 1:
+                return fn(a, b, spec, m)
+            return torch.func.vmap(lambda p, q: fn(p, q, spec, m))(a, b)
+
+        xp = tc.settle_positions(xn, xr, spec, m)
+        vp = tc.settle_velocities(xp, v, spec, m)
+        dx = float((xp - plain(tc.settle_positions_reference, xn,
+                               xr)).abs().max())
+        vp_ref = plain(tc.settle_velocities_reference, xp, v)
+        dv = float((vp - vp_ref).abs().max()) / float(vp_ref.abs().max())
+        assert dx <= 1e-6 and dv <= 1e-6, (batch, dx, dv)
+        ms = dict(
+            positions=launch_ms(lambda: tc.settle_positions(xn, xr, spec, m),
+                                "settle_positions_f32"),
+            velocities=launch_ms(lambda: tc.settle_velocities(xp, v, spec,
+                                                              m),
+                                 "settle_velocities_f32"),
+            positions_plain=cuda_ms(lambda: plain(
+                tc.settle_positions_reference, xn, xr), reps=20),
+            velocities_plain=cuda_ms(lambda: plain(
+                tc.settle_velocities_reference, xp, v), reps=20))
+        bounds = {part: bound_ms(settle_bytes(part, n_w, batch), 0)
+                  for part in ("positions", "velocities")}
+        say(f"phase 6b SETTLE, {n_w} waters, B = {batch}: max|dx| {dx:.3e} "
+            f"nm, dv/v {dv:.3e}; kernel ms positions "
+            f"{ms['positions']:.5f}, velocities {ms['velocities']:.5f}; "
+            f"plain {ms['positions_plain']:.4f} and "
+            f"{ms['velocities_plain']:.4f}; bound "
+            f"{bounds['positions'][0]:.5f} and "
+            f"{bounds['velocities'][0]:.5f} (bytes; {smi})")
+        out[batch] = dict(ms, dx=dx, dv=dv, **{
+            f"{part}_bound": b[0] for part, b in bounds.items()})
+    one = out[1]
+    return [dict(name=f"settle_{part}", route="cuda", source=SETTLE_SOURCE,
+                 replaces=SETTLE_REPLACES, launches=None,
+                 max_abs_err=one["dx"] if part == "positions" else one["dv"],
+                 ms=one[part], plain_ms=one[f"{part}_plain"],
+                 bound_ms=one[f"{part}_bound"], bound_by="bytes",
+                 library_ms=None, ms_batch9=out[SETTLE_BATCH][part],
+                 plain_ms_batch9=out[SETTLE_BATCH][f"{part}_plain"],
+                 bound_ms_batch9=out[SETTLE_BATCH][f"{part}_bound"])
+            for part in ("positions", "velocities")]
+
+
 def kinetic_temperature(masses, v, dof):
     from openmmtools_tpu_torch.constants import kB
 
@@ -1148,16 +1238,28 @@ def phase_water(dev, smi, k6):
         f"{system.terms[1].kmax}, alpha {system.terms[1].alpha:.4f}; built "
         f"and bound in {t_setup:.2f} s")
 
-    for key in k.launches:
-        k.launches[key] = 0
+    settle = bound._settle
+    for counts in (k.launches, settle.launches):
+        for key in counts:
+            counts[key] = 0
     state = bound.initial_state(w.sampler_state(),
                                 torch.Generator(device=dev).manual_seed(0))
     state, rates, steps = run_timed(bound, state, WARMUP, system, dof,
                                     "phase 7", temperature_last=True)
     launches = dict(k.launches)
-    say(f"phase 7 main path: {steps} steps; launches {launches}")
+    # SETTLE's kernels count their launches on the device, the replayed
+    # steps' among them: 2 position and 2 velocity projections a step
+    # ("V R O R V", the last V's projection skipped) and a closing velocity
+    # projection a run call (the warm-up, 20 temperature samples, chunks)
+    settle_launches = dict(settle.launches)
+    runs = 1 + 20 + (steps - WARMUP - 20 * 50) // WATER_CHUNK
+    say(f"phase 7 main path: {steps} steps in {runs} run calls; launches "
+        f"{launches}, SETTLE's {settle_launches} (counted on the device)")
     for kernel, count in launches.items():
         assert count > 0, f"{kernel} never launched on the main path"
+    assert settle_launches == {"settle_positions": 2 * steps,
+                               "settle_velocities": 2 * steps + runs}, (
+        settle_launches, steps, runs)
     best, median = max(rates), statistics.median(rates)
     ns_day = median * 0.002 * 86400 / 1e3
     say(f"phase 7 throughput: {best:.1f} steps/s max, {median:.1f} median "
@@ -1289,8 +1391,10 @@ def phase_water(dev, smi, k6):
         f"{stale_bound[1]} ({stale_floor} tile tests its scan cannot skip; "
         f"the {stale_window:.0f} pairs within w in x {stale_by_window[0]:.5f} "
         f"ms) ({smi})")
-    for key in k.launches:
-        k.launches[key] = launches[key]
+    for counts, kept in ((k.launches, launches),
+                         (settle.launches, settle_launches)):
+        for key in counts:
+            counts[key] = kept[key]
 
     state, wall_ms, busy_ms, parts, top, _ = profile_steps(bound, state, 50)
     step_ms = 1e3 / median
@@ -1328,6 +1432,7 @@ def phase_water(dev, smi, k6):
             k2_bound_whole_ring_ms=b_whole[0],
             device_busy_ms=busy_ms, pme_ms=pme_ms, k2_queued_a_slot=queued,
             k2_drains_a_slot=drains, k2_tests_alone_ms=tests_ms,
+            settle_launches=settle_launches,
             device_ms_by_part={k_: v[0] for k_, v in parts.items()})
 
 
@@ -5426,7 +5531,10 @@ def main():
     phase_noise(dev)
     kernels, rate = phase_main_path(dev, smi, k)
     k6 = phase_sweep_kernels(dev)
+    settle_kernels = phase_settle(dev, smi)
     water_kernels, water_rate = phase_water(dev, smi, k6)
+    for row in settle_kernels:   # the main path's launches
+        row["launches"] = water_rate["settle_launches"][row["name"]]
     k8 = phase_alchemical_kernels(dev, smi)
     alch_kernel, state_a, system_a, alch_rate = phase_alchemical_path(
         dev, smi, k8)
@@ -5481,9 +5589,9 @@ def main():
                     "prmtop_path": prmtop, "move_trees": trees,
                     "closing_api": closing,
                     "card": smi}, default=str))
-    print(json.dumps({"kernels": kernels + water_kernels + [alch_kernel]
-                      + [dense_kernel] + cell_kernels + batched_kernels
-                      + [jac_kernel]}))
+    print(json.dumps({"kernels": kernels + settle_kernels + water_kernels
+                      + [alch_kernel] + [dense_kernel] + cell_kernels
+                      + batched_kernels + [jac_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

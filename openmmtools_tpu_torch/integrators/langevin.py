@@ -48,12 +48,14 @@ B configurations into one state whose tensors carry a leading axis (kT,
 box and each global parameter one a replica, the generators a tuple, one a
 replica), and the same step program advances them together. Sweep mode
 sorts each configuration and evaluates all of them in one launch of each
-sweep kernel; the remainder around it, the generic program's energy and
-the constraints run under ``torch.func.vmap`` (the kernels are opaque to
-it, so it never wraps them), with autograd of the summed energies giving
-each replica's forces, since replicas do not interact. The fused path
-(K1) and neighbour mode advance a batch one replica at a time; so does
-Jacobi SHAKE, whose iteration count is read on the host.
+sweep kernel; SETTLE takes the batch whole (one launch of each of its
+kernels on the card); the remainder around it, the generic program's
+energy and the other constraints run under ``torch.func.vmap`` (the
+kernels are opaque to it, so it never wraps them), with autograd of the
+summed energies giving each replica's forces, since replicas do not
+interact. The fused path (K1) and neighbour mode advance a batch one
+replica at a time; so does Jacobi SHAKE, whose iteration count is read on
+the host.
 :meth:`BoundIntegrator.energies_batch` evaluates B (configuration,
 parameters) pairs, the multistate energy matrix, the same way.
 
@@ -1259,50 +1261,56 @@ class BoundIntegrator:
         return torch.func.vmap(fn)(a, b)
 
     # -- constraint dispatch: SETTLE + M-SHAKE on disjoint partitions -----
+    # SETTLE takes a batch whole (one kernel launch on the card, which
+    # vmap cannot trace through); the other constraints run replica by
+    # replica. Their atom sets are disjoint, so the order does not matter.
     def _constrain_positions(self, x_new, x_old):
         """``x_new`` projected onto the constraints from ``x_old``; a batch
-        replica by replica (one span a call)."""
+        as one SETTLE call and the rest replica by replica (one span a
+        call)."""
         with tracing.span("constraints.positions"):
+            if self._settle is not None:
+                x_new = constraints.settle_positions(x_new, x_old,
+                                                     self._settle, self.masses)
+            if self._rest_constraints is None:
+                return x_new
             if x_new.dim() == 3:
                 return self._per_replica(self._project_positions, x_new,
                                          x_old)
             return self._project_positions(x_new, x_old)
 
     def _project_positions(self, x_new, x_old):
-        if self._settle is not None:
-            x_new = constraints.settle_positions(x_new, x_old, self._settle,
-                                                 self.masses)
-        if self._rest_constraints is not None:
-            tol = self.integrator.constraint_tolerance
-            if self._clusters is not None:
-                x_new = constraints.mshake_positions(
-                    x_new, x_old, self._rest_constraints, self._clusters,
-                    self.masses, tol=tol)
-            else:
-                x_new = constraints.shake_positions(
-                    x_new, x_old, self._rest_constraints, self.masses, tol=tol)
-        return x_new
+        """The constraints outside SETTLE's triangles, one configuration."""
+        tol = self.integrator.constraint_tolerance
+        if self._clusters is not None:
+            return constraints.mshake_positions(
+                x_new, x_old, self._rest_constraints, self._clusters,
+                self.masses, tol=tol)
+        return constraints.shake_positions(
+            x_new, x_old, self._rest_constraints, self.masses, tol=tol)
 
     def _constrain_velocities(self, x, v):
         """``v`` with its components along the constraints at ``x``
-        removed; a batch replica by replica (one span a call)."""
+        removed; a batch as one SETTLE call and the rest replica by
+        replica (one span a call)."""
         with tracing.span("constraints.velocities"):
+            if self._settle is not None:
+                v = constraints.settle_velocities(x, v, self._settle,
+                                                  self.masses)
+            if self._rest_constraints is None:
+                return v
             if v.dim() == 3:
                 return self._per_replica(self._project_velocities, x, v)
             return self._project_velocities(x, v)
 
     def _project_velocities(self, x, v):
-        if self._settle is not None:
-            v = constraints.settle_velocities(x, v, self._settle, self.masses)
-        if self._rest_constraints is not None:
-            if self._clusters is not None:
-                v = constraints.mrattle_velocities(
-                    x, v, self._rest_constraints, self._clusters, self.masses)
-            else:
-                v = constraints.rattle_velocities(
-                    x, v, self._rest_constraints, self.masses,
-                    tol=self.integrator.constraint_tolerance)
-        return v
+        """The constraints outside SETTLE's triangles, one configuration."""
+        if self._clusters is not None:
+            return constraints.mrattle_velocities(
+                x, v, self._rest_constraints, self._clusters, self.masses)
+        return constraints.rattle_velocities(
+            x, v, self._rest_constraints, self.masses,
+            tol=self.integrator.constraint_tolerance)
 
     # -- substep emitters ----------------------------------------------------
     def _emit_R(self, env: _Env):

@@ -25,9 +25,9 @@ the state's shapes ran eagerly: that step makes what the capture records
 and cannot make itself (K2's scratch, tickets and launch counters, the
 libraries' plans). The capture holds back the step's tracing counts
 (:func:`openmmtools_tpu_torch.utils.tracing.held`), and each replay adds
-them, reading the device counts from the graph's own tensors. K2 counts
-its launches on the device, so its counters see each replay's launches as
-they run. Which programs and states a graph serves is
+them, reading the device counts from the graph's own tensors. K2 and
+SETTLE count their launches on the device, so their counters see each
+replay's launches as they run. Which programs and states a graph serves is
 :meth:`BoundIntegrator._graph_for`'s to decide.
 """
 from __future__ import annotations

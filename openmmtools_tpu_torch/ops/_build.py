@@ -77,6 +77,9 @@ SIGNATURES = {
     #  inv_m, seed, stream)
     "cell_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F, _F,
                        _F, _F, _F, _I, _F, _F, _F, _F, _F, _U64, _P),
+    # (x, x_ref or v, out, a, b, c, tab, n, W, B, launches, stream)
+    **{f"settle_{what}_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P)
+       for what in ("positions", "velocities") for t in ("f32", "f64")},
 }
 
 

@@ -1,11 +1,14 @@
 """Holonomic distance constraints (counterpart of ``ops/constraints.py``).
 
-OpenMM's SETTLE + CCMA architecture as plain tensor code:
+OpenMM's SETTLE + CCMA architecture:
 
 * SETTLE (Miyamoto & Kollman, J. Comput. Chem. 13:952, 1992): the analytic
   position and velocity projections of rigid isosceles 3-site molecules
-  (rigid water). Molecules laid out as contiguous (apex, sat, sat) runs are
-  plain reshapes of the position array.
+  (rigid water). On a CUDA tensor each projection is one launch of a
+  kernel of ``csrc/settle.cu`` (one thread a molecule, float32 or float64,
+  a leading batch axis over the grid); on the CPU the plain tensor code
+  (``settle_*_reference``), where molecules laid out as contiguous (apex,
+  sat, sat) runs are plain reshapes of the position array.
 * M-SHAKE / M-RATTLE: per-cluster direct solves for small coupled constraint
   clusters (protein h-bonds): a few Newton iterations with a constant
   per-step coupling matrix, no data-dependent loop.
@@ -23,7 +26,11 @@ import math
 import numpy as np
 import torch
 
+from openmmtools_tpu_torch.ops._build import (check, kernels_for,
+                                             load_library)
+from openmmtools_tpu_torch.ops.sweep_nb import LaunchCounts
 from openmmtools_tpu_torch.system import Constraints
+from openmmtools_tpu_torch.utils import tracing
 
 
 def _inv_mass(masses):
@@ -299,6 +306,9 @@ def mrattle_velocities(x, v, constraints: Constraints, spec: ClusterSpec,
 # ---------------------------------------------------------------------------
 
 
+_SETTLE_ENTRIES = ("settle_positions", "settle_velocities")
+
+
 class SettleSpec:
     """Static per-molecule topology for SETTLE.
 
@@ -308,11 +318,18 @@ class SettleSpec:
     work. ``contig`` = (start, W) when the molecules are (apex, sat, sat)
     runs of stride 3 from ``start``: then the per-molecule arrays are plain
     reshapes of the position array and the projections gather nothing.
-    The frame coordinates are computed in float64 and stored in ``dtype``
-    (the masses' type).
+    The frame coordinates are computed in float64 and stored in the
+    masses' type, on their device. ``tables`` holds the kernels' (5, W)
+    table of apex mass, satellite mass, ra, rb, rc in float32 and float64,
+    made once and never replaced, since a captured graph holds their
+    addresses; ``launches`` counts the kernels' launches by entry point,
+    read from counters that the kernels add to on the device, so the
+    launches of a replayed CUDA graph count as they run (CUDA tensors
+    only).
     """
 
-    def __init__(self, a, b, c, ra, rb, rc, device, dtype=torch.float32):
+    def __init__(self, a, b, c, ra, rb, rc, masses):
+        device, dtype = masses.device, masses.dtype
         an = np.asarray(a, np.int64)
         bn = np.asarray(b, np.int64)
         cn = np.asarray(c, np.int64)
@@ -335,6 +352,17 @@ class SettleSpec:
         self.b = t(bn, torch.int64)
         self.c = t(cn, torch.int64)
         self.ra, self.rb, self.rc = t(ra), t(rb), t(rc)
+        tab = torch.stack([masses[self.a], masses[self.b], self.ra, self.rb,
+                           self.rc])
+        self.tables = {dt: tab.to(dt).contiguous()
+                       for dt in (torch.float32, torch.float64)}
+        # (entry, None, device) -> an int64 () counter on the device
+        self._launch_counters = {
+            (entry, None, device): torch.zeros((), dtype=torch.int64,
+                                               device=device)
+            for entry in _SETTLE_ENTRIES}
+        self.launches = LaunchCounts(self._launch_counters,
+                                     lambda entry, _: entry, _SETTLE_ENTRIES)
 
 
 def _settle_triangles(constraints: Constraints, masses):
@@ -404,7 +432,7 @@ def _settle_triangles(constraints: Constraints, masses):
 
 def _settle_spec(triangles, masses):
     cols = list(zip(*triangles))
-    return SettleSpec(*cols, device=masses.device, dtype=masses.dtype)
+    return SettleSpec(*cols, masses=masses)
 
 
 def analyze_settle(constraints: Constraints, masses):
@@ -450,12 +478,83 @@ def _set_molecules(spec: SettleSpec, arr, na, nb, nc, add=False):
     return arr.index_copy(0, spec.c, nc.to(arr.dtype))
 
 
+_KERNEL_TYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _settle_launch(entry, x, y, base, spec: SettleSpec):
+    """One launch of ``entry`` on (N, 3) or (B, N, 3) CUDA tensors ``x``
+    and ``y``: a copy of ``base`` with every triangle's atoms written (no
+    copy where the triangles cover every atom). The kernel reads the
+    masses the spec was built from."""
+    suffix = _KERNEL_TYPES.get(x.dtype)
+    if suffix is None:
+        raise TypeError(f"SETTLE's kernel takes float32 or float64 tensors, "
+                        f"got {x.dtype}")
+    if (y.dtype != x.dtype or y.shape != x.shape or y.device != x.device
+            or x.dim() not in (2, 3) or x.shape[-1] != 3
+            or spec.a.device != x.device):
+        raise ValueError(
+            f"SETTLE's kernel takes two (N, 3) or (B, N, 3) tensors of one "
+            f"type on the spec's device {spec.a.device}, got {x.dtype} "
+            f"{tuple(x.shape)} on {x.device} and {y.dtype} {tuple(y.shape)} "
+            f"on {y.device}")
+    n = x.shape[-2]
+    batch = x.shape[0] if x.dim() == 3 else 1
+    w = spec.a.shape[0]
+    covers = spec.contig == (0, w) and 3 * w == n
+    out = (torch.empty_like(base, memory_format=torch.contiguous_format)
+           if covers else base.clone(memory_format=torch.contiguous_format))
+    x, y = x.contiguous(), y.contiguous()
+    err = getattr(load_library(), f"{entry}_{suffix}")(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), spec.a.data_ptr(),
+        spec.b.data_ptr(), spec.c.data_ptr(), spec.tables[x.dtype].data_ptr(),
+        n, w, batch, spec._launch_counters[(entry, None, x.device)].data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, entry)
+    tracing.count("constraints.settle_kernel")
+    return out
+
+
 def settle_positions(x, x_ref, spec: SettleSpec, masses):
+    """``x`` (N, 3), or a batch (B, N, 3), with each rigid triangle
+    projected onto its constraints from ``x_ref``: on a CUDA tensor one
+    launch of ``csrc/settle.cu``'s ``settle_positions_kernel`` (float32 or
+    float64; another type raises), on the CPU
+    :func:`settle_positions_reference`, a batch under ``torch.func.vmap``.
+    The kernel reads the masses the spec was built from (``spec.tables``),
+    the plain version ``masses``. Counts ``constraints.settle`` once a
+    call."""
+    tracing.count("constraints.settle")
+    if kernels_for(x, "SETTLE"):
+        return _settle_launch("settle_positions", x, x_ref, x, spec)
+    if x.dim() == 3:
+        return torch.func.vmap(lambda xi, ri: settle_positions_reference(
+            xi, ri, spec, masses))(x, x_ref)
+    return settle_positions_reference(x, x_ref, spec, masses)
+
+
+def settle_velocities(x, v, spec: SettleSpec, masses):
+    """``v`` (N, 3), or a batch (B, N, 3), with each rigid triangle's
+    relative velocities along its bonds at ``x`` removed: on a CUDA tensor
+    one launch of ``settle_velocities_kernel``, on the CPU
+    :func:`settle_velocities_reference`; as :func:`settle_positions`."""
+    tracing.count("constraints.settle")
+    if kernels_for(v, "SETTLE"):
+        return _settle_launch("settle_velocities", x, v, v, spec)
+    if v.dim() == 3:
+        return torch.func.vmap(lambda xi, vi: settle_velocities_reference(
+            xi, vi, spec, masses))(x, v)
+    return settle_velocities_reference(x, v, spec, masses)
+
+
+def settle_positions_reference(x, x_ref, spec: SettleSpec, masses):
     """Analytic position constraint: rotate each rigid triangle about its
     (momentum-conserving) center of mass so all three distances are exact.
 
     ``x_ref`` holds the pre-step (constraint-satisfying) positions that fix
-    the triangle's prior orientation; ``x`` the unconstrained update."""
+    the triangle's prior orientation; ``x`` the unconstrained update. The
+    plain version, (N, 3) on any device: the CPU path and the kernel's
+    oracle on the card."""
     ma = masses[spec.a][:, None]
     mh = masses[spec.b][:, None]
     M = ma + 2.0 * mh
@@ -520,10 +619,10 @@ def settle_positions(x, x_ref, spec: SettleSpec, masses):
                           com + unrot(c3))
 
 
-def settle_velocities(x, v, spec: SettleSpec, masses):
+def settle_velocities_reference(x, v, spec: SettleSpec, masses):
     """Analytic RATTLE for triangles: a per-molecule 3x3 solve (Cramer's
     rule) for the bond Lagrange multipliers so every relative velocity is
-    tangent."""
+    tangent. The plain version, as :func:`settle_positions_reference`."""
     inv_ma = 1.0 / masses[spec.a]
     inv_mh = 1.0 / masses[spec.b]
 

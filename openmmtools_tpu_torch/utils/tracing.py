@@ -64,7 +64,10 @@ program, ``integrator.graph_steps`` (host), those of them replayed from a
 CUDA graph (:mod:`openmmtools_tpu_torch.integrators.step_graph`), and
 ``integrator.graph_captures`` (host), the graphs captured;
 ``move.restarts`` (host), an integrator move's attempts after the first
-on NaN (0 added for each first attempt). A replay runs
+on NaN (0 added for each first attempt); ``constraints.settle`` (host),
+each SETTLE projection of a configuration or a batch, and
+``constraints.settle_kernel`` (host), those of them that launched a
+kernel of ``csrc/settle.cu`` (none on the CPU). A replay runs
 inside an ``integrator.step`` span and recounts the counts its capture
 held back (:func:`held`).
 """

@@ -216,3 +216,174 @@ def test_constrained_generic_trajectory_matches_jax(splitting):
         assert _close(port, ref, rel=1e-9)
     assert abs(float(ts.potentials[0]) - float(js.potentials[0])) <= \
         1e-9 * abs(float(js.potentials[0]))
+
+
+# -- SETTLE on a batch, and the integrator's dispatch around it -------------
+
+
+def _batch(x, x_new, v, n_rep=3, seed=11):
+    """``n_rep`` replicas of one configuration, each moved and kicked by
+    its own draw: (x_ref, x_new, v), each (B, N, 3) float64."""
+    rng = np.random.default_rng(seed)
+    xs, xn, vs = [], [], []
+    for _ in range(n_rep):
+        kick = rng.normal(scale=1.0, size=x.shape)
+        xs.append(x)
+        xn.append(x_new + 0.002 * kick)
+        vs.append(v + kick)
+    return tuple(torch.as_tensor(np.stack(t)) for t in (xs, xn, vs))
+
+
+def test_batched_settle_equals_per_replica_calls(water):
+    """A (B, N, 3) batch through the public SETTLE calls gives each
+    replica's single call to the bit, in both layouts."""
+    _, x, x_new, v, _, tcon, _, mt = water
+    ts = tc.analyze_settle(tcon, mt)
+    xr, xn, vb = _batch(x, x_new, v)
+    xp = tc.settle_positions(xn, xr, ts, mt)
+    vp = tc.settle_velocities(xp, vb, ts, mt)
+    assert xp.shape == xn.shape and vp.shape == vb.shape
+    for b in range(xn.shape[0]):
+        assert torch.equal(xp[b], tc.settle_positions(xn[b], xr[b], ts, mt))
+        assert torch.equal(vp[b], tc.settle_velocities(xp[b], vb[b], ts, mt))
+        assert torch.equal(xp[b], tc.settle_positions_reference(
+            xn[b], xr[b], ts, mt))
+
+
+def test_settle_counts_projections_and_no_launch_on_the_cpu():
+    """On the CPU each public call counts one ``constraints.settle``, a
+    batch too, and no ``constraints.settle_kernel``: the plain version
+    launches nothing."""
+    from openmmtools_tpu_torch.utils import tracing
+
+    w = JaxWaterBox(box_edge=1.2, cutoff=0.5)
+    m = torch.as_tensor(np.asarray(w.system.masses, np.float64))
+    con = Constraints(index=torch.as_tensor(np.asarray(
+        w.system.constraints.index)), distance=torch.as_tensor(np.asarray(
+            w.system.constraints.distance, np.float64)))
+    spec = tc.analyze_settle(con, m)
+    x = torch.as_tensor(np.asarray(w.positions, np.float64))
+    tracing.reset()
+    tracing.enable()
+    try:
+        xp = tc.settle_positions(x + 1e-3, x, spec, m)
+        tc.settle_velocities(xp, torch.ones_like(x), spec, m)
+        tc.settle_positions(torch.stack([x + 1e-3] * 4),
+                            torch.stack([x] * 4), spec, m)
+        counters = tracing.snapshot().counters
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counters == {"constraints.settle": 3}
+    assert spec.launches == {"settle_positions": 0, "settle_velocities": 0}
+
+
+@pytest.mark.parametrize("dtype, shape_ref, error", [
+    (torch.float16, (6, 3), TypeError),
+    (torch.int64, (6, 3), TypeError),
+    (torch.float32, (2, 6, 3), ValueError),     # a batch against one
+    (torch.float32, (6, 2), ValueError),
+])
+def test_settle_kernel_refuses_what_it_cannot_take(dtype, shape_ref, error):
+    """The kernel's wrapper raises on a type other than float32 and
+    float64 and on mismatched shapes, before it reaches the library."""
+    m = torch.tensor([16.0, 1.0, 1.0, 16.0, 1.0, 1.0])
+    con = Constraints(index=torch.tensor([[0, 1], [0, 2], [1, 2],
+                                          [3, 4], [3, 5], [4, 5]]),
+                      distance=torch.tensor([0.1, 0.1, 0.16] * 2))
+    spec = tc.analyze_settle(con, m)
+    x = torch.zeros((6, 3), dtype=dtype)
+    y = torch.zeros(shape_ref, dtype=dtype)
+    with pytest.raises(error):
+        tc._settle_launch("settle_positions", x, y, x, spec)
+    assert spec.launches["settle_positions"] == 0
+
+
+def _mixed(rest):
+    """Rigid waters beside methyl-like clusters (and, for ``rest`` =
+    "jacobi", the chain no cluster holds): the positions, a move, the
+    velocities, the constraints and the masses, float64."""
+    w = JaxWaterBox(box_edge=1.5, cutoff=0.7)
+    xw = np.asarray(w.positions, np.float64)
+    nw = xw.shape[0]
+    xm, _, _, index, dist, masses = _methyls()
+    if rest == "mshake":
+        index, dist = index[:36], dist[:36]
+    x = np.concatenate([xw, xm])
+    idx = np.concatenate([np.asarray(w.system.constraints.index),
+                          np.asarray(index) + nw])
+    d = np.concatenate([np.asarray(w.system.constraints.distance,
+                                   np.float64), dist])
+    m = np.concatenate([np.asarray(w.system.masses, np.float64), masses])
+    con = Constraints(index=torch.as_tensor(idx),
+                      distance=torch.as_tensor(d))
+    rng = np.random.default_rng(21)
+    v = rng.normal(scale=1.0, size=x.shape)
+    return x, x + 0.002 * v, v, con, torch.as_tensor(m)
+
+
+def _dispatch(con, m, tol=1e-8):
+    """A bound integrator's constraint dispatch on ``con`` alone, without
+    a system to bind: the partition, the clusters and the tolerance."""
+    import types
+
+    from openmmtools_tpu_torch.integrators.langevin import BoundIntegrator
+
+    b = object.__new__(BoundIntegrator)
+    b._settle, b._rest_constraints = tc.partition_constraints(con, m)
+    b._clusters = tc.analyze_clusters(b._rest_constraints, m)
+    b.masses = m
+    b.integrator = types.SimpleNamespace(constraint_tolerance=tol)
+    return b
+
+
+def _old_positions(b, x_new, x_old):
+    """The composition the dispatch ran before SETTLE took a batch whole:
+    SETTLE, then the other constraints, in one function of a replica."""
+    x_new = tc.settle_positions_reference(x_new, x_old, b._settle, b.masses)
+    tol = b.integrator.constraint_tolerance
+    if b._clusters is not None:
+        return tc.mshake_positions(x_new, x_old, b._rest_constraints,
+                                   b._clusters, b.masses, tol=tol)
+    return tc.shake_positions(x_new, x_old, b._rest_constraints, b.masses,
+                              tol=tol)
+
+
+def _old_velocities(b, x, v):
+    v = tc.settle_velocities_reference(x, v, b._settle, b.masses)
+    if b._clusters is not None:
+        return tc.mrattle_velocities(x, v, b._rest_constraints, b._clusters,
+                                     b.masses)
+    return tc.rattle_velocities(x, v, b._rest_constraints, b.masses,
+                                tol=b.integrator.constraint_tolerance)
+
+
+@pytest.mark.parametrize("rest", ["mshake", "jacobi"])
+def test_constrain_batch_equals_the_per_replica_composition(rest):
+    """SETTLE + M-SHAKE (or Jacobi SHAKE) on a batch of three: SETTLE on
+    the whole batch, then the rest replica by replica, gives the bits of
+    the composition a replica at a time (under vmap for M-SHAKE, a loop for
+    Jacobi SHAKE), and one configuration the bits of the plain
+    composition."""
+    x, x_new, v, con, m = _mixed(rest)
+    b = _dispatch(con, m)
+    assert b._settle is not None and b._rest_constraints is not None
+    assert (b._clusters is None) == (rest == "jacobi")
+    xr, xn, vb = _batch(x, x_new, v)
+    xp = b._constrain_positions(xn, xr)
+    vp = b._constrain_velocities(xp, vb)
+    if rest == "mshake":
+        xo = torch.func.vmap(lambda p, q: _old_positions(b, p, q))(xn, xr)
+        vo = torch.func.vmap(lambda p, q: _old_velocities(b, p, q))(xo, vb)
+    else:
+        xo = torch.stack([_old_positions(b, p, q) for p, q in zip(xn, xr)])
+        vo = torch.stack([_old_velocities(b, p, q) for p, q in zip(xo, vb)])
+    assert torch.equal(xp, xo) and torch.equal(vp, vo)
+    x1 = b._constrain_positions(xn[0], xr[0])
+    assert torch.equal(x1, _old_positions(b, xn[0], xr[0]))
+    assert torch.equal(b._constrain_velocities(x1, vb[0]),
+                       _old_velocities(b, x1, vb[0]))
+    # every constraint holds
+    i, j = (con.index[:, k].long() for k in (0, 1))
+    r = torch.linalg.norm(xp[:, i] - xp[:, j], dim=-1)
+    assert float((r - con.distance).abs().max()) < 1e-6

@@ -2051,9 +2051,13 @@ def test_cuda_tracing_counts_k2_rebuilds_and_the_backward_s_cause(
         del k.evaluate
         tracing.reset()
     assert len(flags) == 21
+    # one SETTLE call, one kernel launch, a constraints span
+    projections = sum(s[0].startswith("constraints.") for s in snap.spans)
     assert snap.counters == {"k2.rebuilds": sum(f for f, _ in flags),
                              "k2.sort_sets": sum(r for _, r in flags),
-                             "integrator.steps": 20}
+                             "integrator.steps": 20,
+                             "constraints.settle": projections,
+                             "constraints.settle_kernel": projections}
     backward = [s for s in snap.spans if s[0] == "pme.backward"]
     assert len(backward) == 3 * 21
     assert {s[3] for s in backward} == {"forces.remainder"}
@@ -2127,10 +2131,10 @@ def test_cuda_step_graph_replays_equal_eager_steps_to_the_bit(
     alchemical variant), 20 steps of 2 fs measuring heat, re-sorted every 7
     steps: the replayed steps give the eager steps' positions, velocities,
     forces, potentials and heat to the bit, the generators end at the same
-    offsets, and K2's launches, its launches by batch size, ``k2.rebuilds``
-    and ``k2.sort_sets`` read as the eager run's, K2 counting its replayed
-    launches on the device. One capture, after the first step ran eagerly;
-    the other 19 steps replayed."""
+    offsets, and K2's launches, its launches by batch size, ``k2.rebuilds``,
+    ``k2.sort_sets`` and the SETTLE counters read as the eager run's, K2
+    counting its replayed launches on the device. One capture, after the
+    first step ran eagerly; the other 19 steps replayed."""
     w, states = _alchemical_ladder(3.0, cuda)
     bound = LangevinIntegrator(temperature=300.0, timestep=0.002,
                                collision_rate=1.0, measure_heat=True,
@@ -2150,8 +2154,10 @@ def test_cuda_step_graph_replays_equal_eager_steps_to_the_bit(
     assert float(graphed.heat.abs().min()) > 0
     assert l_g == l_e and b_g == b_e
     assert b_g == {("sweep_bound", 3): 20, ("sweep_forces_alch", 3): 20}
+    # five SETTLE projections a step, each one kernel launch
     assert c_e == {"k2.rebuilds": c_e["k2.rebuilds"], "k2.sort_sets": 60,
-                   "integrator.steps": 20}
+                   "integrator.steps": 20, "constraints.settle": 100,
+                   "constraints.settle_kernel": 100}
     assert c_g == {**c_e, "integrator.graph_steps": 19,
                    "integrator.graph_captures": 1}
     assert [g is not None for g in bound._graphs.values()] == [True]
@@ -2396,3 +2402,224 @@ def test_cuda_step_graph_that_fails_to_capture_runs_eagerly(
     again, *_, c_again = _graph_run(bound, start, 10, True, monkeypatch)
     _same_states(again, eager)
     assert c_again == c_e
+
+
+# -- SETTLE (csrc/settle.cu): one thread a rigid water -----------------------
+
+# two rigid water models in one spec: TIP3P's geometry and SPC/E's (other
+# ra, rb, rc), O 15.9994 and H 1.008
+WATER_MODELS = ((0.09572, 0.15139), (0.1, 0.16330))
+SETTLE_EDGE = 6.223     # the main path's box: 20^3 waters, 8,000 in all
+
+
+def _settle_case(layout, dtype, dev, seed=7):
+    """8,000 rigid waters on the main path's 20^3 lattice, alternating the
+    two models, each turned at random: (spec, masses, x_ref, x_new, v, the
+    solute atoms). "contiguous" lays them out as (O, H, H) runs from atom
+    0; "offset" puts 13 solute atoms first; "scattered" puts 5 solute atoms
+    first and 7 between the two halves of the waters, and shuffles the
+    waters' atoms so that no molecule is a run."""
+    from openmmtools_tpu_torch.ops import constraints as tc
+    from openmmtools_tpu_torch.system import Constraints
+
+    rng = np.random.default_rng(seed)
+    side = 20
+    grid = (np.arange(side) + 0.5) * (SETTLE_EDGE / side)
+    centres = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                       -1).reshape(-1, 3)
+    n_w = centres.shape[0]
+    xw, dist = [], []
+    for k, c in enumerate(centres):
+        d_oh, d_hh = WATER_MODELS[k % 2]
+        half = 0.5 * d_hh
+        h = np.sqrt(d_oh * d_oh - half * half)
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        tri = np.array([[0.0, 0.0, 0.0], [half, -h, 0.0], [-half, -h, 0.0]])
+        xw.append(c + tri @ q.T)
+        dist.append((d_oh, d_oh, d_hh))
+    xw = np.concatenate(xw)
+    mw = np.tile([15.9994, 1.008, 1.008], n_w)
+    idx_w = np.concatenate([[[3 * k, 3 * k + 1], [3 * k, 3 * k + 2],
+                             [3 * k + 1, 3 * k + 2]] for k in range(n_w)])
+    before, between = {"contiguous": (0, 0), "offset": (13, 0),
+                       "scattered": (5, 7)}[layout]
+    n = 3 * n_w + before + between
+    # where each water atom lands
+    slots = np.arange(3 * n_w) + before
+    slots[3 * n_w // 2:] += between
+    if layout == "scattered":
+        slots = rng.permutation(slots)
+    solute = np.setdiff1d(np.arange(n), slots)
+    x = rng.uniform(0.0, SETTLE_EDGE, size=(n, 3))
+    x[slots] = xw
+    m = np.full(n, 12.011)
+    m[slots] = mw
+    con = Constraints(index=torch.as_tensor(slots[idx_w], device=dev),
+                      distance=torch.as_tensor(np.concatenate(dist),
+                                               dtype=dtype, device=dev))
+    masses = torch.as_tensor(m, dtype=dtype, device=dev)
+    spec = tc.analyze_settle(con, masses)
+    assert (spec.contig is None) == (layout == "scattered")
+    v = rng.normal(scale=1.5, size=(n, 3))
+    x_new = x + 0.002 * v + 0.001 * rng.normal(size=(n, 3))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return spec, masses, con, t(x), t(x_new), t(v), torch.as_tensor(
+        solute, device=dev)
+
+
+# Positions against the plain version: the kernel keeps the plain version's
+# operations in absolute box coordinates (its centre of mass rounded
+# operation by operation), so the two differ by the last rounding of a
+# coordinate below 6.3 nm (4.8e-7 nm in float32, 8.9e-16 in float64) and a
+# few roundings of the 0.1 nm frame: 1e-6 nm at float32, 1e-12 at float64.
+SETTLE_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# one rounding step of a coordinate at the box edge
+SETTLE_ULP = {torch.float32: 2.0 ** -21, torch.float64: 2.0 ** -50}
+
+
+def _bond_residual(x, con):
+    i, j = (con.index[:, k].long() for k in (0, 1))
+    r = torch.linalg.norm((x[..., i, :] - x[..., j, :]).double(), dim=-1)
+    return float((r - con.distance.double()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "scattered"])
+def test_cuda_settle_matches_plain(cuda, layout, dtype):
+    """Each SETTLE kernel, one launch a call, against the plain version on
+    the card: positions to ``SETTLE_TOL``, the bond residual no larger than
+    the plain version's (to one rounding of a coordinate at the box edge:
+    both residuals are the final rounding of each coordinate, and which
+    maximum is larger by a rounding is chance), velocities to 1e-6 of their
+    scale at float32 and 1e-13 at float64 with the same tangency, and the
+    solute atoms untouched."""
+    from openmmtools_tpu_torch.ops import constraints as tc
+
+    spec, m, con, x, x_new, v, solute = _settle_case(layout, dtype, cuda)
+    xp = tc.settle_positions(x_new, x, spec, m)
+    xp_ref = tc.settle_positions_reference(x_new, x, spec, m)
+    vp = tc.settle_velocities(xp_ref, v, spec, m)
+    vp_ref = tc.settle_velocities_reference(xp_ref, v, spec, m)
+    torch.cuda.synchronize()
+    assert spec.launches == {"settle_positions": 1, "settle_velocities": 1}
+    assert xp.dtype == dtype and vp.dtype == dtype
+    dx = float((xp - xp_ref).abs().max())
+    res, res_ref = _bond_residual(xp, con), _bond_residual(xp_ref, con)
+    v_scale = float(vp_ref.abs().max())
+    dv = float((vp - vp_ref).abs().max())
+    i, j = (con.index[:, k].long() for k in (0, 1))
+
+    def tangency(vv):
+        return float(torch.sum((vv[i] - vv[j]).double()
+                               * (xp_ref[i] - xp_ref[j]).double(),
+                               dim=-1).abs().max())
+
+    print(f"{layout} {dtype}: dx {dx:.3e}, residual {res:.3e} (plain "
+          f"{res_ref:.3e}), dv/v {dv / v_scale:.3e}, tangency "
+          f"{tangency(vp):.3e} (plain {tangency(vp_ref):.3e})")
+    assert dx <= SETTLE_TOL[dtype]
+    assert res <= res_ref + SETTLE_ULP[dtype]
+    assert dv <= {torch.float32: 1e-6, torch.float64: 1e-13}[dtype] * v_scale
+    assert tangency(vp) <= 2.0 * tangency(vp_ref) + SETTLE_ULP[dtype]
+    assert torch.equal(xp[solute], x_new[solute])
+    assert torch.equal(vp[solute], v[solute])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_settle_batch_equals_single_calls(cuda, dtype):
+    """A batch of 9 (each replica moved by its own draw) in one launch of
+    each kernel equals the nine single launches to the bit: nothing is
+    summed across threads."""
+    from openmmtools_tpu_torch.ops import constraints as tc
+
+    spec, m, _, x, x_new, v, _ = _settle_case("scattered", dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kicks = torch.randn((9,) + tuple(x.shape), generator=gen, device=cuda,
+                        dtype=dtype)
+    xb, xnb, vb = x.expand(9, -1, -1), x_new + 0.002 * kicks, v + kicks
+    xp = tc.settle_positions(xnb, xb, spec, m)
+    vp = tc.settle_velocities(xp, vb, spec, m)
+    assert spec.launches == {"settle_positions": 1, "settle_velocities": 1}
+    for b in range(9):
+        assert torch.equal(xp[b], tc.settle_positions(xnb[b], x, spec, m))
+        assert torch.equal(vp[b], tc.settle_velocities(xp[b], vb[b], spec,
+                                                       m))
+    assert spec.launches == {"settle_positions": 10, "settle_velocities": 10}
+
+
+@pytest.mark.cuda
+def test_cuda_settle_replays_in_a_graph_as_launched(cuda):
+    """Both kernels captured in a CUDA graph and replayed on new inputs
+    give the eager launches' bits, and each replayed launch counts on the
+    device (a capture runs nothing)."""
+    from openmmtools_tpu_torch.ops import constraints as tc
+
+    spec, m, _, x, x_new, v, _ = _settle_case("contiguous", torch.float32,
+                                              cuda)
+    bufs = [x.clone(), x_new.clone(), v.clone()]
+    tc.settle_positions(bufs[1], bufs[0], spec, m)   # loads the library
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xp = tc.settle_positions(bufs[1], bufs[0], spec, m)
+        vp = tc.settle_velocities(xp, bufs[2], spec, m)
+    for shift in (0.0, 1e-3):
+        bufs[1].copy_(x_new + shift)
+        bufs[2].copy_(v - shift)
+        graph.replay()
+        xe = tc.settle_positions(x_new + shift, x, spec, m)
+        assert torch.equal(xp, xe)
+        assert torch.equal(vp, tc.settle_velocities(xe, v - shift, spec, m))
+    # 1 before the capture, 2 replayed and 2 eager; 2 + 2 velocities
+    assert spec.launches == {"settle_positions": 5, "settle_velocities": 4}
+
+
+@pytest.mark.cuda
+def test_cuda_settle_refuses_other_types(cuda):
+    from openmmtools_tpu_torch.ops import constraints as tc
+
+    spec, m, _, x, x_new, _, _ = _settle_case("contiguous", torch.float32,
+                                              cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tc.settle_positions(x_new.half(), x.half(), spec, m)
+    with pytest.raises(ValueError):
+        tc.settle_positions(x_new, x.double(), spec, m)
+    assert spec.launches["settle_positions"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_settle_kernel_in_the_water_step_graph(cuda, monkeypatch):
+    """A rigid PME water box in sweep mode, 20 steps of BAOAB at B = 1:
+    the replayed steps equal the eager steps to the bit; in both runs the
+    kernels count on the device one launch for each of the 4 projections
+    of a step and the run's closing one (81), the replays' launches among
+    them, and the counters ``constraints.settle_kernel`` and
+    ``constraints.settle`` agree."""
+    w = _water(3.0, cuda)
+    bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
+                            collision_rate=1.0).bind(w.system)
+    assert bound.sweep_mode and bound._graph_program and bound._vproj_skip
+    spec = bound._settle
+
+    def start():
+        return bound.initial_state(
+            w.sampler_state(), torch.Generator(device=cuda).manual_seed(9))
+
+    def launched(graphs):
+        before = dict(spec.launches)
+        state, _, _, counters = _graph_run(bound, start, 20, graphs,
+                                           monkeypatch)
+        return state, {k: spec.launches[k] - before[k] for k in before}, \
+            counters
+
+    eager, l_e, c_e = launched(False)
+    graphed, l_g, c_g = launched(True)
+    _same_states(graphed, eager)
+    assert l_e == l_g == {"settle_positions": 40, "settle_velocities": 41}
+    assert c_e["constraints.settle"] == c_e["constraints.settle_kernel"] == 81
+    assert c_g["constraints.settle"] == c_g["constraints.settle_kernel"] == 81
+    assert c_g["integrator.graph_steps"] == 19

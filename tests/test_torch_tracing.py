@@ -193,9 +193,12 @@ def test_one_iteration_gives_the_span_tree(runs):
         if cause is not None:
             assert any(s[0] == cause and s[1] <= lo and hi <= s[2]
                        for s in snap.spans), name
+    # one SETTLE call a constraints span (a batch whole), and on the CPU
+    # no kernel launch
     assert snap.counters == {"k2.sort_sets": n_rep * evaluations,
                              "k2.rebuilds": snap.counters["k2.rebuilds"],
-                             "integrator.steps": N_STEPS}
+                             "integrator.steps": N_STEPS,
+                             "constraints.settle": 4 * N_STEPS + 1}
     assert resorts * n_rep <= snap.counters["k2.rebuilds"] <= \
         n_rep * evaluations
 
