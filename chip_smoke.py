@@ -547,7 +547,8 @@ def phase_noise(dev):
     fluid = LennardJonesFluid(nparticles=N, device=dev)
     bound = BAOABIntegrator(temperature=TEMPERATURE, collision_rate=1.0,
                             timestep=0.002).bind(fluid.system)
-    assert bound._fused is not None, "the fused path did not engage on CUDA"
+    assert bound.force_path.name == "K1", \
+        "the fused path did not engage on CUDA"
     state = bound.initial_state(fluid.sampler_state(),
                                 torch.Generator().manual_seed(3),
                                 temperature=TEMPERATURE)
@@ -577,7 +578,7 @@ def phase_main_path(dev, smi, k):
     integ = BAOABIntegrator(temperature=TEMPERATURE, collision_rate=1.0,
                             timestep=0.002)
     bound = integ.bind(fluid.system)
-    fused = bound._fused
+    fused = bound.force_path.kernel
     assert fused is not None, "the fused path did not engage on CUDA"
     for key in fused.launches:
         fused.launches[key] = 0
@@ -1081,7 +1082,7 @@ def count_rebuilds(bound, state, k, n_steps):
     (``n_steps`` is a multiple of the sort interval) with the steps since
     the sort that made it."""
     measure = k.measure_bound
-    interval = bound.sweep_sort_interval
+    interval = bound.force_path.refresh_interval
     flags = []
     rings = collections.deque(maxlen=interval)
 
@@ -1197,13 +1198,14 @@ def check_final_state(bound, state, label):
                   / c.distance).abs().max())
     say(f"{label} SETTLE: max relative bond-length error {geom:.2e}")
     assert geom <= 1e-5
-    sw = bound._sweep_dict(bound._resort_sweep(state))
+    sw = bound.force_path.context(bound.force_path.refresh(state))
     plain = tsw.PlainSweepNonbonded.like(k)
-    bound._sweep_kernel = plain
+    bound.force_path.kernel = plain
     try:
-        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+        u_p, f_p, _ = bound.force_path.evaluate_sweep(
+            x, state.box, state.global_params, sw)
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
     u_run, f_run = state.potentials[0], state.forces[0]
     u_rel = abs(float(u_run - u_p)) / abs(float(u_p))
     f_rel = max_rel(f_run, f_p)
@@ -1227,18 +1229,19 @@ def phase_water(dev, smi, k6):
                             timestep=0.002).bind(system)
     t_setup = time.perf_counter() - t0
     assert bound.sweep_mode, "sweep mode did not engage on CUDA"
-    assert bound._fused is None, "the fused LJ kernel took the water box"
-    assert bound._rest_constraints is None
-    assert 3 * bound._settle.a.shape[0] == system.constraints.n_constraints \
-        == n == 24000
+    assert bound.force_path.name != "K1", \
+        "the fused LJ kernel took the water box"
+    assert bound.constraint_solver.rest is None
+    n_waters = bound.constraint_solver.settle.a.shape[0]
+    assert 3 * n_waters == system.constraints.n_constraints == n == 24000
     k = bound._sweep_kernel
     dof = 3 * n - system.constraints.n_constraints
-    say(f"phase 7 setup: {n} atoms, {bound._settle.a.shape[0]} SETTLE "
+    say(f"phase 7 setup: {n} atoms, {n_waters} SETTLE "
         f"waters, n_pad {k.n_pad}, mask_rows {k.mask_rows}, PME kmax "
         f"{system.terms[1].kmax}, alpha {system.terms[1].alpha:.4f}; built "
         f"and bound in {t_setup:.2f} s")
 
-    settle = bound._settle
+    settle = bound.constraint_solver.settle
     for counts in (k.launches, settle.launches):
         for key in counts:
             counts[key] = 0
@@ -1596,9 +1599,10 @@ def phase_alchemical_path(dev, smi, k8):
     n = system.n_particles
     term = alchemical_term(system)
     assert term.force_group == 1 and not term.exact_electrostatics
-    assert bound.sweep_mode and bound._sweep_alch is term, \
+    assert bound.sweep_mode and bound.force_path.alch is term, \
         "sweep mode did not take the alchemical term"
-    assert bound._fused is None, "the fused LJ kernel took the water box"
+    assert bound.force_path.name != "K1", \
+        "the fused LJ kernel took the water box"
     k = bound._sweep_kernel
     assert k.alchemical and k.n_regions == 1 and k.n_lam == 6
     assert set(k.launches) == {"sweep_bound", "sweep_forces_alch"}
@@ -1684,7 +1688,7 @@ def phase_alchemical_path(dev, smi, k8):
     sc = compound_state(small.system)
     b_s = BAOABIntegrator(temperature=WATER_T).bind(small.system)
     b_d = BAOABIntegrator(temperature=WATER_T, sweep=None).bind(small.system)
-    assert b_s.sweep_mode and b_s._sweep_alch is not None
+    assert b_s.sweep_mode and b_s.force_path.alch is not None
     assert not b_d.sweep_mode
     gen = torch.Generator(device=dev)
     s_s = b_s.initial_state(small.sampler_state(), gen.manual_seed(1),
@@ -1726,8 +1730,8 @@ def phase_ncmc(dev, smi, state_a, system):
         timestep=0.002)
     assert integ.splitting == "O { V R H R V } O"
     bound = integ.bind(system)
-    assert bound.sweep_mode and bound._sweep_alch is not None
-    assert bound._fused is None
+    assert bound.sweep_mode and bound.force_path.alch is not None
+    assert bound.force_path.name != "K1"
     k = bound._sweep_kernel
     # electrostatics switched off at full sterics, from Path A's last
     # configuration
@@ -1765,7 +1769,7 @@ def phase_ncmc(dev, smi, state_a, system):
     ext = ExternalPerturbationLangevinIntegrator(
         temperature=WATER_T, collision_rate=1.0, timestep=0.002)
     b_e = ext.bind(system)
-    assert b_e.sweep_mode and b_e._sweep_alch is not None
+    assert b_e.sweep_mode and b_e.force_path.alch is not None
     s_e = b_e.initial_state(bound.sampler_state_from(state_a),
                             torch.Generator(device=dev).manual_seed(13),
                             global_params={"lambda_electrostatics": 1.0,
@@ -1774,13 +1778,13 @@ def phase_ncmc(dev, smi, state_a, system):
     # the independent sum: the plain sweep plus the remainder in float64
     system64 = system.to(dtype=torch.float64)
     ref = BAOABIntegrator(temperature=WATER_T, sweep="force").bind(system64)
-    ref._sweep_kernel = tsw.PlainSweepNonbonded.like(ref._sweep_kernel)
+    ref.force_path.kernel = tsw.PlainSweepNonbonded.like(ref._sweep_kernel)
     box = system.default_box
     box64 = box.double()
 
     def same_path(state, params):
-        sw = b_e._sweep_dict(state)
-        return float(b_e._group_energy_forces(None, state.positions, box,
+        sw = b_e.force_path.context(state)
+        return float(b_e.force_path.evaluate(None, state.positions, box,
                                               params, sw)[0])
 
     def plain64(x, params, s64=None):
@@ -1792,8 +1796,8 @@ def phase_ncmc(dev, smi, state_a, system):
                              box_vectors=box64), torch.Generator(device=dev),
                 global_params=p64)
             return float(s64.potentials[0]), s64
-        return float(ref._sweep_eval(x.double(), box64, p64,
-                                     ref._sweep_dict(s64))[0]), s64
+        return float(ref.force_path.evaluate_sweep(x.double(), box64, p64,
+                                     ref.force_path.context(s64))[0]), s64
 
     same = indep = 0.0
     for step in range(PERTURB_STEPS):
@@ -2425,20 +2429,21 @@ def phase_mcmc(dev, smi):
     bounds = {name: moves[name]._bound(ts)
               for name in ("langevin", "ghmc", "hmc")}
     bounds["context"], _ = global_context_cache.get_context(ts)
-    assert bounds["langevin"]._fused is not None, "Langevin move off K1"
-    assert bounds["context"]._fused is not None, "the moves' context off K1"
+    assert bounds["langevin"].force_path.name == "K1", "Langevin move off K1"
+    assert bounds["context"].force_path.name == "K1", \
+        "the moves' context off K1"
     assert bounds["context"] is not bounds["langevin"]
-    assert bounds["ghmc"].sweep_mode and bounds["ghmc"]._fused is None
-    assert bounds["hmc"].sweep_mode and bounds["hmc"]._fused is None
+    assert bounds["ghmc"].sweep_mode and bounds["ghmc"].force_path.name != "K1"
+    assert bounds["hmc"].sweep_mode and bounds["hmc"].force_path.name != "K1"
     # the event spans below need each launch issued from Python: the GHMC
     # and HMC moves' steps run eagerly here, not as replayed CUDA graphs
     # (tests/test_torch_cuda.py holds GHMC's graph to its eager steps)
     for name in ("ghmc", "hmc"):
         bounds[name]._graph_for = lambda state, skip: None
-    wrappers = {"langevin": bounds["langevin"]._fused.launches,
+    wrappers = {"langevin": bounds["langevin"].force_path.kernel.launches,
                 "ghmc": bounds["ghmc"]._sweep_kernel.launches,
                 "hmc": bounds["hmc"]._sweep_kernel.launches,
-                "context": bounds["context"]._fused.launches}
+                "context": bounds["context"].force_path.kernel.launches}
     last = {}
     walls = timed_moves(moves, last)
     sampler = MCMCSampler(ts, fluid.sampler_state(),
@@ -2589,7 +2594,7 @@ def phase_extras(dev, smi, sampler, ts):
     with launch_events("lj_chunk_f32") as chunks:
         bound = AndersenVelocityVerletIntegrator(
             temperature=TEMPERATURE, timestep=0.001).bind(system)
-        assert bound._fused is None and not bound.sweep_mode
+        assert bound.force_path.name != "K1" and not bound.sweep_mode
         state = bound.initial_state(ss, gen, thermodynamic_state=ts)
         t = time.perf_counter()
         state = bound.run(state, ANDERSEN_STEPS)
@@ -2616,7 +2621,7 @@ def phase_extras(dev, smi, sampler, ts):
                     temperature=TEMPERATURE, displacement_sigma=MC_SIGMA),
                  100)):
             bound = integ.bind(system)
-            assert bound._fused is None and not bound.sweep_mode
+            assert bound.force_path.name != "K1" and not bound.sweep_mode
             state = bound.initial_state(ss, gen, thermodynamic_state=ts)
             state = bound.run(state, steps)
             acc, prop = int(state.n_accepted), int(state.n_proposed)
@@ -2627,7 +2632,7 @@ def phase_extras(dev, smi, sampler, ts):
         torch.cuda.synchronize()
     assert not chunks.pairs, "an extras integrator launched K1's chunk"
     say("phase 13b: no lj_chunk launch during the extras' runs; each bound "
-        "keeps its own step (_fused None, sweep mode off)")
+        "keeps its own step (not on K1, sweep mode off)")
     return out
 
 
@@ -2641,7 +2646,7 @@ def phase_water_ghmc(dev, smi):
     ts = w.thermodynamic_state(WATER_T)
     move = GHMCMove(timestep=0.001, n_steps=WATER_GHMC_STEPS)
     bound = move._bound(ts)
-    assert bound.sweep_mode and bound._settle is not None
+    assert bound.sweep_mode and bound.constraint_solver.settle is not None
     k = bound._sweep_kernel
     for key in k.launches:
         k.launches[key] = 0
@@ -2753,7 +2758,7 @@ def matrix_against_plain(bound, sampler, pairs):
     u = sampler.energies_last_iteration
     beta = sampler._stacked_states.beta.numpy()
     worst = 0.0
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
         for n, col in pairs:
             ss = sampler.sampler_states[n]
@@ -2766,7 +2771,7 @@ def matrix_against_plain(bound, sampler, pairs):
                 f"{beta[col] * U:.4f} (rel {rel:.2e})")
             worst = max(worst, rel)
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
     assert worst <= REL_TOL, worst
     return worst
 
@@ -2775,7 +2780,7 @@ def k2_held_ms(bound, sampler, dev):
     """K2's two kernels at the path's shapes with the stream held
     (launch_ms): replica 0's final state at its state's lambdas."""
     k = bound._sweep_kernel
-    term = bound._sweep_alch
+    term = bound.force_path.alch
     ss = sampler.sampler_states[0]
     s0 = int(sampler.replica_states[0])
     params = sampler._params_on(ss.positions.device, ss.positions.dtype)[s0]
@@ -2814,9 +2819,10 @@ def phase_multistate_re(dev, smi):
     n_states = len(states)
     move = water_move()
     bound = move._bound(states[0])
-    assert bound.sweep_mode and bound._sweep_alch is not None, \
+    assert bound.sweep_mode and bound.force_path.alch is not None, \
         "sweep mode did not take the alchemical term"
-    assert bound._settle is not None and bound._fused is None
+    assert bound.constraint_solver.settle is not None
+    assert bound.force_path.name != "K1"
     k = bound._sweep_kernel
     assert set(k.launches) == {"sweep_bound", "sweep_forces_alch"}
     finals = []
@@ -2957,7 +2963,7 @@ def phase_multistate_sams(dev, smi, re_sampler):
     states = ladder_states(system)
     move = water_move()
     bound = move._bound(states[0])
-    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound.sweep_mode and bound.force_path.alch is not None
     k = bound._sweep_kernel
     sampler = SAMSSampler(
         mcmc_moves=move, number_of_iterations=SAMS_ITERATIONS,
@@ -3011,15 +3017,16 @@ def phase_multistate_pt(dev, smi):
     sampler.create(ts, fluid.sampler_state(), **PT_LADDER)
     n = sampler.n_replicas
     bounds = [move._bound(st) for st in sampler._thermodynamic_states]
-    assert all(b._fused is not None for b in bounds), "a PT move is off K1"
+    assert all(b.force_path.name == "K1" for b in bounds), \
+        "a PT move is off K1"
     for b in bounds:
-        for key in b._fused.launches:
-            b._fused.launches[key] = 0
+        for key in b.force_path.kernel.launches:
+            b.force_path.kernel.launches[key] = 0
     t0 = time.perf_counter()
     sampler.run(PT_ITERATIONS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {key: sum(b._fused.launches[key] for b in bounds)
+    launches = {key: sum(b.force_path.kernel.launches[key] for b in bounds)
                 for key in ("lj_forces", "lj_chunk")}
     temps = [round(float(t), 3) for t in sampler._stacked_sampled.temperature]
     say(f"phase 14c PT on LJ-{N}, temperatures {temps} K: {PT_ITERATIONS} "
@@ -3099,13 +3106,13 @@ def plain_energies(bound, sampler_states, params):
     from openmmtools_tpu_torch.ops import sweep_nb as tsw
 
     k = bound._sweep_kernel
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
         return [float(bound.energies_at(ss.positions, ss.box_vectors,
                                         [params])[0])
                 for ss in sampler_states]
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
 
 
 def phase_equilibration(dev, smi):
@@ -3182,9 +3189,10 @@ def phase_equilibration(dev, smi):
         f"energy + the acceptance check's two; dynamics n_steps + 1; one a "
         f"barostat attempt, its two configurations as one batch)")
     for b, restrained in zip(bounds, (True, True, True, False)):
-        assert b.sweep_mode and b._fused is None and b._settle is not None
-        assert b._sweep_alch is None
-        leftover = [type(t) for t in b._sweep_leftover]
+        assert b.sweep_mode and b.force_path.name != "K1"
+        assert b.constraint_solver.settle is not None
+        assert b.force_path.alch is None
+        leftover = [type(t) for t in b.force_path.leftover]
         assert (PositionalRestraintTerm in leftover) == restrained, leftover
     for got, want in zip(launches, expected):
         assert got == {"sweep_bound": want, "sweep_forces": want}, launches
@@ -3241,8 +3249,8 @@ def phase_equilibration(dev, smi):
     # K2's held device time in an attempt: two fresh sorts, each a rebuild
     # (one batched launch of the two evaluations does the work of two)
     k = last._sweep_kernel
-    xT, par, excl, L, _ = tsw.sorted_inputs(last._sweep_term, out.positions,
-                                            out.box_vectors, k)
+    xT, par, excl, L, _ = tsw.sorted_inputs(
+        last.force_path.term, out.positions, out.box_vectors, k)
     flag = torch.tensor(True, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     nb = k.measure_bound(xT, L, flag, zero)
@@ -3313,7 +3321,7 @@ def phase_pt_water(dev, smi):
     n = sampler.n_replicas
     bounds = [move._bound(st) for st in sampler._thermodynamic_states]
     kernels = {id(b._sweep_kernel): b._sweep_kernel for b in bounds}
-    assert all(b.sweep_mode and b._fused is None for b in bounds)
+    assert all(b.sweep_mode and b.force_path.name != "K1" for b in bounds)
     assert sampler.propagation_route == "batched"
     for k in kernels.values():
         for key in k.launches:
@@ -3454,7 +3462,7 @@ def phase_gbsa(dev, smi):
     bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
                             timestep=GB_TIMESTEP).bind(ts.system)
     assert not (bound.sweep_mode or bound.neighbor_mode
-                or bound._fused is not None)
+                or bound.force_path.name == "K1")
     gen = torch.Generator(device=dev).manual_seed(16)
     state = bound.initial_state(ts.sampler_state(), gen)
     state = bound.run(state, 10)   # warm-up
@@ -3496,8 +3504,8 @@ def phase_gbsa(dev, smi):
     big = CustomGBForceSystem(n_molecules=GB_SWEEP_MOLECULES, device=dev)
     b2 = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
                          timestep=GB_TIMESTEP).bind(big.system)
-    assert b2.sweep_mode and b2._sweep_alch is None
-    assert GBSAOBCTerm in [type(t) for t in b2._sweep_leftover]
+    assert b2.sweep_mode and b2.force_path.alch is None
+    assert GBSAOBCTerm in [type(t) for t in b2.force_path.leftover]
     k = b2._sweep_kernel
     s2 = b2.initial_state(big.sampler_state(),
                           torch.Generator(device=dev).manual_seed(17))
@@ -3548,16 +3556,16 @@ def phase_neighbor_mode(dev, smi):
     integ = BAOABIntegrator(temperature=NBR_T, collision_rate=1.0,
                             timestep=0.002, sweep=None)
     bound = integ.bind(fluid.system)
-    assert bound.neighbor_mode and bound._fused is None
+    assert bound.neighbor_mode and bound.force_path.name != "K1"
     assert not bound.sweep_mode
     r_list = 1.35 * term.cutoff
     avg = NBR_N / fluid.box_edge ** 3 * 4.0 / 3.0 * math.pi * r_list ** 3
     v_th = math.sqrt(kB * NBR_T / float(fluid.system.masses[0]))
     interval = min(200, int(0.5 * 0.35 * term.cutoff
                             / (4.0 * v_th * 0.002)))
-    assert abs(bound.neighbor_r_list - r_list) <= 1e-12 * r_list
-    assert abs(bound.neighbor_k_max - math.ceil(2.5 * avg + 8)) <= 1
-    assert bound.neighbor_rebuild_interval == interval
+    assert abs(bound.force_path.r_list - r_list) <= 1e-12 * r_list
+    assert abs(bound.force_path.k_max - math.ceil(2.5 * avg + 8)) <= 1
+    assert bound.force_path.refresh_interval == interval
     gen = torch.Generator(device=dev).manual_seed(18)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3570,17 +3578,18 @@ def phase_neighbor_mode(dev, smi):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bound._build_nbr(x0, box)
+        bound.force_path.build_list(x0, box)
         torch.cuda.synchronize()
         rebuild.append(1e3 * (time.perf_counter() - t0))
     builds = []
-    build = bound._build_nbr
+    build = bound.force_path.build_list
 
     def counted(xx, bb):
         builds.append(1)
         return build(xx, bb)
 
-    bound._build_nbr = counted
+    # the path's refresh builds through its own attribute
+    bound.force_path.build_list = counted
     steps = 2 * interval
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3596,8 +3605,8 @@ def phase_neighbor_mode(dev, smi):
     x = state.positions
     term64 = term.to(dtype=torch.float64)
     x64, box64 = x.double(), box.double()
-    fresh = build_neighbor_list(x64, box64, bound.neighbor_r_list,
-                                bound.neighbor_k_max)
+    fresh = build_neighbor_list(x64, box64, bound.force_path.r_list,
+                                bound.force_path.k_max)
     assert not bool(fresh.overflow)
     u64 = float(term64.energy_neighbors(x64, box64, None, fresh))
     u_run = float(state.potentials[0])
@@ -3620,9 +3629,9 @@ def phase_neighbor_mode(dev, smi):
     k2_ms_step = 1e3 * (time.perf_counter() - t0) / steps
     assert torch.isfinite(s_k2.positions).all()
     say(f"phase 16d neighbour mode, LennardJonesFluid({NBR_N}) on a "
-        f"lattice, {NBR_T} K: k_max {bound.neighbor_k_max}, r_list "
-        f"{bound.neighbor_r_list:.4f} nm, rebuild every "
-        f"{bound.neighbor_rebuild_interval} steps; initial state "
+        f"lattice, {NBR_T} K: k_max {bound.force_path.k_max}, r_list "
+        f"{bound.force_path.r_list:.4f} nm, rebuild every "
+        f"{bound.force_path.refresh_interval} steps; initial state "
         f"{t_init:.2f} s; {steps} steps in {wall:.2f} s with "
         f"{len(builds)} rebuild: {ms_rebuild:.2f} ms a rebuild, "
         f"{ms_step:.3f} ms a step; the same {steps} steps on K2 (the "
@@ -3632,8 +3641,8 @@ def phase_neighbor_mode(dev, smi):
         f"{u64:.4f} (rel {rel64:.2e}) and K2 {u_k2:.4f} (rel {rel_k2:.2e}); "
         f"overflow {bool(state.nbr_overflow)}")
     assert rel64 <= REL_TOL and rel_k2 <= REL_TOL
-    return dict(k_max=bound.neighbor_k_max, r_list=bound.neighbor_r_list,
-                interval=bound.neighbor_rebuild_interval, steps=steps,
+    return dict(k_max=bound.force_path.k_max, r_list=bound.force_path.r_list,
+                interval=bound.force_path.refresh_interval, steps=steps,
                 init_s=t_init, ms_rebuild=ms_rebuild, ms_step=ms_step,
                 k2_ms_step=k2_ms_step, rel_f64=rel64, rel_k2=rel_k2)
 
@@ -3653,7 +3662,7 @@ def phase_virtual_sites(dev, smi):
     assert n >= DENSE_LIMIT and vs.n_sites > 0
     bound = BAOABIntegrator(temperature=WATER_T, collision_rate=1.0,
                             timestep=0.002).bind(ts.system)
-    assert bound.sweep_mode and bound._vsites is not None
+    assert bound.sweep_mode and bound.force_path.vsites is not None
     assert not bound.neighbor_mode
     k = bound._sweep_kernel
     state = bound.initial_state(ts.sampler_state(),
@@ -3843,7 +3852,7 @@ def phase_batched_kernels(dev, smi, re_sampler, launches14, launches15):
     bound = re_sampler._matrix_bound()
     k = bound._sweep_kernel
     plain = tsw.PlainSweepNonbonded.like(k)
-    term = bound._sweep_alch
+    term = bound.force_path.alch
     sss = re_sampler.sampler_states
     s = re_sampler.replica_states
     R = len(sss)
@@ -5055,8 +5064,9 @@ def phase_loader_water(dev, smi, root):
     parts = {}
     for label, system in (("loader", loaded), ("PMEWaterBox", w.system)):
         bound = BAOABIntegrator(temperature=WATER_T).bind(system)
-        assert bound.sweep_mode and bound._sweep_recip is not None
-        assert bound._settle is not None and bound._rest_constraints is None
+        assert bound.sweep_mode and bound.force_path.recip is not None
+        assert bound.constraint_solver.settle is not None
+        assert bound.constraint_solver.rest is None
         k = bound._sweep_kernel
         before = dict(k.launches)
         u, f = bound.energy_forces_at(x, box, {})
@@ -5107,21 +5117,21 @@ def phase_jac_path(dev, smi, root):
                             timestep=0.002).bind(system)
     t_bind = time.perf_counter() - t0
     k = bound._sweep_kernel
-    assert bound.sweep_mode and bound._sweep_alch is None
-    assert k.forces_kernel == "sweep_forces" and bound._fused is None
+    assert bound.sweep_mode and bound.force_path.alch is None
+    assert k.forces_kernel == "sweep_forces" and bound.force_path.name != "K1"
     n_waters = (n - JAC_CHAINS * (3 * JAC_CARBONS + 2)) // 3
-    assert bound._settle.a.shape[0] == n_waters
+    assert bound.constraint_solver.settle.a.shape[0] == n_waters
     # M-SHAKE on the CH3 (3 constraints) and CH2 (2) clusters
-    assert bound._clusters is not None
-    assert bound._rest_constraints.n_constraints == JAC_CHAINS * (
+    assert bound.constraint_solver.clusters is not None
+    assert bound.constraint_solver.rest.n_constraints == JAC_CHAINS * (
         2 * JAC_CARBONS + 2)
-    assert bound._sweep_recip is system.terms[4]
+    assert bound.force_path.recip is system.terms[4]
     term = system.terms[3]
     n_exc = term.exception_index.shape[0]
     say(f"phase 18c {STAND_IN}: {n} atoms, {n_exc} exceptions (1-2, 1-3 "
         f"excluded and scaled 1-4), {system.constraints.n_constraints} "
         f"constraints ({n_waters} SETTLE waters, M-SHAKE on "
-        f"{bound._rest_constraints.n_constraints} C-H bonds), n_pad "
+        f"{bound.constraint_solver.rest.n_constraints} C-H bonds), n_pad "
         f"{k.n_pad}, mask_shells {k.mask_shells}, PME kmax "
         f"{system.terms[4].kmax}; sweep mode with K2's standard variant and "
         f"the reciprocal correction fused; built in {t_build:.2f} s, bound "
@@ -5293,7 +5303,7 @@ def phase_benchmarks(smi):
             benchmark_dhfr, args,
             f"phase 18d benchmark_dhfr {' '.join(args)} ({STAND_IN})")
         assert rc == 0
-        assert any("bounded sweep (K2)" in line for line in lines), lines
+        assert any("direct-space path: K2 (" in line for line in lines), lines
         checked = any("plain float64 parity" in line for line in lines)
         assert checked == ("--no-check" not in args), lines
         ms = [float(m.group(1)) for m in (
@@ -5327,7 +5337,8 @@ def remd_step_profile(dev, smi, n_steps=20):
     states = sampler._states_on(dev)
     ts = [_resolve(states[int(s)]) for s in sampler._replica_states]
     bound = sampler._moves_per_state()[0]._bound(ts[0])
-    assert not bound.sweep_mode and bound._clusters is not None
+    assert not bound.sweep_mode
+    assert bound.constraint_solver.clusters is not None
     gens = [torch.Generator(device=dev).manual_seed(i) for i in range(n_rep)]
     state = bound.initial_state_batch(list(sampler._sampler_states), gens,
                                       thermodynamic_states=ts)

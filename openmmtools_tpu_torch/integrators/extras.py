@@ -52,7 +52,7 @@ class _DenseStep(BoundIntegrator):
     dense force program."""
 
     def _energy_forces(self, x, state: IntegratorState):
-        return self._ef_fns[None](x, state.box, state.global_params)
+        return self.force_path.ef_fns[None](x, state.box, state.global_params)
 
 
 class _BoundNoseHoover(_DenseStep):
@@ -135,7 +135,7 @@ class _BoundNoseHoover(_DenseStep):
         v = v * scale
         v = v + 0.5 * dt * f * self.inv_mass[:, None]
         x = x + dt * v
-        u, f = self._ef_fns[None](x, state.box, params)
+        u, f = self.force_path.ef_fns[None](x, state.box, params)
         v = v + 0.5 * dt * f * self.inv_mass[:, None]
         scale, xi, vxi = self._propagate_chain(v, xi, vxi, kT)
         v = v * scale

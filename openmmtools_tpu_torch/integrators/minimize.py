@@ -250,11 +250,11 @@ def minimize(thermodynamic_state: ThermodynamicState,
         with torch.no_grad():
             return bound.energies_at(xx, box, [params])[0]
 
-    constrained = system.constraints.n_constraints > 0
+    solver = bound.constraint_solver
     x_min, u_min = fire_minimize(
         system, x0, box, params, max_steps=max_iterations,
         energy_forces=energy_forces,
-        constrain=bound._constrain_positions if constrained else None)
+        constrain=None if solver is None else solver.positions)
     if not bool(torch.isfinite(u_min)):
         x_min, u_min = lbfgs_minimize(system, x0, box, params,
                                       max_steps=max_iterations,
@@ -266,7 +266,7 @@ def minimize(thermodynamic_state: ThermodynamicState,
     # the projection comes before the acceptance check: the unconstrained
     # minimum of a rigid system can lie far off its constraint manifold,
     # and projecting it can raise the energy above the input's
-    if constrained:
+    if solver is not None:
         from openmmtools_tpu_torch.ops.constraints import shake_positions
 
         x_min = shake_positions(x_min, x_min, system.constraints,

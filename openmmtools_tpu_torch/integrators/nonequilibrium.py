@@ -59,11 +59,6 @@ class BoundNonequilibriumIntegrator(BoundIntegrator):
                                       device=like.device).expand(lam.shape)
                 for name, expr in self.integrator.alchemical_functions.items()}
 
-    def _invalidate(self, env):
-        for g in self.groups:
-            env.U[g] = None
-            env.F[g] = None
-
     def _pre_step(self, env):
         cycle = self.integrator._n_steps_per_cycle()
         if cycle <= 0:
@@ -106,27 +101,22 @@ class BoundNonequilibriumIntegrator(BoundIntegrator):
         difference at the current positions to ``protocol_work``.
 
         Both energies are evaluated here, by the same path (in sweep mode
-        the sweep kernel at the state's sort), so that the
+        the sweep kernel at the state's sort; where the path's whole-state
+        energies take the dense sum, that sum), so that the
         lambda-independent bulk cancels exactly; the cached potentials of
         the step program are not reused."""
         x = state.positions
         box = state.box if state.box is not None else self.system.default_box
         params = {k: torch.as_tensor(v, dtype=x.dtype, device=x.device)
                   for k, v in new_params.items()}
-        sw = (self._sweep_dict(state)
-              if self.sweep_mode and state.sweep_perm is not None else None)
+        path = self.force_path
+        ctx = None if path.dense_sums else path.context(state)
         u_old = torch.zeros((), dtype=x.dtype, device=x.device)
-        for g in self.groups:
-            u_old = u_old + self._group_energy_forces(
-                g, x, box, state.global_params, sw)[0]
-        forces, potentials = [], []
-        for g in self.groups:
-            u, f, sw = self._group_energy_forces(g, x, box, params, sw)
-            potentials.append(u)
-            forces.append(f)
+        for u in path.evaluate_groups(x, box, state.global_params, ctx)[0]:
+            u_old = u_old + u
+        potentials, forces, ctx = path.evaluate_groups(x, box, params, ctx)
         u_new = sum(potentials[1:], potentials[0])
-        if sw is not None:
-            state = state.replace(sweep_snap=sw["snap"], sweep_nblk=sw["nblk"])
+        state = path.store(state, ctx)
         return state.replace(
             global_params=params, forces=tuple(forces),
             potentials=tuple(potentials),

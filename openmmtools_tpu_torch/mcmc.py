@@ -909,8 +909,8 @@ class MonteCarloBarostatMove(MetropolizedMove):
         x_new = x + (scale - 1.0)[:, None, None] * centers[:, mol_ids]
         if (x.dtype == torch.float32
                 and states[0].system.constraints.n_constraints):
-            x_new = _context(states[0], context_cache)._constrain_positions(
-                x_new, x)
+            x_new = _context(states[0], context_cache).constraint_solver.\
+                positions(x_new, x)
         trials = [ss.replace(positions=xn, box_vectors=bn)
                   for ss, xn, bn in zip(sampler_states, x_new, box_new)]
         U = torch.stack(potential_energies(

@@ -82,7 +82,7 @@ class ParallelTemperingSampler(ReplicaExchangeSampler):
         sss = [self._sampler_states[n] for n in replicas]
         own = [int(self._replica_states[n]) for n in replicas]
         bound = self._matrix_bound(device)
-        if bound is not None and (bound.sweep_mode
+        if bound is not None and (bound.force_path.batches_energies
                                   or system.n_particles >= DENSE_LIMIT):
             x = torch.stack([ss.positions for ss in sss])
             boxes = [ss.box_vectors for ss in sss]

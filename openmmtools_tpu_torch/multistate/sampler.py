@@ -934,8 +934,8 @@ class MultiStateSampler:
             if bound is not None:
                 def energy_forces(xx, _box=box, _params=params):
                     return bound.energy_forces_at(xx, _box, _params)
-                if system.constraints.n_constraints > 0:
-                    constrain = bound._constrain_positions
+                if bound.constraint_solver is not None:
+                    constrain = bound.constraint_solver.positions
             else:
                 refuse_dense(system, x, "minimization without an integrator "
                              "move")

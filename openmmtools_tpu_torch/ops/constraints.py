@@ -17,7 +17,9 @@ OpenMM's SETTLE + CCMA architecture:
   on the host each iteration; no production path takes it).
 
 ``partition_constraints`` splits a mixed topology into the SETTLE triangles
-and the rest; the integrators apply both on their disjoint atom sets.
+and the rest; :class:`ConstraintSolver` applies both on their disjoint atom
+sets, for one configuration or a batch, and is what the integrators,
+the minimizers and the barostat call.
 """
 from __future__ import annotations
 
@@ -682,3 +684,65 @@ def partition_constraints(constraints: Constraints, masses):
         rest = Constraints(index=constraints.index[rows],
                            distance=constraints.distance[rows])
     return settle, rest
+
+
+class ConstraintSolver:
+    """A system's constraints as one solver, built once from the
+    constraints, the masses and the tolerance: SETTLE on the rigid
+    triangles, M-SHAKE/M-RATTLE on the rest where every cluster is small,
+    else Jacobi SHAKE/RATTLE, on disjoint atom sets. :meth:`positions` and
+    :meth:`velocities` take (N, 3) or a batch (B, N, 3): SETTLE takes it
+    whole (one launch on the card, which vmap cannot trace through),
+    M-SHAKE/M-RATTLE run under ``torch.func.vmap`` and Jacobi one replica
+    at a time, iterating to a tolerance read on the host
+    (``host_iterated``). One ``constraints.*`` span a call."""
+
+    def __init__(self, constraints: Constraints, masses, tolerance=1e-8):
+        self.masses = masses
+        self.tolerance = tolerance
+        self.settle, self.rest = partition_constraints(constraints, masses)
+        self.clusters = (None if self.rest is None
+                         else analyze_clusters(self.rest, masses))
+        self.host_iterated = self.rest is not None and self.clusters is None
+
+    def _per_replica(self, fn, a, b):
+        """``fn`` of one configuration, or of a batch replica by replica."""
+        if a.dim() == 2:
+            return fn(a, b)
+        if self.host_iterated:
+            return torch.stack([fn(ai, bi) for ai, bi in zip(a, b)])
+        return torch.func.vmap(fn)(a, b)
+
+    def positions(self, x_new, x_old):
+        """``x_new`` projected onto the constraints from ``x_old``."""
+        with tracing.span("constraints.positions"):
+            if self.settle is not None:
+                x_new = settle_positions(x_new, x_old, self.settle,
+                                         self.masses)
+            if self.rest is None:
+                return x_new
+            return self._per_replica(self._rest_positions, x_new, x_old)
+
+    def velocities(self, x, v):
+        """``v`` with its components along the constraints at ``x``
+        removed."""
+        with tracing.span("constraints.velocities"):
+            if self.settle is not None:
+                v = settle_velocities(x, v, self.settle, self.masses)
+            if self.rest is None:
+                return v
+            return self._per_replica(self._rest_velocities, x, v)
+
+    def _rest_positions(self, x_new, x_old):
+        if self.clusters is not None:
+            return mshake_positions(x_new, x_old, self.rest, self.clusters,
+                                    self.masses, tol=self.tolerance)
+        return shake_positions(x_new, x_old, self.rest, self.masses,
+                               tol=self.tolerance)
+
+    def _rest_velocities(self, x, v):
+        if self.clusters is not None:
+            return mrattle_velocities(x, v, self.rest, self.clusters,
+                                      self.masses)
+        return rattle_velocities(x, v, self.rest, self.masses,
+                                 tol=self.tolerance)

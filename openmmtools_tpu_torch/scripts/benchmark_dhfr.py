@@ -21,13 +21,6 @@ import sys
 import time
 
 
-def path_name(bound):
-    """The direct-space path a bound integrator takes."""
-    if bound.sweep_mode:
-        return "bounded sweep (K2)"
-    return "neighbour list" if bound.neighbor_mode else "dense"
-
-
 def plain_energy(system, positions, box):
     """U of ``system`` at ``positions`` in float64 on the CPU, by the sweep
     path's plain versions (sweep mode forced)."""
@@ -83,7 +76,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     bound = BAOABIntegrator(temperature=300.0, collision_rate=1.0,
                             timestep=args.timestep).bind(d.system)
-    print(f"direct-space path: {path_name(bound)} (bound in "
+    print(f"direct-space path: {bound.force_path.name} (bound in "
           f"{time.perf_counter() - t0:.2f} s)", flush=True)
 
     t0 = time.perf_counter()

@@ -115,12 +115,9 @@ def _evaluate(system, dtype, device, positions):
 
 def kernel_path(bound):
     """'K1', 'K2', 'K2-alchemical' or None: the kernel path a bound
-    integrator takes."""
-    if bound._fused is not None:
-        return "K1"
-    if bound.sweep_mode:
-        return "K2-alchemical" if bound._sweep_alch is not None else "K2"
-    return None
+    integrator takes (its force path's name)."""
+    name = bound.force_path.name
+    return name if name.startswith("K") else None
 
 
 def _kernel_check(ts, tolerance, device, u_ref64):
@@ -140,8 +137,7 @@ def _kernel_check(ts, tolerance, device, u_ref64):
     if path is None:
         return "n/a", "", None, {}
     # K1's (lj_forces, lj_chunk) or K2's (sweep_bound, its forces kernel)
-    counters = (bound._fused.launches if path == "K1"
-                else bound._sweep_kernel.launches)
+    counters = bound.force_path.kernel.launches
     before = dict(counters)
     x = ts.positions.to(device=device, dtype=torch.float32)
     ss = SamplerState(positions=x, box_vectors=system.default_box)

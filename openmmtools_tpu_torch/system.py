@@ -308,19 +308,6 @@ class VirtualSites:
         site_pos = site_pos + self.wcross[:, None] * torch.linalg.cross(r12, r13)
         return x.index_put((self.site.long(),), site_pos.to(x.dtype))
 
-    def spread_forces(self, x, f):
-        """Forces ``f`` on the reconstructed positions of ``x`` as forces
-        on ``x``: the vector-Jacobian product of :meth:`reconstruct`, which
-        moves each site's force onto its parents and leaves the sites'
-        own entries zero, as autograd through the energy does."""
-        if self.site.shape[0] == 0:
-            return f
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(self.reconstruct(xx), xx,
-                                       grad_outputs=f)
-        return g
-
 
 def no_virtual_sites(device="cuda") -> VirtualSites:
     return VirtualSites(

@@ -36,7 +36,7 @@ def main():
     bound = integ.bind(fluid.system)
     state = bound.initial_state(fluid.sampler_state(), jax.random.PRNGKey(0),
                                 temperature=120.0)
-    fused = bound._fused
+    fused = bound.force_path.kernel
     print(f"n={args.n} n_pad={fused.n_pad} bs={fused.bs} "
           f"rc={fused.rc:.3f} sw={fused.switch_width} skin={fused.skin:.3f} "
           f"sort_interval={fused.sort_interval}")

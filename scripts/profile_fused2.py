@@ -34,7 +34,7 @@ def main():
     state = jax.block_until_ready(bound.run(state, 20000))
     x, v, box, kT, key = (state.positions, state.velocities, state.box,
                           state.kT, state.rng_key)
-    f0 = bound._fused
+    f0 = bound.force_path.kernel
 
     rows = []
     steps = 3200

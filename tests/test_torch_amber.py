@@ -281,9 +281,10 @@ def test_water_prmtop_matches_pme_water_box(tmp_path):
             system = system.to(dtype=dtype)
             bound = BAOABIntegrator(temperature=300.0,
                                     sweep="force").bind(system)
-            assert bound.sweep_mode and bound._settle is not None
-            assert bound._rest_constraints is None
-            assert bound._sweep_recip is not None
+            assert bound.sweep_mode
+            assert bound.constraint_solver.settle is not None
+            assert bound.constraint_solver.rest is None
+            assert bound.force_path.recip is not None
             u, f = bound.energy_forces_at(x, system.default_box, {})
             out[name, dtype] = (float(u), np64(f))
     (u_l, _), (u_w, _) = out["loaded", torch.float64], out[

@@ -166,7 +166,7 @@ def test_batched_sweep_mode_equals_eager_loop():
     bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
                             collision_rate=5.0, sweep="force",
                             sweep_sort_interval=7).bind(system)
-    assert bound.sweep_mode and bound._settle is not None
+    assert bound.sweep_mode and bound.constraint_solver.settle is not None
     x = torch.as_tensor(np.asarray(jw.positions, np.float64))
     params = [{"lambda_sterics": torch.tensor(ls, dtype=torch.float64),
                "lambda_electrostatics": torch.tensor(le,
@@ -194,7 +194,7 @@ def test_batched_generic_program_equals_eager_loop():
     bound = BAOABIntegrator(temperature=120.0, timestep=0.002,
                             collision_rate=1.0).bind(system)
     assert not (bound.sweep_mode or bound.neighbor_mode
-                or bound._fused is not None)
+                or bound.force_path.name == "K1")
     x = torch.as_tensor(np.asarray(jf.positions, np.float64))
     params = [{"lambda_sterics": torch.tensor(ls, dtype=torch.float64),
                "lambda_electrostatics": torch.tensor(1.0,

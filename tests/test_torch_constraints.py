@@ -207,7 +207,7 @@ def test_constrained_generic_trajectory_matches_jax(splitting):
     js = jb.run(jb.initial_state(JaxSamplerState(
         positions=x, velocities=v, box_vectors=box), jax.random.PRNGKey(0)), 8)
     tb = LangevinIntegrator(**kw).bind(port_system(jw.system))
-    assert tb._settle is not None and tb._vproj_skip
+    assert tb.constraint_solver.settle is not None and tb._vproj_skip
     ts = tb.run(tb.initial_state(SamplerState(
         positions=torch.as_tensor(x), velocities=torch.as_tensor(v),
         box_vectors=torch.as_tensor(box)), torch.Generator()), 8)
@@ -323,39 +323,27 @@ def _mixed(rest):
 
 
 def _dispatch(con, m, tol=1e-8):
-    """A bound integrator's constraint dispatch on ``con`` alone, without
-    a system to bind: the partition, the clusters and the tolerance."""
-    import types
-
-    from openmmtools_tpu_torch.integrators.langevin import BoundIntegrator
-
-    b = object.__new__(BoundIntegrator)
-    b._settle, b._rest_constraints = tc.partition_constraints(con, m)
-    b._clusters = tc.analyze_clusters(b._rest_constraints, m)
-    b.masses = m
-    b.integrator = types.SimpleNamespace(constraint_tolerance=tol)
-    return b
+    """The constraint solver of ``con`` alone, without a system to bind:
+    the partition, the clusters and the tolerance."""
+    return tc.ConstraintSolver(con, m, tol)
 
 
 def _old_positions(b, x_new, x_old):
     """The composition the dispatch ran before SETTLE took a batch whole:
     SETTLE, then the other constraints, in one function of a replica."""
-    x_new = tc.settle_positions_reference(x_new, x_old, b._settle, b.masses)
-    tol = b.integrator.constraint_tolerance
-    if b._clusters is not None:
-        return tc.mshake_positions(x_new, x_old, b._rest_constraints,
-                                   b._clusters, b.masses, tol=tol)
-    return tc.shake_positions(x_new, x_old, b._rest_constraints, b.masses,
-                              tol=tol)
+    x_new = tc.settle_positions_reference(x_new, x_old, b.settle, b.masses)
+    if b.clusters is not None:
+        return tc.mshake_positions(x_new, x_old, b.rest, b.clusters,
+                                   b.masses, tol=b.tolerance)
+    return tc.shake_positions(x_new, x_old, b.rest, b.masses,
+                              tol=b.tolerance)
 
 
 def _old_velocities(b, x, v):
-    v = tc.settle_velocities_reference(x, v, b._settle, b.masses)
-    if b._clusters is not None:
-        return tc.mrattle_velocities(x, v, b._rest_constraints, b._clusters,
-                                     b.masses)
-    return tc.rattle_velocities(x, v, b._rest_constraints, b.masses,
-                                tol=b.integrator.constraint_tolerance)
+    v = tc.settle_velocities_reference(x, v, b.settle, b.masses)
+    if b.clusters is not None:
+        return tc.mrattle_velocities(x, v, b.rest, b.clusters, b.masses)
+    return tc.rattle_velocities(x, v, b.rest, b.masses, tol=b.tolerance)
 
 
 @pytest.mark.parametrize("rest", ["mshake", "jacobi"])
@@ -367,11 +355,11 @@ def test_constrain_batch_equals_the_per_replica_composition(rest):
     composition."""
     x, x_new, v, con, m = _mixed(rest)
     b = _dispatch(con, m)
-    assert b._settle is not None and b._rest_constraints is not None
-    assert (b._clusters is None) == (rest == "jacobi")
+    assert b.settle is not None and b.rest is not None
+    assert (b.clusters is None) == (rest == "jacobi") == b.host_iterated
     xr, xn, vb = _batch(x, x_new, v)
-    xp = b._constrain_positions(xn, xr)
-    vp = b._constrain_velocities(xp, vb)
+    xp = b.positions(xn, xr)
+    vp = b.velocities(xp, vb)
     if rest == "mshake":
         xo = torch.func.vmap(lambda p, q: _old_positions(b, p, q))(xn, xr)
         vo = torch.func.vmap(lambda p, q: _old_velocities(b, p, q))(xo, vb)
@@ -379,9 +367,9 @@ def test_constrain_batch_equals_the_per_replica_composition(rest):
         xo = torch.stack([_old_positions(b, p, q) for p, q in zip(xn, xr)])
         vo = torch.stack([_old_velocities(b, p, q) for p, q in zip(xo, vb)])
     assert torch.equal(xp, xo) and torch.equal(vp, vo)
-    x1 = b._constrain_positions(xn[0], xr[0])
+    x1 = b.positions(xn[0], xr[0])
     assert torch.equal(x1, _old_positions(b, xn[0], xr[0]))
-    assert torch.equal(b._constrain_velocities(x1, vb[0]),
+    assert torch.equal(b.velocities(x1, vb[0]),
                        _old_velocities(b, x1, vb[0]))
     # every constraint holds
     i, j = (con.index[:, k].long() for k in (0, 1))

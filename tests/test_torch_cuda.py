@@ -219,11 +219,11 @@ def test_cuda_fused_path_matches_generic_program(cuda, calm_fluid):
     generic = LangevinIntegrator(temperature=120.0, collision_rate=0.0,
                                  timestep=0.002, neighborlist=None
                                  ).bind(fluid.system)
-    assert fused._fused is not None and generic._fused is None
+    assert fused.force_path.name == "K1" and generic.force_path.name != "K1"
     a = fused.run(fused.initial_state(start, torch.Generator()), 40)
     b = generic.run(generic.initial_state(start, torch.Generator()), 40)
     # the initial state's F and U by the force kernel, the run one chunk
-    assert fused._fused.launches == {"lj_forces": 1, "lj_chunk": 1}
+    assert fused.force_path.kernel.launches == {"lj_forces": 1, "lj_chunk": 1}
     assert _wrapped_dx(a.positions, b.positions, float(fluid.box_edge)) < 5e-4
     assert float((a.velocities - b.velocities).abs().max()) < \
         5e-3 * float(b.velocities.abs().max())
@@ -248,7 +248,7 @@ def test_cuda_long_splitting_takes_the_generic_program(cuda, splitting,
     bound = LangevinIntegrator(temperature=120.0, collision_rate=1.0,
                                timestep=0.002, splitting=splitting.strip()
                                ).bind(fluid.system)
-    assert bound._fused is None
+    assert bound.force_path.name != "K1"
     start = SamplerState(positions=fluid.positions,
                          velocities=_thermal(2048, cuda),
                          box_vectors=fluid.system.default_box)
@@ -256,7 +256,7 @@ def test_cuda_long_splitting_takes_the_generic_program(cuda, splitting,
                                 torch.Generator(device=cuda).manual_seed(0))
     fused = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
                             timestep=0.002).bind(fluid.system)
-    assert fused._fused is not None
+    assert fused.force_path.name == "K1"
     u_fused = fused.initial_state(start, torch.Generator()).potentials[0]
     assert abs(float(first.potentials[0] - u_fused)) <= REL * abs(
         float(u_fused))
@@ -275,7 +275,7 @@ def test_cuda_generic_program_keeps_the_device(cuda):
     ho = HarmonicOscillator(device=cuda)
     bound = BAOABIntegrator(temperature=300.0, collision_rate=20.0,
                             timestep=0.002).bind(ho.system)
-    assert bound._fused is None
+    assert bound.force_path.name != "K1"
     state = bound.initial_state(ho.sampler_state(),
                                 torch.Generator().manual_seed(0))
     state = bound.run(state, 200)
@@ -426,8 +426,9 @@ def test_cuda_sweep_mode_engages_and_matches_plain(cuda):
     w = PMEWaterBox(box_edge=3.1, device=cuda)
     bound = BAOABIntegrator(temperature=300.0, collision_rate=1.0,
                             timestep=0.002).bind(w.system)
-    assert bound.sweep_mode and bound._fused is None
-    assert bound._settle is not None and bound._rest_constraints is None
+    assert bound.sweep_mode and bound.force_path.name != "K1"
+    assert bound.constraint_solver.settle is not None
+    assert bound.constraint_solver.rest is None
     state = bound.initial_state(w.sampler_state(),
                                 torch.Generator(device=cuda).manual_seed(0))
     state = bound.run(state, 150)        # through one re-sort
@@ -437,19 +438,20 @@ def test_cuda_sweep_mode_engages_and_matches_plain(cuda):
     x = state.positions
     assert torch.isfinite(x).all()
 
-    sw = bound._sweep_dict(bound._resort_sweep(state))
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    sw = bound.force_path.context(bound.force_path.refresh(state))
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
-        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+        u_p, f_p, _ = bound.force_path.evaluate_sweep(
+            x, state.box, state.global_params, sw)
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
     assert abs(float(state.potentials[0] - u_p)) <= REL * abs(float(u_p))
     assert _rel(state.forces[0], f_p) <= REL
 
     lj = LennardJonesFluid(nparticles=2048, device=cuda)
     lj_bound = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
                                timestep=0.002).bind(lj.system)
-    assert lj_bound._fused is not None and not lj_bound.sweep_mode
+    assert lj_bound.force_path.name == "K1" and not lj_bound.sweep_mode
 
 
 @pytest.mark.cuda
@@ -744,8 +746,8 @@ def test_cuda_alchemical_path_engages_the_kernel(cuda):
                                            lambda_sterics=0.5),))
     bound = BAOABIntegrator(temperature=300.0, collision_rate=1.0,
                             timestep=0.002).bind(w.system)
-    assert bound.sweep_mode and bound._sweep_alch is not None
-    assert bound._fused is None
+    assert bound.sweep_mode and bound.force_path.alch is not None
+    assert bound.force_path.name != "K1"
     k = bound._sweep_kernel
     state = bound.initial_state(w.sampler_state(),
                                 torch.Generator(device=cuda).manual_seed(0),
@@ -754,12 +756,13 @@ def test_cuda_alchemical_path_engages_the_kernel(cuda):
     assert k.launches == {"sweep_bound": 151, "sweep_forces_alch": 151}
     x = state.positions
     assert torch.isfinite(x).all()
-    sw = bound._sweep_dict(bound._resort_sweep(state))
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    sw = bound.force_path.context(bound.force_path.refresh(state))
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
-        u_p, f_p, _ = bound._sweep_eval(x, state.box, state.global_params, sw)
+        u_p, f_p, _ = bound.force_path.evaluate_sweep(
+            x, state.box, state.global_params, sw)
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
     assert abs(float(state.potentials[0] - u_p)) <= REL * abs(float(u_p))
     assert _rel(state.forces[0], f_p) <= REL
 
@@ -1088,12 +1091,12 @@ def test_cuda_extras_keep_their_own_step(cuda, name):
 
     fluid = LennardJonesFluid(nparticles=2048, device=cuda)
     assert BAOABIntegrator(temperature=120.0).bind(
-        fluid.system)._fused is not None
+        fluid.system).force_path.name == "K1"
     kwargs = dict(temperature=120.0)
     if name == "MetropolisMonteCarloIntegrator":
         kwargs["displacement_sigma"] = 1e-5
     bound = getattr(tint, name)(**kwargs).bind(fluid.system)
-    assert bound._fused is None and not bound.sweep_mode
+    assert bound.force_path.name != "K1" and not bound.sweep_mode
     with _chunk_launches() as k1:
         state = bound.initial_state(fluid.sampler_state(),
                                     torch.Generator(device=cuda).manual_seed(0))
@@ -1113,7 +1116,7 @@ def test_cuda_langevin_move_launches_k1(cuda):
     ts = fluid.thermodynamic_state(120.0)
     move = LangevinDynamicsMove(timestep=0.002, collision_rate=1.0,
                                 n_steps=500)
-    fused = move._bound(ts)._fused
+    fused = move._bound(ts).force_path.kernel
     assert fused is not None
     ss = fluid.sampler_state()
     for _ in range(2):
@@ -1130,7 +1133,7 @@ def test_cuda_ghmc_move_launches_k2(cuda):
     ts = fluid.thermodynamic_state(120.0)
     move = GHMCMove(timestep=0.001, n_steps=20)
     bound = move._bound(ts)
-    assert bound.sweep_mode and bound._fused is None
+    assert bound.sweep_mode and bound.force_path.name != "K1"
     with _chunk_launches() as k1:
         ss = move.apply(ts, fluid.sampler_state())
     assert k1.count == 0
@@ -1207,7 +1210,7 @@ def test_cuda_energies_at_matches_plain_sweep(cuda):
 
     w, states = _alchemical_ladder(6.223, cuda)
     bound = BAOABIntegrator(temperature=300.0).bind(w.system)
-    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound.sweep_mode and bound.force_path.alch is not None
     k = bound._sweep_kernel
     x, box = w.positions, w.system.default_box
     sets = [s.global_params for s in states]
@@ -1216,11 +1219,11 @@ def test_cuda_energies_at_matches_plain_sweep(cuda):
     got = bound.energies_at(x, box, sets)
     torch.cuda.synchronize()
     assert k.launches == {"sweep_bound": 1, "sweep_forces_alch": 1}
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
         want = bound.energies_at(x, box, sets)
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
     assert got.dtype == torch.float64
     assert float(((got - want).abs() / want.abs()).max()) <= REL
     dense = BAOABIntegrator(temperature=300.0, sweep=None).bind(w.system)
@@ -1243,7 +1246,7 @@ def test_cuda_replica_exchange_iteration_counts_k2(cuda):
     move = LangevinSplittingDynamicsMove(timestep=0.002, collision_rate=1.0,
                                          n_steps=5)
     bound = move._bound(states[0])
-    assert bound.sweep_mode and bound._settle is not None
+    assert bound.sweep_mode and bound.constraint_solver.settle is not None
     k = bound._sweep_kernel
     sampler = ReplicaExchangeSampler(mcmc_moves=move, number_of_iterations=1,
                                      online_analysis_interval=None)
@@ -1289,12 +1292,12 @@ def test_cuda_parallel_tempering_launches_k1(cuda):
     sampler.create(fluid.thermodynamic_state(120.0), fluid.sampler_state(),
                    temperatures=[120.0, 140.0, 160.0])
     bounds = [move._bound(s) for s in sampler._thermodynamic_states]
-    assert all(b._fused is not None for b in bounds)
+    assert all(b.force_path.name == "K1" for b in bounds)
     for b in bounds:
-        for key in b._fused.launches:
-            b._fused.launches[key] = 0
+        for key in b.force_path.kernel.launches:
+            b.force_path.kernel.launches[key] = 0
     sampler.run()
-    total = {key: sum(b._fused.launches[key] for b in bounds)
+    total = {key: sum(b.force_path.kernel.launches[key] for b in bounds)
              for key in ("lj_forces", "lj_chunk")}
     assert total == {"lj_forces": 3 * 2, "lj_chunk": 3 * 2}
     u = sampler.energies_last_iteration
@@ -1316,9 +1319,9 @@ def test_cuda_fused_path_refuses_an_lj_scale(cuda):
     term = fluid.system.terms[0].replace(lj_scale_param="lambda_sterics")
     system = fluid.system.replace(terms=(term,))
     bound = BAOABIntegrator(temperature=120.0).bind(system)
-    assert bound._fused is None and bound.sweep_mode
+    assert bound.force_path.name != "K1" and bound.sweep_mode
     assert BAOABIntegrator(temperature=120.0).bind(
-        fluid.system)._fused is not None
+        fluid.system).force_path.name == "K1"
     u = bound.energies_at(fluid.positions, None,
                           [{"lambda_sterics": 1.0}, {"lambda_sterics": 0.5}])
     assert abs(float(u[1]) - 0.5 * float(u[0])) <= REL * abs(float(u[0]))
@@ -1334,13 +1337,13 @@ def _plain_energies(bound, sampler_states, params):
     from openmmtools_tpu_torch.ops import sweep_nb as tsw
 
     k = bound._sweep_kernel
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     try:
         return [float(bound.energies_at(ss.positions, ss.box_vectors,
                                         [params])[0])
                 for ss in sampler_states]
     finally:
-        bound._sweep_kernel = k
+        bound.force_path.kernel = k
 
 
 @pytest.mark.cuda
@@ -1417,7 +1420,7 @@ def test_cuda_batched_mc_moves_launch_k2_at_2r(cuda):
     w, states = _alchemical_ladder(3.0, cuda)
     cache = ContextCache()
     bound, _ = cache.get_context(states[0])
-    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound.sweep_mode and bound.force_path.alch is not None
     k = bound._sweep_kernel
     g = torch.Generator(device=cuda).manual_seed(3)
     sss = [SS(positions=w.positions + 1e-3 * torch.randn(
@@ -1658,8 +1661,8 @@ def test_cuda_equilibration_launches_k2_in_every_stage(cuda):
         [13, 21, 53, 53]
     for b, restrained in zip(bounds, (True, True, True, False)):
         assert b.sweep_mode
-        assert (PositionalRestraintTerm in [type(t) for t in
-                                            b._sweep_leftover]) == restrained
+        assert (PositionalRestraintTerm in [
+            type(t) for t in b.force_path.leftover]) == restrained
     assert torch.isfinite(out.positions).all()
     assert torch.isfinite(out.box_vectors).all()
 
@@ -1672,8 +1675,8 @@ def test_cuda_neighbor_mode_engages_from_100000_atoms(cuda):
     assert not BAOABIntegrator(sweep=None).bind(small.system).neighbor_mode
     big = LennardJonesFluid(nparticles=100_000, device="cuda")
     bound = BAOABIntegrator(sweep=None).bind(big.system)
-    assert bound.neighbor_mode and bound._fused is None
-    assert bound.neighbor_k_max < 100
+    assert bound.neighbor_mode and bound.force_path.name != "K1"
+    assert bound.force_path.k_max < 100
     swept = BAOABIntegrator().bind(big.system)
     assert swept.sweep_mode and not swept.neighbor_mode
 
@@ -1749,7 +1752,7 @@ def test_cuda_virtual_sites_above_the_limit_take_k2(cuda):
     ts = FourSiteWaterBox(box_edge=3.3, device="cuda")
     assert ts.system.n_particles >= DENSE_LIMIT
     bound = BAOABIntegrator(temperature=300.0, timestep=0.002).bind(ts.system)
-    assert bound.sweep_mode and bound._vsites is not None
+    assert bound.sweep_mode and bound.force_path.vsites is not None
     k = bound._sweep_kernel
     state = bound.initial_state(ts.sampler_state(),
                                 torch.Generator(device="cuda").manual_seed(8))
@@ -1777,7 +1780,7 @@ def _ladder_sets(edge, dev, n_rep, seed):
     w, states = _alchemical_ladder(edge, dev)
     bound = BAOABIntegrator(temperature=300.0).bind(w.system)
     k = bound._sweep_kernel
-    term = bound._sweep_alch
+    term = bound.force_path.alch
     g = torch.Generator(device=dev).manual_seed(seed)
     ins = []
     for r in range(n_rep):
@@ -1952,10 +1955,11 @@ def test_cuda_prmtop_stand_in_takes_k2_with_settle_mshake_and_fused_recip(
     20 steps launch each K2 kernel once a step, the constraints hold."""
     system, x = _chains_in_water(tmp_path, cuda)
     bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
-    assert bound.sweep_mode and bound._sweep_alch is None
-    assert bound._settle is not None and bound._settle.a.shape[0] == 188
-    assert bound._clusters is not None
-    assert bound._sweep_recip is system.terms[4]
+    assert bound.sweep_mode and bound.force_path.alch is None
+    settle = bound.constraint_solver.settle
+    assert settle is not None and settle.a.shape[0] == 188
+    assert bound.constraint_solver.clusters is not None
+    assert bound.force_path.recip is system.terms[4]
     k = bound._sweep_kernel
     state = bound.initial_state(SamplerState(positions=x,
                                              box_vectors=system.default_box),
@@ -1985,9 +1989,9 @@ def test_cuda_prmtop_stand_in_against_the_plain_version(cuda, tmp_path):
     bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
     k = bound._sweep_kernel
     u, f = bound.energy_forces_at(x, system.default_box, {})
-    bound._sweep_kernel = tsw.PlainSweepNonbonded.like(k)
+    bound.force_path.kernel = tsw.PlainSweepNonbonded.like(k)
     u_p, f_p = bound.energy_forces_at(x, system.default_box, {})
-    bound._sweep_kernel = k
+    bound.force_path.kernel = k
     assert abs(float(u) - float(u_p)) <= REL * abs(float(u_p))
     scale = float(f_p.abs().max())
     assert float((f - f_p).abs().max()) <= REL * scale
@@ -2227,7 +2231,7 @@ def test_cuda_step_graph_leaves_the_fused_path_and_ncmc_alone(cuda):
 
     fluid = _calm(1000)
     fused = BAOABIntegrator(temperature=120.0).bind(fluid.system)
-    assert fused._fused is not None and not fused._graph_program
+    assert fused.force_path.name == "K1" and not fused._graph_program
     w, states = _alchemical_ladder(3.0, cuda)
     integ = AlchemicalNonequilibriumLangevinIntegrator(
         alchemical_functions={"lambda_electrostatics": "1 - lambda"},
@@ -2603,7 +2607,7 @@ def test_cuda_settle_kernel_in_the_water_step_graph(cuda, monkeypatch):
     bound = BAOABIntegrator(temperature=300.0, timestep=0.002,
                             collision_rate=1.0).bind(w.system)
     assert bound.sweep_mode and bound._graph_program and bound._vproj_skip
-    spec = bound._settle
+    spec = bound.constraint_solver.settle
 
     def start():
         return bound.initial_state(

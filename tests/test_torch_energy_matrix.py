@@ -261,7 +261,7 @@ def test_energies_at_sweep_matches_dense(lams):
     jw = jwater.AlchemicalWaterBox(box_edge=1.9, cutoff=0.9)
     system = port_system(jw.system)
     bound = BAOABIntegrator(temperature=TEMP, sweep="force").bind(system)
-    assert bound.sweep_mode and bound._sweep_alch is not None
+    assert bound.sweep_mode and bound.force_path.alch is not None
     x = torch.as_tensor(np.asarray(jw.positions, np.float64)
                         + np.random.default_rng(7).normal(
                             scale=2e-3, size=(system.n_particles, 3)))

@@ -276,7 +276,7 @@ class _OwnStepIntegrator(tint.BAOABIntegrator):
 @pytest.fixture
 def as_if_on_the_card(monkeypatch):
     """The fused path's device test reads ``System.device``; reporting a
-    CUDA device lets a CPU system pass every test of ``_fused_setup`` (its
+    CUDA device lets a CPU system pass every test of ``FusedPath.build`` (its
     constructor launches nothing)."""
     from openmmtools_tpu_torch.system import System
 
@@ -290,12 +290,12 @@ def test_own_step_is_refused_the_fused_kernel(as_if_on_the_card, name):
     with its own step (whatever its R/V/O splitting) keeps its step."""
     fluid = tts.LennardJonesFluid(nparticles=256, device="cpu")
     assert tint.BAOABIntegrator(temperature=120.0).bind(
-        fluid.system)._fused is not None
+        fluid.system).force_path.name == "K1"
     integ = (_OwnStepIntegrator(temperature=120.0)
              if name == "_OwnStepIntegrator"
              else getattr(tint, name)(temperature=120.0))
     bound = integ.bind(fluid.system)
-    assert bound._fused is None and not bound.sweep_mode
+    assert bound.force_path.name != "K1" and not bound.sweep_mode
 
 
 def test_own_step_is_refused_the_trailing_projection_skip():

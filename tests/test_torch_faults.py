@@ -28,10 +28,8 @@ import torch
 
 from openmmtools_tpu_torch import states as tstates
 from openmmtools_tpu_torch.integrators import BAOABIntegrator, minimize
-from openmmtools_tpu_torch.integrators.langevin import (
-    BoundIntegrator,
-    IntegratorError,
-)
+from openmmtools_tpu_torch.integrators.force_paths import SweepPath
+from openmmtools_tpu_torch.integrators.langevin import IntegratorError
 from openmmtools_tpu_torch.mcmc import (
     IntegratorMove,
     MCDisplacementMove,
@@ -63,7 +61,7 @@ def sweep_calls(monkeypatch):
     configuration of a single call, and B of a batched call (one a pair of
     ``rep``, else one a configuration of the batch)."""
     calls = {}
-    original = BoundIntegrator._sweep_eval
+    original = SweepPath.evaluate_sweep
 
     def counting(self, x, *args, **kwargs):
         key = self.system.fingerprint
@@ -73,7 +71,7 @@ def sweep_calls(monkeypatch):
         calls[key] = calls.get(key, 0) + count
         return original(self, x, *args, **kwargs)
 
-    monkeypatch.setattr(BoundIntegrator, "_sweep_eval", counting)
+    monkeypatch.setattr(SweepPath, "evaluate_sweep", counting)
     return calls
 
 
@@ -142,7 +140,9 @@ def test_f6_energy_matrix_checks_the_flag_once():
 
 
 def test_f3_fused_path_refuses_an_lj_scale():
-    from openmmtools_tpu_torch.integrators.langevin import fused_lj_eligible
+    from openmmtools_tpu_torch.integrators.force_paths import (
+        fused_lj_eligible,
+    )
 
     fluid = LennardJonesFluid(nparticles=256, device="cpu")
     assert fused_lj_eligible(fluid.system)

@@ -166,7 +166,7 @@ def test_mts_groups_and_shadow_work_match_jax(fluid64):
     tb = LangevinIntegrator(temperature=120.0, collision_rate=0.0,
                             timestep=0.002, splitting=splitting,
                             measure_shadow_work=True).bind(port_system(jsys))
-    assert tb.groups == [0, 1] and tb._fused is None
+    assert tb.groups == [0, 1] and tb.force_path.name != "K1"
     ts = tb.run(tb.initial_state(SamplerState(
         positions=torch.as_tensor(x), velocities=torch.as_tensor(v),
         box_vectors=torch.as_tensor(box)), torch.Generator()), 20)

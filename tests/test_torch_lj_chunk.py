@@ -94,7 +94,7 @@ def test_wrapper_refuses_what_the_table_cannot_hold(splitting, match):
 ])
 def test_fit_predicate_matches_what_the_wrapper_takes(splitting, fits):
     """``fits_chunk_table`` is True exactly where the wrapper builds its
-    table, so ``_fused_setup`` never reaches a refusal."""
+    table, so ``FusedPath.build`` never reaches a refusal."""
     assert fits_chunk_table(splitting.split()) is fits
     if fits:
         _program(256, splitting)
@@ -115,7 +115,7 @@ def test_long_splitting_runs_the_generic_program_in_sweep_mode():
               splitting=splitting)
     sweep = LangevinIntegrator(sweep="force", **kw).bind(fluid.system)
     dense = LangevinIntegrator(sweep=None, **kw).bind(fluid.system)
-    assert sweep.sweep_mode and sweep._fused is None
+    assert sweep.sweep_mode and sweep.force_path.name != "K1"
     assert not dense.sweep_mode
     start = SamplerState(positions=fluid.positions,
                          velocities=torch.zeros_like(fluid.positions),

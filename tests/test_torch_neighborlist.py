@@ -138,10 +138,10 @@ def test_neighbor_mode_engages_as_in_jax(n):
     jb, tb = _bound_pair(n, collision_rate=1.0, timestep=0.002)
     assert tb.neighbor_mode == jb.neighbor_mode == (n >= 128)
     if n >= 128:
-        assert tb.neighbor_k_max == jb.neighbor_k_max
-        assert tb.neighbor_r_list == pytest.approx(jb.neighbor_r_list,
+        assert tb.force_path.k_max == jb.neighbor_k_max
+        assert tb.force_path.r_list == pytest.approx(jb.neighbor_r_list,
                                                    rel=1e-15)
-        assert tb.neighbor_rebuild_interval == jb.neighbor_rebuild_interval
+        assert tb.force_path.refresh_interval == jb.neighbor_rebuild_interval
     off = BAOABIntegrator(neighborlist=None).bind(
         LennardJonesFluid(nparticles=300, device="cpu").system)
     assert not off.neighbor_mode
@@ -206,7 +206,7 @@ def test_overflowing_move_raises():
     bound = move._bound(ts)
     assert bound.neighbor_mode
     # every particle inside one list radius of the origin
-    x = tf.positions * (0.5 * bound.neighbor_r_list / tf.box_edge)
+    x = tf.positions * (0.5 * bound.force_path.r_list / tf.box_edge)
     ss = SamplerState(positions=x, box_vectors=tf.system.default_box)
     with pytest.raises(MCMCMoveError, match="neighbor-list capacity"):
         move.apply(ts, ss)

@@ -119,11 +119,33 @@ def test_h_in_block_rejection_matches_jax():
         _close(ts.protocol_work, js.protocol_work)
         _close(ts.global_params[K], js.global_params[K])
         # the caches are a fresh evaluation at the current parameters
-        u, f = tb._ef_fns[None](ts.positions, None, ts.global_params)
+        u, f = tb.force_path.ef_fns[None](ts.positions, None, ts.global_params)
         _close(ts.potentials[0], u)
         _close(ts.forces[0], f)
         _close(ts.potentials[0], js.potentials[0])
     assert np.all(np64(ts.velocities) == np.asarray(V0) * (1, 1, 1))
+
+
+def test_perturb_on_the_neighbour_path_takes_the_dense_sum():
+    """The neighbour list serves the step; a perturbation's energies, and
+    the forces it leaves for the next step, are the dense sum's, as every
+    whole-state energy is on that path (the list's forces differ from the
+    dense ones in their last bits)."""
+    from openmmtools_tpu_torch.models import LennardJonesFluid
+
+    lj = LennardJonesFluid(nparticles=256, device="cpu")
+    bound = tint.ExternalPerturbationLangevinIntegrator(
+        temperature=120.0, timestep=0.002).bind(lj.system)
+    assert bound.force_path.name == "neighbour list"
+    state = bound.run(bound.initial_state(
+        SamplerState(positions=lj.positions),
+        torch.Generator().manual_seed(3)), 3)
+    u, f = bound.force_path.ef_fns[None](state.positions, state.box, {})
+    assert not torch.equal(state.forces[0], f)
+    new = bound.perturb(state, {})
+    assert torch.equal(new.forces[0], f)
+    assert torch.equal(new.potentials[0], u)
+    assert float(new.protocol_work) == 0.0
 
 
 def test_perturb_identity_matches_jax():
@@ -191,7 +213,7 @@ def test_ncmc_alchemical_water_sweep_matches_jax_dense():
         "AlchemicalNonequilibriumLangevinIntegrator", "force",
         alchemical_functions={"lambda_electrostatics": "1 - lambda"},
         splitting="V R H R V", n_steps_neq=2)
-    assert tb.sweep_mode and tb._sweep_alch is not None
+    assert tb.sweep_mode and tb.force_path.alch is not None
     for step in range(3):
         js, ts = jb.run(js, 1), tb.run(ts, 1)
         _close(ts.protocol_work, js.protocol_work, rel=1e-9)
@@ -209,9 +231,9 @@ def test_perturb_alchemical_water_sweep_matches_jax_dense():
     for lam in (0.6, 0.2, 0.0):
         old = dict(ts.global_params)
         new = {"lambda_electrostatics": lam, "lambda_sterics": 1.0}
-        sw = tb._sweep_dict(ts)
-        u_new = tb._group_energy_forces(None, ts.positions, ts.box, new, sw)
-        u_old = tb._group_energy_forces(None, ts.positions, ts.box, old, sw)
+        sw = tb.force_path.context(ts)
+        u_new = tb.force_path.evaluate(None, ts.positions, ts.box, new, sw)
+        u_old = tb.force_path.evaluate(None, ts.positions, ts.box, old, sw)
         same += float(u_new[0] - u_old[0])
         js, ts = jb.perturb(js, new), tb.perturb(ts, new)
         # the same evaluation path: exact to rounding

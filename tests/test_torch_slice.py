@@ -109,7 +109,8 @@ def test_explicit_solvent_path_matches_jax_dense():
     tb = BAOABIntegrator(temperature=300.0, collision_rate=0.0,
                          timestep=0.001, sweep="force",
                          sweep_sort_interval=5).bind(tw.system)
-    assert tb.sweep_mode and tb._settle is not None and tb._vproj_skip
+    assert tb.sweep_mode and tb._vproj_skip
+    assert tb.constraint_solver.settle is not None
     ts = tb.initial_state(SamplerState(positions=tw.positions,
                                        velocities=torch.as_tensor(v0),
                                        box_vectors=tw.system.default_box),
@@ -158,8 +159,8 @@ def test_alchemical_path_matches_jax_dense():
     tb = BAOABIntegrator(temperature=300.0, collision_rate=0.0,
                          timestep=0.001, sweep="force",
                          sweep_sort_interval=5).bind(tw.system)
-    assert tb.sweep_mode and tb._sweep_alch is not None
-    assert tb._sweep_kernel.alchemical and tb._fused is None
+    assert tb.sweep_mode and tb.force_path.alch is not None
+    assert tb._sweep_kernel.alchemical and tb.force_path.name != "K1"
     ts = tb.initial_state(
         SamplerState(positions=tw.positions, velocities=torch.as_tensor(v0),
                      box_vectors=tw.system.default_box),
@@ -204,7 +205,7 @@ def test_bound_integrator_does_not_fuse_on_cpu():
     f = LennardJonesFluid(nparticles=N, device="cpu")
     bound = BAOABIntegrator(temperature=120.0, collision_rate=1.0,
                             timestep=0.002).bind(f.system)
-    assert bound._fused is None
+    assert bound.force_path.name != "K1"
 
 
 def test_port_never_imports_jax():

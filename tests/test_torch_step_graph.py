@@ -17,6 +17,7 @@ from openmmtools_tpu_torch.integrators import step_graph
 from openmmtools_tpu_torch.models import AlchemicalWaterBox, WaterBox
 from openmmtools_tpu_torch.states import SamplerState
 from openmmtools_tpu_torch.system import Constraints
+from openmmtools_tpu_torch.utils import tracing
 
 LAMS = [{"lambda_sterics": 1.0, "lambda_electrostatics": 0.5},
         {"lambda_sterics": 0.5, "lambda_electrostatics": 0.0},
@@ -85,7 +86,7 @@ def test_jacobi_shake_runs_eagerly():
     system = w.system.replace(constraints=Constraints(index=index,
                                                       distance=d))
     bound = _sweep_bound(system)
-    assert bound._rest_constraints is not None and bound._clusters is None
+    assert bound.constraint_solver.host_iterated
     assert not bound._graph_program
 
 
@@ -172,7 +173,7 @@ def test_the_eager_program_s_aten_calls_are_unchanged(water):
     state = _batch(bound, water)
 
     def written_out():
-        s = bound._resort_sweep(state)
+        s = bound.force_path.refresh(state)
         for _ in range(3):
             s = bound.step(s, skip_trailing_vproj=True)
         s.replace(velocities=bound._constrain_velocities(s.positions,
@@ -183,6 +184,51 @@ def test_the_eager_program_s_aten_calls_are_unchanged(water):
     counts = [[_aten_calls(fn) for _ in range(2)][-1]
               for fn in (lambda: bound.run(state, 3), written_out)]
     assert counts[0] == counts[1]
+
+
+# ATen calls of the eager program, pinned to the counts of the program
+# before its force paths and constraint solver moved out of the integrator
+# (integrators/force_paths.py, ops/constraints.ConstraintSolver): a step of
+# one replica and of three, and a 3 x 3 energy matrix, on one thread. The
+# matrix's fresh sort takes 3 fewer than the 7,795 it took there: the
+# zeros (aten::zeros, empty, zero_) of a stand-in state's kT that nothing
+# read
+PINNED_ATEN_CALLS = {"step, B = 1": 3508, "step, B = 3": 6103,
+                     "energies_batch, 3 x 3": 7792}
+
+
+@pytest.mark.parametrize("what", sorted(PINNED_ATEN_CALLS))
+def test_the_eager_program_s_aten_calls_are_pinned(water, what):
+    """The count of each, the second of two readings, each from cleared
+    tracing counters (a profiler turns tracing's device counts on, and a
+    count's first addition copies where later ones add), on one intra-op
+    thread (more threads split some operators into more calls)."""
+    bound = _sweep_bound(water.system)
+    skip = bound._vproj_skip
+    if what == "step, B = 1":
+        single = bound.initial_state(
+            SamplerState(positions=water.positions), _gens(1)[0],
+            temperature=TEMPS[0], global_params=LAMS[0])
+        fn = lambda: bound.step(single, skip_trailing_vproj=skip)  # noqa
+    elif what == "step, B = 3":
+        batch = _batch(bound, water)
+        fn = lambda: bound.step(batch, skip_trailing_vproj=skip)  # noqa
+    else:
+        x = _batch(bound, water).positions
+        rep = torch.arange(3).repeat_interleave(3)
+        params = {k: torch.tensor([LAMS[i % 3][k] for i in range(9)])
+                  for k in LAMS[0]}
+        fn = lambda: bound.energies_batch(x, None, rep, params)  # noqa
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counts = []
+        for _ in range(2):
+            tracing.reset()
+            counts.append(_aten_calls(fn))
+    finally:
+        torch.set_num_threads(threads)
+    assert counts[-1] == PINNED_ATEN_CALLS[what]
 
 
 def test_k2_s_launch_counts_read_as_a_mapping_of_ints():

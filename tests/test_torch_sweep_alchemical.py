@@ -165,7 +165,7 @@ def test_sweep_eval_matches_jax_dense(regions, treatment, lams, exceptions):
     params = _lambdas(regions, *lams)
     u_j, f_j = jax.jit(jax_ef(jax_f64(jsys)))(x, box, params)
     bound = BAOABIntegrator(temperature=120.0, sweep="force").bind(system)
-    assert bound.sweep_mode and bound._sweep_alch is system.terms[0]
+    assert bound.sweep_mode and bound.force_path.alch is system.terms[0]
     assert bound._sweep_kernel.coulomb_pme_treatment == (
         treatment == "coulomb")
     state = _initial(bound, x, box, params)
@@ -188,8 +188,8 @@ def test_sweep_eval_alchemical_water_matches_jax_dense(lams):
     params = {"lambda_sterics": lams[0], "lambda_electrostatics": lams[1]}
     u_j, f_j = jax.jit(jax_ef(jax_f64(jw.system)))(x, box, params)
     bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
-    assert bound._sweep_disp_class is not None
-    assert bound._sweep_recip is None and bound._sweep_rows is None
+    assert bound.force_path.disp_class is not None
+    assert bound.force_path.recip is None and bound.force_path.rows is None
     state = _initial(bound, x, box, params)
     assert abs(float(state.potentials[0]) - float(u_j)) <= 1e-9 * abs(
         float(u_j))
@@ -274,7 +274,8 @@ def test_gamma0_trajectory_matches_jax_dense():
     tb = BAOABIntegrator(temperature=300.0, collision_rate=0.0,
                          timestep=0.001, sweep="force",
                          sweep_sort_interval=5).bind(tw.system)
-    assert tb.sweep_mode and tb._sweep_alch is not None and tb._settle
+    assert tb.sweep_mode and tb.force_path.alch is not None
+    assert tb.constraint_solver.settle
     ts = tb.initial_state(SamplerState(positions=tw.positions,
                                        velocities=torch.as_tensor(v0),
                                        box_vectors=tw.system.default_box),

@@ -13,7 +13,7 @@ the JAX package.
   sums of those terms differ by rounding of that sum, not of the difference.
   The JAX kernel's erfc is the Abramowitz-Stegun rational (|error| < 1.5e-7),
   the port's is exact.
-* Sweep mode's energy and forces (``_sweep_eval`` through
+* Sweep mode's energy and forces (``evaluate_sweep`` through
   ``initial_state``) at float64 against the JAX package's dense evaluation,
   to rel 1e-9.
 Water boxes of 1.9 nm with a 0.9 nm cutoff (648 atoms): at that size the
@@ -261,9 +261,10 @@ def test_sweep_eval_matches_jax_dense(case):
 
     system = port_system(jsys)
     bound = BAOABIntegrator(temperature=300.0, sweep="force").bind(system)
-    assert bound.sweep_mode and bound._fused is None
+    assert bound.sweep_mode and bound.force_path.name != "K1"
     if case != "FlexibleReactionFieldWaterBox":
-        assert bound._sweep_recip is not None     # fused exclusion correction
+        # the fused exclusion correction
+        assert bound.force_path.recip is not None
     state = bound.initial_state(
         SamplerState(positions=torch.as_tensor(x),
                      velocities=torch.zeros((n, 3), dtype=torch.float64),
@@ -295,7 +296,8 @@ def test_sweep_eval_reads_the_scale_parameters_at_each_step():
                                 global_params=before)
     params = {k: torch.as_tensor(v, dtype=torch.float64)
               for k, v in after.items()}
-    u, f, _ = bound._sweep_eval(x, state.box, params, bound._sweep_dict(state))
+    u, f, _ = bound.force_path.evaluate_sweep(
+        x, state.box, params, bound.force_path.context(state))
     fresh = bound.initial_state(sampler, torch.Generator(),
                                 global_params=after)
     assert abs(float(u - fresh.potentials[0])) <= 1e-12 * abs(float(u))

@@ -33,7 +33,7 @@ from openmmtools_tpu.states import ThermodynamicState as JaxState
 from openmmtools_tpu.utils import equilibration as jeq
 from openmmtools_tpu_torch.cache import ContextCache
 from openmmtools_tpu_torch.forces import PositionalRestraintTerm
-from openmmtools_tpu_torch.integrators.langevin import BoundIntegrator
+from openmmtools_tpu_torch.integrators.force_paths import SweepPath
 from openmmtools_tpu_torch.mcmc import LangevinDynamicsMove, MCMCMove
 from openmmtools_tpu_torch.models import HarmonicOscillator, PMEWaterBox
 from openmmtools_tpu_torch.states import SamplerState, ThermodynamicState
@@ -264,13 +264,13 @@ def test_water_protocol_takes_the_sweep_path(monkeypatch):
     ]
     calls = []
     dense = []
-    original = BoundIntegrator._sweep_eval
+    original = SweepPath.evaluate_sweep
 
     def counting(self, *args, **kwargs):
         calls.append(self.system.fingerprint)
         return original(self, *args, **kwargs)
 
-    monkeypatch.setattr(BoundIntegrator, "_sweep_eval", counting)
+    monkeypatch.setattr(SweepPath, "evaluate_sweep", counting)
     monkeypatch.setattr(ThermodynamicState, "potential_energy",
                         lambda *a, **k: dense.append(a))
     cache = ContextCache(sweep="force")
@@ -288,7 +288,7 @@ def test_water_protocol_takes_the_sweep_path(monkeypatch):
     assert len({b.system.fingerprint for b in bounds}) == 4
     for b, restrained in zip(bounds, (True, True, True, False)):
         assert b.sweep_mode
-        leftover = [type(t) for t in b._sweep_leftover]
+        leftover = [type(t) for t in b.force_path.leftover]
         assert (PositionalRestraintTerm in leftover) == restrained
     counts = [calls.count(b.system.fingerprint) for b in bounds]
     # FIRE: a step each, its final energy, the acceptance check's two;
